@@ -1,0 +1,581 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (onepose_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases, one card
+
+Phases, each printing its lines before the last:
+  1. build the CUDA kernels from onepose_tpu_torch/csrc (one nvcc per
+     source, all at once) and print the card's name and power limit;
+  2. hold each kernel against its plain PyTorch version on the card, at the
+     main path's production shapes and at a ragged, masked shape, and time
+     both (CUDA events, L2 flushed before each launch, median);
+  3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
+     noise and 30% outliers, recovered within 1 cm and 1 degree;
+  4. the main path: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
+     2000 x 8 points, 512 hypotheses, 4 blocks, d_model 256, 4 heads, fp32,
+     random weights from a seed; shapes, finiteness, kernel launch counts,
+     agreement with the kernels-off path and with the CPU plain path on a
+     small input; frames/s with the kernels on and off;
+  5. one JSON line {"kernels": [...]}, then the last line
+     {"ok": true, "device": {...}}.
+
+Any failure raises: the script exits non-zero and prints no result line. It
+also exits non-zero, printing nothing on stdout, without CUDA or without the
+onepose_tpu_torch package beside it. TF32 is off (cudnn and matmul) for
+the parity phases; the main path runs with PyTorch's defaults.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("build", "kernels", "ransac", "main")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+NEG_INF = -1e9
+DEV = "cuda"
+
+# Shapes. The first entry of each kernel's list is the main path's
+# production shape (bench.py's serving configuration), the rest ragged.
+NMS_SHAPES = ((8, 512, 512), (3, 136, 200))  # [B, H, W]
+GATS_SHAPES = ((8, 2000, 8, 256, True), (3, 37, 5, 96, True), (2, 300, 8, 256, False))
+DUAL_SHAPES = ((8, 1000, 2000), (3, 45, 203))  # [B, M, N]
+RANSAC = dict(batch=8, matches=1000, hypotheses=512)
+MAIN = dict(batch=8, size=512, keypoints=1000, points=2000, leaves=8, hypotheses=512, blocks=4)
+TIMED_CALLS = 10
+# With random weights no pair clears the shipped threshold of 0.2 (conf
+# stays near 1e-3), so every mutual nearest neighbour counts as a match:
+# the comparisons then see real matches and RANSAC real correspondences.
+# The work is the same at any threshold (static shapes).
+MATCH_THRESHOLD = 0.0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+class Timer:
+    """Median device time of a call, each run after an L2 flush."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 * 2**20, dtype=torch.int32, device=DEV)  # 256 MB
+
+    def __call__(self, fn, reps: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def phase_build():
+    from onepose_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    for name in _build.KERNELS:
+        _build.load(name)
+    log(f"[build] {len(logs)} of {len(_build.KERNELS)} kernel libraries compiled with "
+        f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)  # the card's name and power limit, as nvidia-smi prints them
+    return smi
+
+
+def _nms_input(torch, g, b, h, w):
+    s = torch.rand((b, h, w), generator=g, device=DEV) ** 4
+    s[:, 5:8, 5:8] = 0.7
+    s[:, 0, 0] = 2.0
+    s[:, h - 1, w // 2] = 2.0
+    s[:, h // 2, w - 1] = 2.0
+    s[:, :, 10:12] = 0.0
+    return s.contiguous()
+
+
+def _dual_input(torch, g, b, m, n, c=256):
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    d3 = unit(torch.randn((b, n, c), generator=g, device=DEV))
+    pick = torch.randperm(n, generator=g, device=DEV)[:m]
+    noise = torch.randn((b, m, c), generator=g, device=DEV) * (0.3 / c**0.5)
+    d2 = unit(d3[:, pick] + noise)  # each row's true column stands out
+    s = torch.einsum("bmc,bnc->bmn", d2, d3) / 0.07
+    m2 = torch.rand((b, m), generator=g, device=DEV) < 0.9
+    m3 = torch.rand((b, n), generator=g, device=DEV) < 0.9
+    s = s.masked_fill(~m2[:, :, None], NEG_INF).masked_fill(~m3[:, None, :], NEG_INF)
+    return s.contiguous()
+
+
+def phase_kernels(torch, timer):
+    from onepose_tpu_torch.ops.kernels import dual_softmax, gats, score_path
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    rows = {}
+
+    # K1 NMS: bit-exact; the ragged shape at every radius class as well
+    # (the kernel is compiled once per radius).
+    for i, shape in enumerate(NMS_SHAPES):
+        prod = i == 0
+        s = _nms_input(torch, g, *shape)
+        for radius in (4,) if prod else (0, 1, 4, 9):
+            out, ref = score_path.nms(s, radius), score_path.simple_nms(s, radius)
+            torch.cuda.synchronize()
+            n_bad = int((out != ref).sum())
+            n_max = int((out > 0).sum())
+            log(f"[kernels] nms {shape} radius {radius}: {n_bad} differing pixels (bit-exact "
+                f"required), {n_max} maxima kept")
+            if n_bad or n_max == 0:
+                fail("nms kernel differs from simple_nms")
+        if prod:
+            err = float((out - ref).abs().max())
+            ms = timer(lambda: score_path.nms(s, 4))
+            plain = timer(lambda: score_path.simple_nms(s, 4), reps=5)
+            rows["nms"] = dict(
+                name="nms", route="cuda", source="onepose_tpu_torch/csrc/score_path.cu",
+                replaces="onepose_tpu/ops/pallas/score_path.py:94", max_abs_err=err,
+                ms=ms, plain_ms=plain, library_ms=None,
+            )
+            rows["nms"]["bound_ms"], rows["nms"]["bound_by"] = bound(
+                2 * s.numel() * 4, 5 * 2 * 9 * s.numel())
+
+    # K2 GATs leaf attention: max abs error <= 1e-5.
+    for i, (b, n3, L, c, masked) in enumerate(GATS_SHAPES):
+        prod = i == 0
+        leaves = torch.randn((b, n3, L, c), generator=g, device=DEV)
+        leaves = leaves / torch.linalg.vector_norm(leaves, dim=-1, keepdim=True)
+        d3 = torch.randn((b, n3, c), generator=g, device=DEV)
+        d3 = d3 / torch.linalg.vector_norm(d3, dim=-1, keepdim=True)
+        W = torch.randn((c, c), generator=g, device=DEV) * (2.0 / (2 * c)) ** 0.5
+        a2 = torch.randn((2, c), generator=g, device=DEV) * (2.0 / (2 * c + 1)) ** 0.5
+        mask = torch.rand((b, n3, L), generator=g, device=DEV) < 0.8 if masked else None
+        wa = gats.leaf_logit_vectors(W, a2)
+        add = gats.additive_mask(mask)
+        out = gats.gats_kernel(leaves, d3, add, wa, 0.2)
+        ref = gats.gats_leaf_attention_plain(leaves, d3, add, wa, 0.2)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        log(f"[kernels] gats {(b, n3, L, c)} masked={masked}: max abs err {err:.3e} (<= 1e-5)")
+        if not err <= 1e-5:
+            fail("gats kernel differs from its plain version")
+        if prod:
+            ms = timer(lambda: gats.gats_kernel(leaves, d3, add, wa, 0.2))
+            plain = timer(lambda: gats.gats_leaf_attention_plain(leaves, d3, add, wa, 0.2), reps=5)
+            n_bytes = (leaves.numel() + 2 * d3.numel() + add.numel() + wa.numel()) * 4
+            rows["gats"] = dict(
+                name="gats_leaf_attention", route="cuda", source="onepose_tpu_torch/csrc/gats.cu",
+                replaces="onepose_tpu/ops/pallas/gats.py:82", max_abs_err=err,
+                ms=ms, plain_ms=plain, library_ms=None,
+            )
+            rows["gats"]["bound_ms"], rows["gats"]["bound_by"] = bound(
+                n_bytes, 4 * b * n3 * (L + 1) * c)
+
+    # K3 dual-softmax: identical matches, scores <= 1e-6 relative.
+    for i, shape in enumerate(DUAL_SHAPES):
+        prod = i == 0
+        s = _dual_input(torch, g, *shape)
+        out = dual_softmax.dual_softmax_match(s, 0.2)
+        ref = dual_softmax.dual_softmax_match_plain(s, 0.2)
+        torch.cuda.synchronize()
+        bad = int((out["matches0"] != ref["matches0"]).sum()
+                  + (out["matches1"] != ref["matches1"]).sum())
+        rel = max(
+            float(((out[k] - ref[k]).abs() / ref[k].abs().clamp(min=1e-30)).max())
+            for k in ("matching_scores0", "matching_scores1")
+        )
+        err = max(float((out[k] - ref[k]).abs().max())
+                  for k in ("matching_scores0", "matching_scores1"))
+        n_hits = int((out["matches0"] >= 0).sum())
+        log(f"[kernels] dual_softmax {shape}: {bad} match mismatches (0 required), {n_hits} "
+            f"matches, scores max rel err {rel:.3e} (<= 1e-6)")
+        if bad or not rel <= 1e-6 or n_hits == 0:
+            fail("dual_softmax kernel differs from its plain version")
+        if prod:
+            b, m, n = shape
+            ms = timer(lambda: dual_softmax.dual_softmax_match(s, 0.2))
+            plain = timer(lambda: dual_softmax.dual_softmax_match_plain(s, 0.2), reps=5)
+            rows["dual_softmax"] = dict(
+                name="dual_softmax_match", route="cuda",
+                source="onepose_tpu_torch/csrc/dual_softmax.cu",
+                replaces="onepose_tpu/ops/pallas/dual_softmax.py:78", max_abs_err=err,
+                ms=ms, plain_ms=plain, library_ms=None,
+            )
+            rows["dual_softmax"]["bound_ms"], rows["dual_softmax"]["bound_by"] = bound(
+                s.numel() * 4 + b * (m + n) * 8, 10 * s.numel())
+    for r in rows.values():
+        log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def _synthetic_matches(torch, g, b, n, outlier_frac=0.3, noise=0.5):
+    from onepose_tpu_torch.geometry.rotations import qvec_to_rotmat
+
+    q = torch.randn((b, 4), generator=g, device=DEV)
+    R = qvec_to_rotmat(q / torch.linalg.vector_norm(q, dim=-1, keepdim=True))
+    t = torch.tensor([0.01, -0.02, 0.7], device=DEV).repeat(b, 1)
+    t[:, 0] += 0.01 * torch.arange(b, device=DEV)
+    K = torch.tensor([[600.0, 0, 256], [0, 600.0, 256], [0, 0, 1]], device=DEV).repeat(b, 1, 1)
+    pts3d = (torch.rand((b, n, 3), generator=g, device=DEV) - 0.5) * 0.2
+    pc = pts3d @ R.transpose(1, 2) + t[:, None]
+    uv = pc @ K.transpose(1, 2)
+    pts2d = uv[..., :2] / uv[..., 2:3] + noise * torch.randn((b, n, 2), generator=g, device=DEV)
+    out = torch.rand((b, n), generator=g, device=DEV) < outlier_frac
+    pts2d = torch.where(out[..., None], torch.rand((b, n, 2), generator=g, device=DEV) * 512,
+                        pts2d)
+    pose = torch.eye(4, device=DEV).repeat(b, 1, 1)
+    pose[:, :3, :3], pose[:, :3, 3] = R, t
+    return pts2d, pts3d, K, pose
+
+
+def phase_ransac(torch):
+    from onepose_tpu_torch.geometry import aggregate_metrics, query_pose_error, ransac_pnp
+
+    g = torch.Generator(device=DEV).manual_seed(1)
+    b, n = RANSAC["batch"], RANSAC["matches"]
+    pts2d, pts3d, K, pose_gt = _synthetic_matches(torch, g, b, n)
+    mask = torch.ones((b, n), dtype=torch.bool, device=DEV)
+    mask[:, n - 100:] = False  # padded slots
+    out = ransac_pnp(pts2d, pts3d, K, mask, n_hyp=RANSAC["hypotheses"], generator=g)
+    rot, trans = query_pose_error(out["pose"], pose_gt)
+    log(f"[ransac] {b} frames x {n} matches, 30% outliers, 0.5 px noise: rot err max "
+        f"{float(rot.max()):.4f} deg, trans err max {float(trans.max()):.4f} cm, inliers "
+        f"{out['num_inliers'].tolist()}, recall {aggregate_metrics(rot, trans)}")
+    if not (bool(out["ok"].all()) and float(rot.max()) < 1.0 and float(trans.max()) < 1.0):
+        fail("RANSAC-PnP oracle outside 1 cm / 1 degree")
+
+
+def _annotation(torch, g, n3, L, c, device):
+    from onepose_tpu_torch.runtime.pipeline import ObjectAnnotation
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    mask3d = torch.ones(n3, dtype=torch.bool, device=device)
+    mask3d[n3 - n3 // 20:] = False  # padded points
+    return ObjectAnnotation(
+        points3d=(torch.rand((n3, 3), generator=g, device=device) - 0.5) * 0.2,
+        desc3d=unit(torch.randn((n3, c), generator=g, device=device)),
+        leaf_desc=unit(torch.randn((n3, L, c), generator=g, device=device)),
+        mask3d=mask3d,
+        leaf_mask=torch.rand((n3, L), generator=g, device=device) < 0.8,
+    )
+
+
+def _images(torch, g, b, size, device):
+    """Smooth random images (noise blurred at a few scales) in [0, 1]."""
+    import torch.nn.functional as F
+
+    img = torch.zeros((b, 1, size, size), device=device)
+    for cells in (8, 32, 128):
+        noise = torch.rand((b, 1, cells, cells), generator=g, device=device)
+        img += F.interpolate(noise, size=(size, size), mode="bilinear", align_corners=False)
+    img = (img - img.amin()) / (img.amax() - img.amin())
+    return img.permute(0, 2, 3, 1).contiguous()
+
+
+def _pipelines(torch, n_blocks, configs, **kw):
+    """One PosePipeline per (kernels on, device) in `configs`, all with the
+    same random weights (seeded)."""
+    from onepose_tpu_torch.models.gats_spg import GATsSPG
+    from onepose_tpu_torch.models.superpoint import SuperPoint
+    from onepose_tpu_torch.runtime.pipeline import PosePipeline
+
+    torch.manual_seed(0)
+    sp_sd = SuperPoint().state_dict()
+    m_sd = GATsSPG(num_blocks=n_blocks).state_dict()
+    out = []
+    for on, device in configs:
+        sp = SuperPoint(nms_kernel=on)
+        sp.load_state_dict(sp_sd)
+        m = GATsSPG(num_blocks=n_blocks, gats_kernel=on, fused_match=on,
+                    match_threshold=MATCH_THRESHOLD)
+        m.load_state_dict(m_sd)
+        out.append(PosePipeline(superpoint=sp, matcher=m, device=device, **kw))
+    return out
+
+
+def phase_main(torch, rows):
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    # Small input first: the card (kernels) against the CPU plain path,
+    # with the same weights, images and RANSAC draws.
+    gpu_small, cpu_small = _pipelines(torch, 2, [(True, DEV), (True, "cpu")],
+                                      max_keypoints=64, ransac_hypotheses=32)
+    g = torch.Generator(device=DEV).manual_seed(2)
+    imgs = _images(torch, g, 2, 64, DEV)
+    anno = _annotation(torch, g, 32, 4, 256, DEV)
+    K = torch.tensor([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], device=DEV).repeat(2, 1, 1)
+    draws = torch.rand((2, 32, 3), generator=g, device=DEV)
+    a = gpu_small(imgs, K, anno, draws=draws)
+    c = cpu_small(imgs.cpu(), K.cpu(), anno.to("cpu"), draws=draws.cpu())
+    kp_agree = float((a["keypoints"].cpu() == c["keypoints"]).all(-1).float().mean())
+    m_agree = float((a["matches0"].cpu() == c["matches0"]).float().mean())
+    same = (a["keypoints"].cpu() == c["keypoints"]).all(-1)
+    desc_err = float((a["descriptors"].cpu() - c["descriptors"])[same].abs().max())
+    n_matches = c["num_matches"].tolist()
+    log(f"[main] small input, card vs CPU plain path: keypoint slots agreeing {kp_agree:.4f}, "
+        f"matches0 agreeing {m_agree:.4f} (CPU matches/frame {n_matches}, match_threshold "
+        f"{MATCH_THRESHOLD}), descriptor max abs err {desc_err:.2e} (fp32 convolutions sum "
+        "in another order on each side)")
+    if not (kp_agree >= 0.95 and m_agree >= 0.95 and desc_err < 1e-4 and sum(n_matches)):
+        fail("the card's path disagrees with the CPU plain path on a small input")
+
+    # Production shapes.
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults for the main path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("[main] TF32: cudnn on, matmul off (PyTorch defaults)")
+    B, S, KP, HYP = MAIN["batch"], MAIN["size"], MAIN["keypoints"], MAIN["hypotheses"]
+    on, off = _pipelines(torch, MAIN["blocks"], [(True, DEV), (False, DEV)], max_keypoints=KP,
+                         ransac_hypotheses=HYP)
+    g = torch.Generator(device=DEV).manual_seed(3)
+    imgs = _images(torch, g, B, S, DEV)
+    anno = _annotation(torch, g, MAIN["points"], MAIN["leaves"], 256, DEV)
+    K = torch.tensor([[500.0, 0, S / 2], [0, 500.0, S / 2], [0, 0, 1]], device=DEV).repeat(B, 1, 1)
+    draws = torch.rand((B, HYP, 3), generator=g, device=DEV)
+
+    on(imgs, K, anno, draws=draws)  # warm-up (cuDNN autotune, first launches)
+    torch.cuda.synchronize()
+    reset_launches()
+    res_on = on(imgs, K, anno, draws=draws)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {"nms": 1, "gats": MAIN["blocks"], "dual_softmax": 1}
+    log(f"[main] launches in one PosePipeline call: {counts} (want {want})")
+    if counts != want:
+        fail("the main path did not launch each kernel as expected")
+    for key, row in (("nms", "nms"), ("gats", "gats"), ("dual_softmax", "dual_softmax")):
+        if row in rows:
+            rows[row]["launches"] = counts[key]
+    reset_launches()
+    res_off = off(imgs, K, anno, draws=draws)
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        fail("kernels launched with the kernel flags off")
+
+    shapes = {"pose": (B, 4, 4), "keypoints": (B, KP, 2), "descriptors": (B, KP, 256),
+              "matches0": (B, KP), "inliers": (B, KP), "num_inliers": (B,)}
+    for k, shape in shapes.items():
+        if tuple(res_on[k].shape) != shape:
+            fail(f"{k} has shape {tuple(res_on[k].shape)}, want {shape}")
+    for k in ("pose", "descriptors", "matching_scores0", "kpt_scores"):
+        if not bool(torch.isfinite(res_on[k]).all()):
+            fail(f"{k} is not finite")
+    same_kp = bool(torch.equal(res_on["keypoints"], res_off["keypoints"]))
+    agree = float((res_on["matches0"] == res_off["matches0"]).float().mean())
+    log(f"[main] kernels on vs off: keypoints identical {same_kp}, matches0 agreement "
+        f"{agree:.4f}; keypoints/frame {res_on['kpt_mask'].sum(1).tolist()}, matches/frame "
+        f"{res_on['num_matches'].tolist()}, pnp_ok {res_on['pnp_ok'].tolist()}")
+    if not same_kp or agree < 0.95 or not bool((res_on["num_matches"] > 0).all()):
+        fail("the kernels-on main path disagrees with the kernels-off path")
+
+    for label, pipe in (("on", on), ("off", off)):
+        stages = _stage_times(torch, pipe, imgs, K, anno, draws)
+        log(f"[main] stages, kernels {label} (ms, median of 5, device synchronized between "
+            "stages): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    for label, pipe in (("on", on), ("off", off)):
+        counts = _stage_launches(torch, pipe, imgs, K, anno, draws)
+        log(f"[main] profiler, kernels {label}, per stage of one call (kernel launches, device "
+            "ms): " + ", ".join(f"{k} {n} {ms:.2f}" for k, (n, ms) in counts.items()))
+    _device_busy(torch, on, imgs, K, anno, draws)
+
+    def run(pipe, n=TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pipe(imgs, K, anno, draws=draws)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    for pipe in (on, off):  # warm-up
+        run(pipe, 3)
+    results = {"on": [], "off": []}
+    for label in ("on", "off", "off", "on") * 4:  # in turns: the host's load drifts
+        pipe = on if label == "on" else off
+        torch.cuda.reset_peak_memory_stats()
+        ms = run(pipe)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results[label].append(ms)
+        log(f"[main] kernels {label}: {ms:.2f} ms per call of {B} frames, "
+            f"{B / ms * 1e3:.1f} frames/s, peak memory {peak:.2f} GiB")
+    for label, runs in results.items():
+        q1, ms, q3 = statistics.quantiles(runs, n=4)
+        log(f"[main] kernels {label} (median of {len(runs)} runs of {TIMED_CALLS} calls): "
+            f"{ms:.2f} ms per call (quartiles {q1:.2f} .. {q3:.2f}), "
+            f"{B / ms * 1e3:.1f} frames/s")
+
+
+def _stages(torch, pipe, imgs, K, anno, draws):
+    """The steps of PosePipeline._forward as (name, call) pairs; each call
+    reads what the one before it left in a shared dict. Run them in order,
+    under torch.inference_mode()."""
+    from onepose_tpu_torch.geometry.ransac import ransac_pnp
+    from onepose_tpu_torch.models.superpoint import extract_keypoints
+
+    b = imgs.shape[0]
+    per_frame = {k: getattr(anno, k)[None].expand((b,) + getattr(anno, k).shape).contiguous()
+                 for k in ("desc3d", "leaf_desc", "mask3d", "leaf_mask", "points3d")}
+    st = {}
+
+    def superpoint():
+        st["dense"] = pipe.superpoint(imgs)
+
+    def keypoints():
+        st["feats"] = extract_keypoints(st["dense"]["score_map"], st["dense"]["descriptor_map"],
+                                        max_keypoints=pipe.max_keypoints,
+                                        keypoint_threshold=pipe.keypoint_threshold,
+                                        border=pipe.border)
+
+    def matcher():
+        f = st["feats"]
+        st["match"] = pipe.matcher(f["descriptors"], per_frame["desc3d"], per_frame["leaf_desc"],
+                                   f["mask"], per_frame["mask3d"], per_frame["leaf_mask"])
+
+    def ransac():
+        m0 = st["match"]["matches0"]
+        idx = m0.clamp(min=0).long()[..., None].expand(-1, -1, 3)
+        ransac_pnp(st["feats"]["keypoints"], torch.gather(per_frame["points3d"], 1, idx), K,
+                   m0 >= 0, draws=draws, n_hyp=pipe.ransac_hypotheses,
+                   reproj_threshold=pipe.reproj_threshold)
+
+    return (("superpoint", superpoint), ("extract_keypoints", keypoints), ("matcher", matcher),
+            ("ransac_pnp", ransac))
+
+
+def _stage_times(torch, pipe, imgs, K, anno, draws, reps=5) -> dict:
+    """Host-clock time of each stage of a PosePipeline call, with the device
+    synchronized between stages: median of `reps`."""
+    times = {}
+    with torch.inference_mode():
+        stages = _stages(torch, pipe, imgs, K, anno, draws)
+        for _ in range(reps):
+            for name, call in stages:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+def _stage_launches(torch, pipe, imgs, K, anno, draws) -> dict:
+    """(kernel launches, device ms) of each stage of one PosePipeline call,
+    each stage under its own torch.profiler (CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    with torch.inference_mode():
+        for name, call in _stages(torch, pipe, imgs, K, anno, draws):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            out[name] = (len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+    return out
+
+
+def _device_busy(torch, pipe, imgs, K, anno, draws, calls=3) -> None:
+    """Kernel time, kernel count and device busy share of PosePipeline calls
+    under torch.profiler (CUDA activity), and the kernels taking most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            pipe(imgs, K, anno, draws=draws)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    log(f"[main] profiler, kernels on, per call: {len(kernels) // calls} kernel launches, "
+        f"{busy:.2f} ms of device time in {wall:.2f} ms wall under the profiler: device busy "
+        f"{100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[main] profiler top kernel: {ms:.3f} ms/call  {name[:110]}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
+    args = parser.parse_args(argv)
+    phases = args.phases.split(",")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
+        return 1
+    if not (ROOT / "onepose_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: onepose_tpu_torch is not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s): "
+        f"{torch.cuda.get_device_name(0)}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("[env] TF32 off (cudnn and matmul) for the parity phases")
+    phase_build()  # every other phase needs the kernels
+    rows = {}
+    if "kernels" in phases:
+        rows = phase_kernels(torch, Timer(torch))
+    if "ransac" in phases:
+        phase_ransac(torch)
+    if "main" in phases:
+        phase_main(torch, rows)
+    if set(phases) != set(PHASES):
+        log(f"[partial] ran {phases} of {list(PHASES)}: no result line")
+        return 0
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""Shared model building blocks: point-MLPs and masked linear attention.
+
+Port of onepose_tpu/models/common.py for the GATsSPG path. Point sets are
+channel-last [B, N, C] and masks are bool [B, N] with True = valid, as in
+the JAX package. Linear layers carry the JAX module names (`dense_0`, `proj_q`,
+`merge`, ...) so that `models.bridge` maps parameters one to one.
+
+Softmax / flash attention belong to SuperGlue and are not ported yet
+(ROADMAP.md); `MultiHeadAttention(kind="softmax")` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from onepose_tpu_torch._device import check_compute_dtype
+
+NEG_INF = -1e9
+
+
+def masked_instance_norm(
+    x: torch.Tensor, mask: Optional[torch.Tensor], eps: float = 1e-5
+) -> torch.Tensor:
+    """InstanceNorm over the point axis of [B, N, C] (no affine); biased
+    variance, statistics in fp32. mask=None uses every point."""
+    dtype = x.dtype
+    x = x.float()
+    if mask is None:
+        mean = x.mean(dim=1, keepdim=True)
+        var = x.var(dim=1, keepdim=True, unbiased=False)
+    else:
+        w = mask.to(x.dtype)[..., None]
+        n = w.sum(dim=1, keepdim=True).clamp(min=1.0)
+        mean = (x * w).sum(dim=1, keepdim=True) / n
+        var = ((x - mean).square() * w).sum(dim=1, keepdim=True) / n
+    return ((x - mean) * torch.rsqrt(var + eps)).to(dtype)
+
+
+class PointMLP(nn.Module):
+    """Pointwise Linear + norm + ReLU stack over [B, N, C].
+
+    norm: 'instance' (statistics over the N axis, no affine), 'batch'
+    (folded batch norm: a learned per-channel affine) or 'none'; applied
+    between layers, not after the last. instance_mask_aware=False (the
+    default, reference parity) takes statistics over padded points too."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: Sequence[int],
+        norm: str = "instance",
+        instance_mask_aware: bool = False,
+    ):
+        super().__init__()
+        if norm not in ("instance", "batch", "none"):
+            raise ValueError(f"unknown norm {norm!r}")
+        self.norm = norm
+        self.instance_mask_aware = instance_mask_aware
+        self.n_layers = len(features)
+        prev = in_features
+        for i, feat in enumerate(features):
+            self.add_module(f"dense_{i}", nn.Linear(prev, feat))
+            if norm == "batch" and i < self.n_layers - 1:
+                self.register_parameter(f"bn_scale_{i}", nn.Parameter(torch.ones(feat)))
+                self.register_parameter(f"bn_bias_{i}", nn.Parameter(torch.zeros(feat)))
+            prev = feat
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            if i < self.n_layers - 1:
+                if self.norm == "instance":
+                    x = masked_instance_norm(x, mask if self.instance_mask_aware else None)
+                elif self.norm == "batch":
+                    x = x * getattr(self, f"bn_scale_{i}") + getattr(self, f"bn_bias_{i}")
+                x = F.relu(x)
+        return x
+
+
+def masked_linear_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Linear attention with the elu+1 feature map (fp32).
+
+    q: [B, N, H, D]; k, v: [B, M, H, D]; kv_mask: [B, M]. Masked keys
+    contribute nothing (phi(k) is zeroed); values are divided by M and the
+    result multiplied back (the reference's value-length conditioning)."""
+    m = v.shape[1]
+    phi_q = F.elu(q) + 1.0
+    phi_k = F.elu(k) + 1.0
+    if kv_mask is not None:
+        phi_k = phi_k * kv_mask.to(phi_k.dtype)[:, :, None, None]
+    kv = torch.einsum("bmhd,bmhe->bhde", phi_k, v / m)
+    z = 1.0 / (torch.einsum("bnhd,bhd->bnh", phi_q, phi_k.sum(dim=1)) + eps)
+    return torch.einsum("bnhd,bhde,bnh->bnhe", phi_q, kv, z) * m
+
+
+class MultiHeadAttention(nn.Module):
+    """Q/K/V projections + linear attention + output merge. Channels are
+    head-major (c = h * D + d), so the head split is a plain reshape."""
+
+    def __init__(self, num_heads: int, d_model: int, kind: str = "linear"):
+        super().__init__()
+        if kind != "linear":
+            raise NotImplementedError(
+                f"attention kind {kind!r}: softmax attention (SuperGlue) is "
+                "not ported yet, see ROADMAP.md"
+            )
+        self.num_heads = num_heads
+        self.d_model = d_model
+        self.proj_q = nn.Linear(d_model, d_model)
+        self.proj_k = nn.Linear(d_model, d_model)
+        self.proj_v = nn.Linear(d_model, d_model)
+        self.merge = nn.Linear(d_model, d_model)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        source: torch.Tensor,
+        source_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        b, n, _ = x.shape
+        m = source.shape[1]
+        hd = self.d_model // self.num_heads
+        q = self.proj_q(x).reshape(b, n, self.num_heads, hd).float()
+        k = self.proj_k(source).reshape(b, m, self.num_heads, hd).float()
+        v = self.proj_v(source).reshape(b, m, self.num_heads, hd).float()
+        out = masked_linear_attention(q, k, v, source_mask)
+        return self.merge(out.reshape(b, n, self.d_model))
+
+
+class AttentionalPropagation(nn.Module):
+    """One message-passing step: attend to source, MLP on [x, message].
+    The residual add happens in the caller."""
+
+    def __init__(
+        self,
+        d_model: int,
+        num_heads: int,
+        kind: str = "linear",
+        norm: str = "batch",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        check_compute_dtype(dtype)
+        self.attn = MultiHeadAttention(num_heads, d_model, kind=kind)
+        self.mlp = PointMLP(2 * d_model, [2 * d_model, d_model], norm=norm)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        source: torch.Tensor,
+        source_mask: Optional[torch.Tensor] = None,
+        x_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        message = self.attn(x, source, source_mask)
+        return self.mlp(torch.cat([x, message], dim=-1), x_mask)

@@ -1,0 +1,152 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Each `csrc/<name>.cu` becomes its own shared library with a plain C
+interface, compiled for Hopper (`sm_90a`) into `build/torch_kernels/` at
+the repository root the first time a kernel is needed. The file name
+carries a hash of the sources and flags, so an edited kernel is rebuilt and
+a stale library is never loaded. `build()` starts one nvcc per source, all
+at once, and waits for them together.
+
+Every C entry point returns `cudaGetLastError()` after its launches;
+`check()` raises on a non-zero code, since a refused launch never runs and
+a later synchronize would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "--ptxas-options=-v",  # registers / shared memory / spills in the build log
+)
+KERNELS = ("score_path", "gats", "dual_softmax")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of each library: name -> (argtypes, restype).
+SIGNATURES = {
+    "score_path": {
+        "nms_launch": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "gats": {
+        "gats_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
+    },
+    "dual_softmax": {
+        "dual_softmax_launch": ([_P, _I, _I, _I, _F] + [_P] * 10, _I),
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+        Path("/usr/local/cuda/bin/nvcc")
+    ]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> dict[str, str]:
+    """Compile every named kernel source that is not built yet, one nvcc
+    process per source, all running at once. Returns the compiler log of
+    each source compiled now; raises with the logs if any failed."""
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs[name] = (proc, tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda_input(t: torch.Tensor, what: str, ndim: int, dtype=torch.float32):
+    """Raise unless `t` is what a kernel takes: a contiguous CUDA tensor of
+    `dtype` and rank `ndim`, 16-byte aligned, that needs no gradient (the
+    kernels are forward-only)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected rank {ndim}, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: data pointer is not 16-byte aligned")
+    if t.requires_grad:
+        raise RuntimeError(
+            f"{what}: the CUDA kernel is forward-only; run under "
+            "torch.no_grad() / torch.inference_mode()"
+        )
