@@ -7,15 +7,20 @@ Phases, each printing its lines before the last:
   1. build the CUDA kernels from onepose_tpu_torch/csrc (one nvcc per
      source, all at once) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's production shapes and at a ragged, masked shape, and time
-     both (CUDA events, L2 flushed before each launch, median);
+     main path's production shapes and at ragged, masked shapes, and time
+     both (CUDA events, L2 flushed before each launch, median), beside the
+     bound at the card's peak rate for the kernel's operand type and, where
+     one PyTorch call computes the same thing, that call's time;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
-  4. the main path: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
-     2000 x 8 points, 512 hypotheses, 4 blocks, d_model 256, 4 heads, fp32,
-     random weights from a seed; shapes, finiteness, kernel launch counts,
-     agreement with the kernels-off path and with the CPU plain path on a
-     small input; frames/s with the kernels on and off;
+  4. the main paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
+     2000 x 8 points, 512 hypotheses, 4 blocks, d_model 256, 4 heads,
+     random weights from a seed, in bf16 (the serving default: NMS, VGG
+     stage, fused block and dual-softmax kernels) and in fp32 (NMS, GATs
+     and dual-softmax kernels); shapes, finiteness, kernel launch counts
+     per path, agreement with the CPU plain path on a small input and
+     between the paths; per-stage times and launches, device busy share
+     and frames/s of bf16 kernels on / off and fp32 kernels on / off;
   5. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
@@ -39,6 +44,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "ransac", "main")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 NEG_INF = -1e9
 DEV = "cuda"
 
@@ -47,6 +53,21 @@ DEV = "cuda"
 NMS_SHAPES = ((8, 512, 512), (3, 136, 200))  # [B, H, W]
 GATS_SHAPES = ((8, 2000, 8, 256, True), (3, 37, 5, 96, True), (2, 300, 8, 256, False))
 DUAL_SHAPES = ((8, 1000, 2000), (3, 45, 203))  # [B, M, N]
+# [B, H, W, Cin, C1, C2, pool]: the four stages of one encoder pass, then ragged ones.
+VGG_SHAPES = (
+    ((8, 512, 512, 1, 64, 64, True), (8, 256, 256, 64, 64, 64, True),
+     (8, 128, 128, 64, 128, 128, True), (8, 64, 64, 128, 128, 128, False)),
+    ((3, 136, 200, 1, 64, 64, True), (3, 68, 100, 64, 128, 128, True),
+     (3, 68, 100, 128, 128, 128, False)),
+)
+BLOCK_SHAPES = ((8, 1000, 2000, 8, 256, True), (3, 37, 45, 5, 256, True),
+                (2, 300, 200, 8, 256, False))  # [B, N2, N3, L, C, masked]
+GEMM_SHAPE = (16000, 512, 512)  # [M, K, N]: the block's largest GEMM (MLP dense_0 on x3, x2)
+BLOCK_BF16_REL = 2e-2  # K4 in bf16: max |kernel - plain| / max |plain|
+# bf16 against fp32 at the production shape, on the dense maps. bf16 keeps
+# 8 significant bits: rounding the encoder's activations moves a softmax
+# score by a few 1e-4 relative and a unit descriptor's entries by about 1e-3.
+BF16_SCORE_REL, BF16_DESC_ABS = 2e-3, 5e-3
 RANSAC = dict(batch=8, matches=1000, hypotheses=512)
 MAIN = dict(batch=8, size=512, keypoints=1000, points=2000, leaves=8, hypotheses=512, blocks=4)
 TIMED_CALLS = 10
@@ -65,8 +86,10 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for the work at the card's peaks;
+    ops_per_s is the peak rate of the operand type (fp32 SIMT, bf16 MMA)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -235,10 +258,177 @@ def phase_kernels(torch, timer):
             )
             rows["dual_softmax"]["bound_ms"], rows["dual_softmax"]["bound_by"] = bound(
                 s.numel() * 4 + b * (m + n) * 8, 10 * s.numel())
+    rows["vgg_stage"] = _kernels_vgg(torch, timer, g)
+    rows["gats_block"] = _kernels_block(torch, timer, g)
     for r in rows.values():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def _bf16_ulp(torch, x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    mag = x.abs().clamp(min=2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _kernels_vgg(torch, timer, g):
+    """K5: at least 99% of the elements bit-identical to the plain version
+    (the same rounding points; the fp32 sums run in another order), the
+    rest within 2^-6 of the largest output: where a conv1 sum lands on the
+    other side of a bf16 rounding boundary, that one-ulp flip of conv1's
+    output moves conv2's sums by a few ulps of their own. Timed as one
+    encoder pass (the four production stages)."""
+    import torch.nn.functional as F
+
+    from onepose_tpu_torch.ops.kernels import vgg_stage
+
+    def stage_args(b, h, w, cin, c1, c2, pool):
+        if cin == 1:
+            x = torch.rand((b, h, w, 1), generator=g, device=DEV)
+        else:
+            x = torch.relu(torch.randn((b, h, w, cin), generator=g, device=DEV)).bfloat16()
+        w1 = torch.randn((3, 3, cin, c1), generator=g, device=DEV) * (2.0 / (9 * cin)) ** 0.5
+        w2 = torch.randn((3, 3, c1, c2), generator=g, device=DEV) * (2.0 / (9 * c1)) ** 0.5
+        b1 = torch.randn((c1,), generator=g, device=DEV) * 0.1
+        b2 = torch.randn((c2,), generator=g, device=DEV) * 0.1
+        return x, w1, b1, w2, b2, pool
+
+    prod, err = [], 0.0
+    for i, shapes in enumerate(VGG_SHAPES):
+        for shape in shapes:
+            args = stage_args(*shape)
+            out = vgg_stage.vgg_stage_kernel(*args).float()
+            ref = vgg_stage.vgg_stage_plain(*args).float()
+            torch.cuda.synchronize()
+            same = float((out == ref).float().mean())
+            err, top = float((out - ref).abs().max()), float(ref.abs().max())
+            ulp = (out - ref).abs() / _bf16_ulp(torch, torch.maximum(out.abs(), ref.abs()))
+            nz = float((ref != 0).float().mean())
+            log(f"[kernels] vgg_stage {shape}: {same:.6f} of elements bit-identical (>= 0.99), "
+                f"max abs err {err:.3e} (<= 2^-6 x max |plain| = {top / 64:.3e}); "
+                f"{int((ulp > 1).sum())} of {ref.numel()} elements over one bf16 ulp of their "
+                f"own value (max {float(ulp.max()):.1f}); {nz:.3f} non-zero")
+            if not (same >= 0.99 and err <= top / 64 and nz > 0.05):
+                fail("vgg_stage kernel differs from its plain version")
+            if i == 0:
+                prod.append(args)
+                err = max(err, float((out - ref).abs().max()))
+    n_bytes = n_ops = 0
+    for x, w1, b1, w2, b2, pool in prod:
+        b, h, w, cin = x.shape
+        c1, c2 = w1.shape[-1], w2.shape[-1]
+        out_bytes = b * (h // 2 if pool else h) * (w // 2 if pool else w) * c2 * (4 if cin == 1
+                                                                                  else 2)
+        n_bytes += x.numel() * x.element_size() + 2 * (w1.numel() + w2.numel()) + out_bytes
+        n_ops += 2 * b * h * w * 9 * (cin * c1 + c1 * c2)
+    # The library yardstick: cuDNN's bf16 conv pair + ReLU [+ pool], channels_last.
+    lib_args = []
+    for x, w1, b1, w2, b2, pool in prod:
+        xl = x.bfloat16().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        lib_args.append((xl, *(t.bfloat16().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last) for t in (w1, w2)), b1.bfloat16(), b2.bfloat16(),
+            pool))
+
+    def library():
+        for xl, w1l, w2l, b1l, b2l, pool in lib_args:
+            z = F.relu(F.conv2d(F.relu(F.conv2d(xl, w1l, b1l, padding=1)), w2l, b2l, padding=1))
+            if pool:
+                F.max_pool2d(z, 2, 2)
+
+    ms = timer(lambda: [vgg_stage.vgg_stage_kernel(*a) for a in prod])
+    plain = timer(lambda: [vgg_stage.vgg_stage_plain(*a) for a in prod], reps=5)
+    lib = timer(library)
+    row = dict(name="vgg_stage", route="cuda", source="onepose_tpu_torch/csrc/vgg_stage.cu",
+               replaces="onepose_tpu/ops/pallas/vgg_stage.py:160", max_abs_err=err, ms=ms,
+               plain_ms=plain, library_ms=lib)
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[kernels] vgg_stage: times are of one encoder pass (4 launches: {n_ops / 1e9:.1f} "
+        f"GFLOP, {n_bytes / 1e6:.1f} MB)")
+    return row
+
+
+def _block_inputs(torch, g, b, n2, n3, L, c, masked):
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEV) * scale
+
+    x = (rn(b, n2, c), rn(b, n3, c), rn(b, n3, L, c))
+    masks = ((torch.rand((b, n2), generator=g, device=DEV) < 0.8,
+              torch.rand((b, n3), generator=g, device=DEV) < 0.8,
+              torch.rand((b, n3, L), generator=g, device=DEV) < 0.7) if masked
+             else (None, None, None))
+    params = {"wa": rn(2, c, scale=c**-0.5)}
+    for s in ("self", "cross"):
+        params.update({f"{s}_w4": rn(4, c, c, scale=c**-0.5), f"{s}_b4": rn(4, c, scale=0.1),
+                       f"{s}_w0": rn(2 * c, 2 * c, scale=(2 * c) ** -0.5),
+                       f"{s}_b0": rn(2 * c, scale=0.1),
+                       f"{s}_w1": rn(2 * c, c, scale=(2 * c) ** -0.5), f"{s}_b1": rn(c, scale=0.1)})
+    return (*x, *masks, params)
+
+
+def _block_ops(b, n2, n3, L, c, h=4):
+    """Products of one block: GATs, the q/k/v, merge and MLP GEMMs, and the
+    per-head kv and numerator of each of the four attentions."""
+    d, rows = c // h, b * (n2 + n3)
+    gemm = 2 * rows * c * 3 * c * 2 + 2 * rows * (c * c + 4 * c * c + 2 * c * c) * 2
+    attn = sum(4 * b * n * h * d * d + 2 * b * n * c for n in (n2, n3, n2, n3))
+    return 4 * b * n3 * (L + 1) * c + gemm + attn
+
+
+def _kernels_block(torch, timer, g):
+    """K4: fp32 within 1e-4 absolute of the plain version; bf16 within
+    BLOCK_BF16_REL of the largest output (the same rounding points; a sum
+    that lands on the other side of a bf16 rounding boundary moves one
+    operand by 2^-8, and four attention layers with instance norms carry
+    that on). Timed in bf16 at the production shape, one launch (33 CUDA
+    kernels); the block's GEMM alone beside bf16 torch.matmul."""
+    from onepose_tpu_torch.ops.kernels import gats_block
+
+    row = None
+    for i, shape in enumerate(BLOCK_SHAPES):
+        args = _block_inputs(torch, g, *shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            out = gats_block.gats_block_kernel(*args, dtype=dtype)
+            ref = gats_block.fused_gats_block_plain(*args, dtype=dtype)
+            torch.cuda.synchronize()
+            err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+            rel = max(float((o - r).abs().max() / r.abs().max()) for o, r in zip(out, ref))
+            finite = all(bool(torch.isfinite(o).all()) for o in out)
+            ok = err <= 1e-4 if dtype == torch.float32 else rel <= BLOCK_BF16_REL
+            log(f"[kernels] gats_block {shape} {str(dtype)[6:]}: max abs err {err:.3e}, max rel "
+                f"err {rel:.3e} (fp32: abs <= 1e-4; bf16: rel <= {BLOCK_BF16_REL})")
+            if not (ok and finite):
+                fail("gats_block kernels differ from their plain version")
+        if i == 0:
+            b, n2, n3, L, c, _ = shape
+            ms = timer(lambda: gats_block.gats_block_kernel(*args))
+            plain = timer(lambda: gats_block.fused_gats_block_plain(*args), reps=5)
+            n_bytes = sum(t.numel() * t.element_size() for t in args[:6] if t is not None)
+            n_bytes += sum(t.numel() * 2 for t in args[6].values()) + 4 * b * (n2 + n3) * c
+            row = dict(name="gats_block", route="cuda",
+                       source="onepose_tpu_torch/csrc/gats_block.cu",
+                       replaces="onepose_tpu/ops/pallas/gats_block.py:173", max_abs_err=err,
+                       ms=ms, plain_ms=plain, library_ms=None)
+            row["bound_ms"], row["bound_by"] = bound(n_bytes, _block_ops(b, n2, n3, L, c),
+                                                     BF16_OPS_PER_S)
+    m, k, n = GEMM_SHAPE
+    a = torch.randn((m, k), generator=g, device=DEV)
+    w = torch.randn((k, n), generator=g, device=DEV) * k**-0.5
+    bias = torch.randn((n,), generator=g, device=DEV) * 0.1
+    out, ref = gats_block.gemm(a, w, bias), gats_block.gemm_plain(a, w, bias)
+    err = float((out - ref).abs().max())
+    ms = timer(lambda: gats_block.gemm(a, w, bias))
+    plain = timer(lambda: gats_block.gemm_plain(a, w, bias), reps=5)
+    ab, wb = a.bfloat16(), w.bfloat16()
+    lib = timer(lambda: torch.matmul(ab, wb))
+    gb, gby = bound(4 * m * k + 2 * k * n + 4 * m * n, 2 * m * k * n, BF16_OPS_PER_S)
+    log(f"[kernels] gats_block GEMM [{m}, {k}] x [{k}, {n}] bf16: max abs err {err:.3e} vs plain; "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (bf16 torch.matmul, bf16 in and out) "
+        f"{lib:.4f} ms, bound {gb:.4f} ms ({gby})")
+    if not err <= 1e-3 * float(ref.abs().max()):
+        fail("the gats_block GEMM differs from its plain version")
+    return row
 
 
 def _synthetic_matches(torch, g, b, n, outlier_frac=0.3, noise=0.5):
@@ -308,8 +498,9 @@ def _images(torch, g, b, size, device):
 
 
 def _pipelines(torch, n_blocks, configs, **kw):
-    """One PosePipeline per (kernels on, device) in `configs`, all with the
-    same random weights (seeded)."""
+    """One PosePipeline per (dtype, kernels on, device) in `configs`, all with
+    the same random weights (seeded). Kernels on: NMS, VGG stage, fused
+    block and dual softmax in bf16; NMS, GATs and dual softmax in fp32."""
     from onepose_tpu_torch.models.gats_spg import GATsSPG
     from onepose_tpu_torch.models.superpoint import SuperPoint
     from onepose_tpu_torch.runtime.pipeline import PosePipeline
@@ -318,99 +509,199 @@ def _pipelines(torch, n_blocks, configs, **kw):
     sp_sd = SuperPoint().state_dict()
     m_sd = GATsSPG(num_blocks=n_blocks).state_dict()
     out = []
-    for on, device in configs:
-        sp = SuperPoint(nms_kernel=on)
+    for dtype, on, device in configs:
+        bf16 = dtype == torch.bfloat16
+        sp = SuperPoint(dtype=dtype, nms_kernel=on, vgg_kernel=on and bf16)
         sp.load_state_dict(sp_sd)
-        m = GATsSPG(num_blocks=n_blocks, gats_kernel=on, fused_match=on,
-                    match_threshold=MATCH_THRESHOLD)
+        m = GATsSPG(num_blocks=n_blocks, dtype=dtype, gats_kernel=on and not bf16,
+                    block_fused=on and bf16, fused_match=on, match_threshold=MATCH_THRESHOLD)
         m.load_state_dict(m_sd)
-        out.append(PosePipeline(superpoint=sp, matcher=m, device=device, **kw))
+        out.append(PosePipeline(superpoint=sp, matcher=m, device=device, compute_dtype=dtype,
+                                **kw))
     return out
 
 
-def phase_main(torch, rows):
-    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+def _raw_maps(torch, pipe, imgs) -> dict:
+    """The pipeline's SuperPoint dense maps with NMS radius 0: the raw score
+    map, before NMS and top-k pick among near-ties."""
+    sp = pipe.superpoint
+    radius, sp.nms_radius = sp.nms_radius, 0
+    try:
+        with torch.inference_mode():
+            return sp(imgs)
+    finally:
+        sp.nms_radius = radius
 
-    # Small input first: the card (kernels) against the CPU plain path,
-    # with the same weights, images and RANSAC draws.
-    gpu_small, cpu_small = _pipelines(torch, 2, [(True, DEV), (True, "cpu")],
-                                      max_keypoints=64, ransac_hypotheses=32)
-    g = torch.Generator(device=DEV).manual_seed(2)
-    imgs = _images(torch, g, 2, 64, DEV)
-    anno = _annotation(torch, g, 32, 4, 256, DEV)
-    K = torch.tensor([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], device=DEV).repeat(2, 1, 1)
-    draws = torch.rand((2, 32, 3), generator=g, device=DEV)
-    a = gpu_small(imgs, K, anno, draws=draws)
-    c = cpu_small(imgs.cpu(), K.cpu(), anno.to("cpu"), draws=draws.cpu())
+
+def _keypoint_overlap(a, b) -> float:
+    """The JAX package's keypoint criterion (tests/test_pipeline.py:254): the
+    share of b's valid keypoints that a also holds, averaged over frames."""
+    agree = 0.0
+    for i in range(a["keypoints"].shape[0]):
+        sa = {tuple(k) for k in a["keypoints"][i][a["kpt_mask"][i]].tolist()}
+        sb = {tuple(k) for k in b["keypoints"][i][b["kpt_mask"][i]].tolist()}
+        agree += len(sa & sb) / max(len(sb), 1) / a["keypoints"].shape[0]
+    return agree
+
+
+def _small_input(torch, g, device):
+    imgs = _images(torch, g, 2, 64, device)
+    anno = _annotation(torch, g, 32, 4, 256, device)
+    K = torch.tensor([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]], device=device).repeat(2, 1, 1)
+    draws = torch.rand((2, 32, 3), generator=g, device=device)
+    return imgs, K, anno, draws
+
+
+def _small_fp32(torch):
+    """fp32: the card (kernels) against the CPU plain path on a small input,
+    with the same weights, images and RANSAC draws."""
+    gpu, cpu = _pipelines(torch, 2, [(torch.float32, True, DEV), (torch.float32, True, "cpu")],
+                          max_keypoints=64, ransac_hypotheses=32)
+    imgs, K, anno, draws = _small_input(torch, torch.Generator(device=DEV).manual_seed(2), DEV)
+    a = gpu(imgs, K, anno, draws=draws)
+    c = cpu(imgs.cpu(), K.cpu(), anno.to("cpu"), draws=draws.cpu())
     kp_agree = float((a["keypoints"].cpu() == c["keypoints"]).all(-1).float().mean())
     m_agree = float((a["matches0"].cpu() == c["matches0"]).float().mean())
     same = (a["keypoints"].cpu() == c["keypoints"]).all(-1)
     desc_err = float((a["descriptors"].cpu() - c["descriptors"])[same].abs().max())
     n_matches = c["num_matches"].tolist()
-    log(f"[main] small input, card vs CPU plain path: keypoint slots agreeing {kp_agree:.4f}, "
+    log(f"[main] fp32 small input, card vs CPU plain path: keypoint slots agreeing {kp_agree:.4f}, "
         f"matches0 agreeing {m_agree:.4f} (CPU matches/frame {n_matches}, match_threshold "
         f"{MATCH_THRESHOLD}), descriptor max abs err {desc_err:.2e} (fp32 convolutions sum "
         "in another order on each side)")
     if not (kp_agree >= 0.95 and m_agree >= 0.95 and desc_err < 1e-4 and sum(n_matches)):
-        fail("the card's path disagrees with the CPU plain path on a small input")
+        fail("the card's fp32 path disagrees with the CPU plain path on a small input")
+
+
+def _small_bf16(torch):
+    """bf16: the card (NMS, VGG-stage, fused-block, dual-softmax kernels)
+    against the CPU plain path on a small input. Keypoint slots are
+    reported, not held: with random weights the score map is nearly flat,
+    and NMS and top-k turn 1-ulp bf16 differences into other picks (the JAX
+    package's own two bf16 SuperPoint paths do not agree on every slot
+    either). Held: the kept keypoint scores, sorted, within
+    1e-4 + 1e-2 relative; then, from the same features, matches0 agreeing
+    on at least 90% of the slots and poses within 1e-3 on the frames whose
+    matches agree."""
+    gpu, cpu = _pipelines(torch, 2, [(torch.bfloat16, True, DEV), (torch.bfloat16, True, "cpu")],
+                          max_keypoints=64, ransac_hypotheses=32)
+    imgs, K, anno, draws = _small_input(torch, torch.Generator(device=DEV).manual_seed(4), DEV)
+    a = {k: v.cpu() for k, v in gpu(imgs, K, anno, draws=draws).items()}
+    c = cpu(imgs.cpu(), K.cpu(), anno.to("cpu"), draws=draws.cpu())
+    kp_agree = float((a["keypoints"] == c["keypoints"]).all(-1).float().mean())
+    counts = [a["kpt_mask"].sum(1).tolist(), c["kpt_mask"].sum(1).tolist()]
+    score_ok = True
+    for i in range(a["keypoints"].shape[0]):
+        n = min(int(a["kpt_mask"][i].sum()), int(c["kpt_mask"][i].sum()))
+        sa = torch.sort(a["kpt_scores"][i], descending=True).values[:n]
+        sc = torch.sort(c["kpt_scores"][i], descending=True).values[:n]
+        score_ok &= bool(torch.allclose(sa, sc, atol=1e-4, rtol=1e-2))
+    feats = {"keypoints": c["keypoints"], "descriptors": c["descriptors"],
+             "scores": c["kpt_scores"], "mask": c["kpt_mask"]}
+    fa = gpu.from_features({k: v.to(DEV) for k, v in feats.items()}, K, anno, draws=draws)
+    fc = cpu.from_features(feats, K.cpu(), anno.to("cpu"), draws=draws.cpu())
+    m_agree = float((fa["matches0"].cpu() == fc["matches0"]).float().mean())
+    same = ((fa["matches0"].cpu() == fc["matches0"]).all(-1) & fa["pnp_ok"].cpu() & fc["pnp_ok"])
+    pose_err = float((fa["pose"].cpu() - fc["pose"])[same].abs().max()) if bool(same.any()) else 0.0
+    log(f"[main] bf16 small input, card vs CPU plain path: keypoint slots agreeing {kp_agree:.4f} "
+        f"(reported), valid keypoints/frame {counts}, kept scores within 1e-4 + 1e-2 rel "
+        f"{score_ok}; from the same features: matches0 agreeing {m_agree:.4f} (CPU matches/frame "
+        f"{fc['num_matches'].tolist()}), pose max abs err {pose_err:.2e} on "
+        f"{int(same.sum())} frame(s) with identical matches")
+    if not (score_ok and m_agree >= 0.9 and pose_err <= 1e-3 and int(fc["num_matches"].sum())
+            and abs(counts[0][0] - counts[1][0]) <= 3 and abs(counts[0][1] - counts[1][1]) <= 3):
+        fail("the card's bf16 path disagrees with the CPU plain path on a small input")
+
+
+def phase_main(torch, rows):
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    _small_fp32(torch)
+    _small_bf16(torch)
 
     # Production shapes.
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults for the main path
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[main] TF32: cudnn on, matmul off (PyTorch defaults)")
     B, S, KP, HYP = MAIN["batch"], MAIN["size"], MAIN["keypoints"], MAIN["hypotheses"]
-    on, off = _pipelines(torch, MAIN["blocks"], [(True, DEV), (False, DEV)], max_keypoints=KP,
-                         ransac_hypotheses=HYP)
+    labels = ("bf16 on", "bf16 off", "fp32 on", "fp32 off")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    pipes = dict(zip(labels, _pipelines(
+        torch, MAIN["blocks"], [(bf16, True, DEV), (bf16, False, DEV), (fp32, True, DEV),
+                                (fp32, False, DEV)], max_keypoints=KP, ransac_hypotheses=HYP)))
     g = torch.Generator(device=DEV).manual_seed(3)
     imgs = _images(torch, g, B, S, DEV)
     anno = _annotation(torch, g, MAIN["points"], MAIN["leaves"], 256, DEV)
     K = torch.tensor([[500.0, 0, S / 2], [0, 500.0, S / 2], [0, 0, 1]], device=DEV).repeat(B, 1, 1)
     draws = torch.rand((B, HYP, 3), generator=g, device=DEV)
 
-    on(imgs, K, anno, draws=draws)  # warm-up (cuDNN autotune, first launches)
-    torch.cuda.synchronize()
-    reset_launches()
-    res_on = on(imgs, K, anno, draws=draws)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    want = {"nms": 1, "gats": MAIN["blocks"], "dual_softmax": 1}
-    log(f"[main] launches in one PosePipeline call: {counts} (want {want})")
-    if counts != want:
-        fail("the main path did not launch each kernel as expected")
-    for key, row in (("nms", "nms"), ("gats", "gats"), ("dual_softmax", "dual_softmax")):
-        if row in rows:
-            rows[row]["launches"] = counts[key]
-    reset_launches()
-    res_off = off(imgs, K, anno, draws=draws)
-    torch.cuda.synchronize()
-    if any(launch_counts().values()):
-        fail("kernels launched with the kernel flags off")
+    nb = MAIN["blocks"]
+    want = {"bf16 on": {"nms": 1, "vgg_stage": 4, "gats": 0, "gats_block": nb, "dual_softmax": 1},
+            "fp32 on": {"nms": 1, "vgg_stage": 0, "gats": nb, "gats_block": 0, "dual_softmax": 1}}
+    res = {}
+    for label, pipe in pipes.items():
+        pipe(imgs, K, anno, draws=draws)  # warm-up (cuDNN autotune, first launches)
+        torch.cuda.synchronize()
+        reset_launches()  # each path's counts: 0 just before it, read just after
+        res[label] = pipe(imgs, K, anno, draws=draws)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = want.get(label, dict.fromkeys(counts, 0))
+        log(f"[main] launches in one {label} PosePipeline call: {counts} (want {expect})")
+        if counts != expect:
+            fail(f"the {label} path did not launch each kernel as expected")
+        keys = {"bf16 on": ("vgg_stage", "gats_block"), "fp32 on": ("nms", "gats", "dual_softmax")}
+        for key in keys.get(label, ()):
+            if key in rows:
+                rows[key]["launches"] = counts[key]
 
     shapes = {"pose": (B, 4, 4), "keypoints": (B, KP, 2), "descriptors": (B, KP, 256),
               "matches0": (B, KP), "inliers": (B, KP), "num_inliers": (B,)}
-    for k, shape in shapes.items():
-        if tuple(res_on[k].shape) != shape:
-            fail(f"{k} has shape {tuple(res_on[k].shape)}, want {shape}")
-    for k in ("pose", "descriptors", "matching_scores0", "kpt_scores"):
-        if not bool(torch.isfinite(res_on[k]).all()):
-            fail(f"{k} is not finite")
-    same_kp = bool(torch.equal(res_on["keypoints"], res_off["keypoints"]))
-    agree = float((res_on["matches0"] == res_off["matches0"]).float().mean())
-    log(f"[main] kernels on vs off: keypoints identical {same_kp}, matches0 agreement "
-        f"{agree:.4f}; keypoints/frame {res_on['kpt_mask'].sum(1).tolist()}, matches/frame "
-        f"{res_on['num_matches'].tolist()}, pnp_ok {res_on['pnp_ok'].tolist()}")
-    if not same_kp or agree < 0.95 or not bool((res_on["num_matches"] > 0).all()):
-        fail("the kernels-on main path disagrees with the kernels-off path")
+    for label, r in res.items():
+        for k, shape in shapes.items():
+            if tuple(r[k].shape) != shape:
+                fail(f"{label}: {k} has shape {tuple(r[k].shape)}, want {shape}")
+        for k in ("pose", "descriptors", "matching_scores0", "kpt_scores"):
+            if not bool(torch.isfinite(r[k]).all()):
+                fail(f"{label}: {k} is not finite")
+        if not bool((r["num_matches"] > 0).all()):
+            fail(f"{label}: a frame has no match")
+    on, off = res["fp32 on"], res["fp32 off"]
+    same_kp = bool(torch.equal(on["keypoints"], off["keypoints"]))
+    agree = float((on["matches0"] == off["matches0"]).float().mean())
+    log(f"[main] fp32 kernels on vs off: keypoints identical {same_kp}, matches0 agreement "
+        f"{agree:.4f}; keypoints/frame {on['kpt_mask'].sum(1).tolist()}, matches/frame "
+        f"{on['num_matches'].tolist()}, pnp_ok {on['pnp_ok'].tolist()}")
+    if not same_kp or agree < 0.95:
+        fail("the fp32 kernels-on main path disagrees with the kernels-off path")
+    b16 = res["bf16 on"]
+    overlap = _keypoint_overlap(b16, on)
+    overlap_off = _keypoint_overlap(b16, res["bf16 off"])
+    raw = {label: _raw_maps(torch, pipes[label], imgs) for label in ("bf16 on", "fp32 on")}
+    s16, s32 = (raw[k]["score_map"] for k in ("bf16 on", "fp32 on"))
+    score_rel = float(((s16 - s32).abs() / s32.abs().clamp(min=1e-12)).max())
+    desc_err = float((raw["bf16 on"]["descriptor_map"] - raw["fp32 on"]["descriptor_map"]).abs()
+                     .max())
+    log(f"[main] bf16 (kernels on) vs fp32 (kernels on): raw score maps (NMS radius 0) max rel "
+        f"diff {score_rel:.3e} (<= {BF16_SCORE_REL}; scores span {float(s32.min()):.4f} .. "
+        f"{float(s32.max()):.4f} with random weights), descriptor maps max abs diff {desc_err:.3e} "
+        f"(<= {BF16_DESC_ABS}); keypoint overlap {overlap:.4f} (reported: {KP} slots among many "
+        f"near-tied NMS survivors); bf16 kernels on vs off: keypoint overlap {overlap_off:.4f}; "
+        f"keypoints/frame {b16['kpt_mask'].sum(1).tolist()}, matches/frame "
+        f"{b16['num_matches'].tolist()}, pnp_ok {b16['pnp_ok'].tolist()}")
+    if not (score_rel <= BF16_SCORE_REL and desc_err <= BF16_DESC_ABS):
+        fail("the bf16 main path's dense maps disagree with the fp32 path's")
 
-    for label, pipe in (("on", on), ("off", off)):
+    for label, pipe in pipes.items():
         stages = _stage_times(torch, pipe, imgs, K, anno, draws)
-        log(f"[main] stages, kernels {label} (ms, median of 5, device synchronized between "
-            "stages): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-    for label, pipe in (("on", on), ("off", off)):
+        log(f"[main] stages, {label} (ms, median of 5, device synchronized between stages): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    for label, pipe in pipes.items():
         counts = _stage_launches(torch, pipe, imgs, K, anno, draws)
-        log(f"[main] profiler, kernels {label}, per stage of one call (kernel launches, device "
-            "ms): " + ", ".join(f"{k} {n} {ms:.2f}" for k, (n, ms) in counts.items()))
-    _device_busy(torch, on, imgs, K, anno, draws)
+        log(f"[main] profiler, {label}, per stage of one call (kernel launches, device ms): "
+            + ", ".join(f"{k} {n} {ms:.2f}" for k, (n, ms) in counts.items()))
+    for label in ("bf16 on", "fp32 on"):
+        _device_busy(torch, label, pipes[label], imgs, K, anno, draws)
 
     def run(pipe, n=TIMED_CALLS):
         torch.cuda.synchronize()
@@ -420,22 +711,20 @@ def phase_main(torch, rows):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3
 
-    for pipe in (on, off):  # warm-up
+    for pipe in pipes.values():  # warm-up
         run(pipe, 3)
-    results = {"on": [], "off": []}
-    for label in ("on", "off", "off", "on") * 4:  # in turns: the host's load drifts
-        pipe = on if label == "on" else off
+    results = {label: [] for label in labels}
+    for label in (labels + labels[::-1]) * 2:  # in turns: the host's load drifts
         torch.cuda.reset_peak_memory_stats()
-        ms = run(pipe)
+        ms = run(pipes[label])
         peak = torch.cuda.max_memory_allocated() / 2**30
         results[label].append(ms)
-        log(f"[main] kernels {label}: {ms:.2f} ms per call of {B} frames, "
-            f"{B / ms * 1e3:.1f} frames/s, peak memory {peak:.2f} GiB")
+        log(f"[main] {label}: {ms:.2f} ms per call of {B} frames, {B / ms * 1e3:.1f} frames/s, "
+            f"peak memory {peak:.2f} GiB")
     for label, runs in results.items():
         q1, ms, q3 = statistics.quantiles(runs, n=4)
-        log(f"[main] kernels {label} (median of {len(runs)} runs of {TIMED_CALLS} calls): "
-            f"{ms:.2f} ms per call (quartiles {q1:.2f} .. {q3:.2f}), "
-            f"{B / ms * 1e3:.1f} frames/s")
+        log(f"[main] {label} (median of {len(runs)} runs of {TIMED_CALLS} calls): {ms:.2f} ms per "
+            f"call (quartiles {q1:.2f} .. {q3:.2f}), {B / ms * 1e3:.1f} frames/s")
 
 
 def _stages(torch, pipe, imgs, K, anno, draws):
@@ -509,7 +798,7 @@ def _stage_launches(torch, pipe, imgs, K, anno, draws) -> dict:
     return out
 
 
-def _device_busy(torch, pipe, imgs, K, anno, draws, calls=3) -> None:
+def _device_busy(torch, label, pipe, imgs, K, anno, draws, calls=3) -> None:
     """Kernel time, kernel count and device busy share of PosePipeline calls
     under torch.profiler (CUDA activity), and the kernels taking most time."""
     from torch.autograd import DeviceType
@@ -527,11 +816,11 @@ def _device_busy(torch, pipe, imgs, K, anno, draws, calls=3) -> None:
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-    log(f"[main] profiler, kernels on, per call: {len(kernels) // calls} kernel launches, "
+    log(f"[main] profiler, {label}, per call: {len(kernels) // calls} kernel launches, "
         f"{busy:.2f} ms of device time in {wall:.2f} ms wall under the profiler: device busy "
         f"{100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[main] profiler top kernel: {ms:.3f} ms/call  {name[:110]}")
+        log(f"[main] profiler top kernel, {label}: {ms:.3f} ms/call  {name[:100]}")
 
 
 def main(argv=None) -> int:

@@ -23,12 +23,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_compute_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The port computes in float32 only; bfloat16 serving is queued."""
-    if dtype != torch.float32:
+    """The port computes in float32 or bfloat16 (the JAX package's serving
+    default); anything else, float16 included, raises."""
+    if dtype not in COMPUTE_DTYPES:
         raise ValueError(
-            f"compute dtype {dtype} is not supported: the port computes in "
-            "torch.float32 only (bf16 / mixed attention are queued in "
-            "ROADMAP.md)"
+            f"compute dtype {dtype} is not supported: use torch.float32 or "
+            "torch.bfloat16"
         )
     return dtype

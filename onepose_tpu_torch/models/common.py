@@ -5,6 +5,13 @@ channel-last [B, N, C] and masks are bool [B, N] with True = valid, as in
 the JAX package. Linear layers carry the JAX module names (`dense_0`, `proj_q`,
 `merge`, ...) so that `models.bridge` maps parameters one to one.
 
+Compute dtype (`dtype`, float32 or bfloat16) follows the JAX modules' `dtype=`:
+parameters stay fp32; a `Dense` casts its input, weight and bias to
+`dtype` and returns `dtype`; instance-norm statistics and the attention
+internals run in fp32. `mixed=True` with bf16 feeds the linear-attention
+contractions bf16-rounded operands with fp32 sums (`mixed_einsum`), as
+the JAX package does on an accelerator.
+
 Softmax / flash attention belong to SuperGlue and are not ported yet
 (ROADMAP.md); `MultiHeadAttention(kind="softmax")` raises.
 """
@@ -18,8 +25,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
+from onepose_tpu_torch.utils.precision import mixed_einsum
 
 NEG_INF = -1e9
+
+
+class Dense(nn.Linear):
+    """nn.Linear computing in `dtype`, as the JAX package's
+    nn.Dense(dtype=...): input, weight and bias cast to `dtype`, the
+    product rounded to `dtype`, then the bias added in `dtype`. Parameters
+    stay fp32, so state_dicts load alike in every dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.dtype = check_compute_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        return F.linear(x.to(d), self.weight.to(d)) + self.bias.to(d)
 
 
 def masked_instance_norm(
@@ -54,6 +77,7 @@ class PointMLP(nn.Module):
         features: Sequence[int],
         norm: str = "instance",
         instance_mask_aware: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if norm not in ("instance", "batch", "none"):
@@ -63,7 +87,7 @@ class PointMLP(nn.Module):
         self.n_layers = len(features)
         prev = in_features
         for i, feat in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(prev, feat))
+            self.add_module(f"dense_{i}", Dense(prev, feat, dtype))
             if norm == "batch" and i < self.n_layers - 1:
                 self.register_parameter(f"bn_scale_{i}", nn.Parameter(torch.ones(feat)))
                 self.register_parameter(f"bn_bias_{i}", nn.Parameter(torch.zeros(feat)))
@@ -76,7 +100,8 @@ class PointMLP(nn.Module):
                 if self.norm == "instance":
                     x = masked_instance_norm(x, mask if self.instance_mask_aware else None)
                 elif self.norm == "batch":
-                    x = x * getattr(self, f"bn_scale_{i}") + getattr(self, f"bn_bias_{i}")
+                    scale, bias = getattr(self, f"bn_scale_{i}"), getattr(self, f"bn_bias_{i}")
+                    x = x * scale.to(x.dtype) + bias.to(x.dtype)
                 x = F.relu(x)
         return x
 
@@ -87,13 +112,29 @@ def masked_linear_attention(
     v: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Linear attention with the elu+1 feature map (fp32).
 
     q: [B, N, H, D]; k, v: [B, M, H, D]; kv_mask: [B, M]. Masked keys
     contribute nothing (phi(k) is zeroed); values are divided by M and the
-    result multiplied back (the reference's value-length conditioning)."""
+    result multiplied back (the reference's value-length conditioning).
+
+    compute_dtype bf16: v is rounded to bf16 and the two contractions take
+    bf16-rounded operands with fp32 sums; phi and the normaliser z stay
+    fp32. None or fp32: all fp32."""
     m = v.shape[1]
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        cd = compute_dtype
+        v = v.to(cd).float()
+        phi_q = F.elu(q.float()) + 1.0
+        phi_k = F.elu(k.float()) + 1.0
+        if kv_mask is not None:
+            phi_k = phi_k * kv_mask.to(phi_k.dtype)[:, :, None, None]
+        kv = mixed_einsum("bmhd,bmhe->bhde", phi_k, v / m, dtype=cd)
+        z = 1.0 / (torch.einsum("bnhd,bhd->bnh", phi_q, phi_k.sum(dim=1)) + eps)
+        out = mixed_einsum("bnhd,bhde->bnhe", phi_q, kv, dtype=cd)
+        return out * (z[..., None] * m)
     phi_q = F.elu(q) + 1.0
     phi_k = F.elu(k) + 1.0
     if kv_mask is not None:
@@ -105,10 +146,21 @@ def masked_linear_attention(
 
 class MultiHeadAttention(nn.Module):
     """Q/K/V projections + linear attention + output merge. Channels are
-    head-major (c = h * D + d), so the head split is a plain reshape."""
+    head-major (c = h * D + d), so the head split is a plain reshape. The
+    projections and the merge compute in `dtype`, the attention in fp32
+    (with bf16-operand contractions when `mixed` and `dtype` is bf16)."""
 
-    def __init__(self, num_heads: int, d_model: int, kind: str = "linear"):
+    def __init__(
+        self,
+        num_heads: int,
+        d_model: int,
+        kind: str = "linear",
+        dtype: torch.dtype = torch.float32,
+        mixed: bool = False,
+    ):
         super().__init__()
+        self.dtype = check_compute_dtype(dtype)
+        self.mixed = mixed
         if kind != "linear":
             raise NotImplementedError(
                 f"attention kind {kind!r}: softmax attention (SuperGlue) is "
@@ -116,10 +168,10 @@ class MultiHeadAttention(nn.Module):
             )
         self.num_heads = num_heads
         self.d_model = d_model
-        self.proj_q = nn.Linear(d_model, d_model)
-        self.proj_k = nn.Linear(d_model, d_model)
-        self.proj_v = nn.Linear(d_model, d_model)
-        self.merge = nn.Linear(d_model, d_model)
+        self.proj_q = Dense(d_model, d_model, dtype)
+        self.proj_k = Dense(d_model, d_model, dtype)
+        self.proj_v = Dense(d_model, d_model, dtype)
+        self.merge = Dense(d_model, d_model, dtype)
 
     def forward(
         self,
@@ -133,8 +185,9 @@ class MultiHeadAttention(nn.Module):
         q = self.proj_q(x).reshape(b, n, self.num_heads, hd).float()
         k = self.proj_k(source).reshape(b, m, self.num_heads, hd).float()
         v = self.proj_v(source).reshape(b, m, self.num_heads, hd).float()
-        out = masked_linear_attention(q, k, v, source_mask)
-        return self.merge(out.reshape(b, n, self.d_model))
+        cd = self.dtype if self.mixed and self.dtype != torch.float32 else None
+        out = masked_linear_attention(q, k, v, source_mask, compute_dtype=cd)
+        return self.merge(out.to(self.dtype).reshape(b, n, self.d_model))
 
 
 class AttentionalPropagation(nn.Module):
@@ -148,11 +201,12 @@ class AttentionalPropagation(nn.Module):
         kind: str = "linear",
         norm: str = "batch",
         dtype: torch.dtype = torch.float32,
+        mixed_attention: bool = False,
     ):
         super().__init__()
-        check_compute_dtype(dtype)
-        self.attn = MultiHeadAttention(num_heads, d_model, kind=kind)
-        self.mlp = PointMLP(2 * d_model, [2 * d_model, d_model], norm=norm)
+        self.attn = MultiHeadAttention(num_heads, d_model, kind=kind, dtype=dtype,
+                                       mixed=mixed_attention)
+        self.mlp = PointMLP(2 * d_model, [2 * d_model, d_model], norm=norm, dtype=dtype)
 
     def forward(
         self,

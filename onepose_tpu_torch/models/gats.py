@@ -8,7 +8,9 @@ leaves) and aggregate the RAW (or linearly transformed) descriptors.
 In the shipped configuration (include_self, not additional, no linear
 transform, concat/ELU, fp32) `gats_kernel=True` routes through the CUDA
 leaf-attention kernel (`ops.kernels.gats`); every other configuration, and
-gats_kernel=False, runs the plain path below.
+gats_kernel=False, runs the plain path below. With dtype bf16, W and a are
+cast to bf16 and the products run in bf16; the softmax runs in fp32 and
+its weights are cast back to bf16 (JAX's `dtype=` semantics).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ class GraphAttentionLayer(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        check_compute_dtype(dtype)
+        self.dtype = check_compute_dtype(dtype)
         self.out_features = out_features
         self.alpha = alpha
         self.include_self = include_self
@@ -56,6 +58,7 @@ class GraphAttentionLayer(nn.Module):
             and not self.additional
             and not self.with_linear_transform
             and self.concat
+            and self.dtype == torch.float32
         )
 
     def forward(
@@ -66,23 +69,25 @@ class GraphAttentionLayer(nn.Module):
     ) -> torch.Tensor:
         """leaf_desc [B, N3, L, C]; desc3d [B, N3, C]; leaf_mask [B, N3, L]
         (True = real observation). Returns the refreshed desc3d [B, N3, C]."""
-        a_leaf = self.a[: self.out_features, 0]
-        a_self = self.a[self.out_features :, 0]
+        W, a = self.W.to(self.dtype), self.a.to(self.dtype)
+        a_leaf = a[: self.out_features, 0]
+        a_self = a[self.out_features :, 0]
         if self.gats_kernel and self.shipped:
             return gats_leaf_attention(
-                leaf_desc.contiguous(), desc3d.contiguous(), leaf_mask, self.W,
+                leaf_desc.contiguous(), desc3d.contiguous(), leaf_mask, W,
                 torch.stack([a_leaf, a_self]), self.alpha,
             )
+        leaf_desc, desc3d = leaf_desc.to(self.dtype), desc3d.to(self.dtype)
 
         if self.with_linear_transform:
-            wh_leaf = leaf_desc @ self.W
-            wh_3d = desc3d @ self.W
+            wh_leaf = leaf_desc @ W
+            wh_3d = desc3d @ W
             e_leaf = wh_leaf @ a_leaf
             e_3d = wh_3d @ a_self
         else:
             # X @ W only feeds the logits: reassociate to X @ (W @ a).
-            e_leaf = leaf_desc @ (self.W @ a_leaf)
-            e_3d = desc3d @ (self.W @ a_self)
+            e_leaf = leaf_desc @ (W @ a_leaf)
+            e_3d = desc3d @ (W @ a_self)
             wh_leaf = wh_3d = None
 
         if self.include_self:
@@ -107,7 +112,7 @@ class GraphAttentionLayer(nn.Module):
         logits = F.leaky_relu(logits + e_3d[..., None], self.alpha)
         if full_mask is not None:
             logits = logits.masked_fill(~full_mask, NEG_INF)
-        attn = torch.softmax(logits.float(), dim=-1)
+        attn = torch.softmax(logits.float(), dim=-1).to(self.dtype)
         h_prime = torch.einsum("bnl,bnlc->bnc", attn, values)
 
         if self.include_self:

@@ -6,15 +6,25 @@ shared by the 2D and 3D streams), then a shared final projection, L2
 normalization, similarity / scale_factor, dual-softmax confidence and
 mutual-max + threshold matching. The head runs in fp32.
 
+dtype (float32 or bfloat16, the JAX package's serving default): x2, x3 and
+the leaves are rounded to `dtype` on entry and after every fused block;
+the layers compute in `dtype` (see models.common); final_proj runs in
+`dtype`, the similarity head in fp32.
+
 Kernel flags (names as in the JAX package's counterparts):
-- gats_kernel: the GATs leaf-attention CUDA kernel (`ops.kernels.gats`);
+- gats_kernel: the GATs leaf-attention CUDA kernel (`ops.kernels.gats`),
+  fp32 only;
+- block_fused: each [GATs, self, cross] block through the fused block
+  kernels (`ops.kernels.gats_block`), inference only; the modules keep
+  their parameters, so state_dicts load alike;
+- mixed_attention: with bf16, the linear-attention contractions take bf16
+  operands with fp32 sums (unfused blocks only);
 - fused_match: the dual-softmax CUDA kernel (`ops.kernels.dual_softmax`).
   conf_matrix is then None (inference only) and ties follow the kernel:
   the largest index wins and matching scores are non-zero only for hits.
   With fused_match=False the head follows `match_from_conf` (first index).
 
-Not ported yet (ROADMAP.md): block_fused, the points-sharded mesh path
-and mixed / bf16 attention.
+Not ported yet (ROADMAP.md): the points-sharded mesh path.
 """
 
 from __future__ import annotations
@@ -25,9 +35,10 @@ import torch
 from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
-from onepose_tpu_torch.models.common import NEG_INF, AttentionalPropagation
+from onepose_tpu_torch.models.common import NEG_INF, AttentionalPropagation, Dense
 from onepose_tpu_torch.models.gats import GraphAttentionLayer
 from onepose_tpu_torch.ops.kernels.dual_softmax import dual_softmax_match
+from onepose_tpu_torch.ops.kernels.gats_block import fused_gats_block, pack_block_params
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -48,9 +59,15 @@ class GATsSPG(nn.Module):
         gats_kernel: bool = False,
         fused_match: bool = False,
         dtype: torch.dtype = torch.float32,
+        block_fused: bool = False,
+        mixed_attention: bool = False,
     ):
         super().__init__()
-        check_compute_dtype(dtype)
+        self.dtype = check_compute_dtype(dtype)
+        if block_fused and (not include_self or additional or with_linear_transform):
+            raise ValueError("block_fused runs the shipped GATs configuration only")
+        self.num_heads = num_heads
+        self.block_fused = block_fused
         self.num_blocks = num_blocks
         self.scale_factor = scale_factor
         self.match_threshold = match_threshold
@@ -64,15 +81,15 @@ class GATsSPG(nn.Module):
                     additional=additional,
                     with_linear_transform=with_linear_transform,
                     gats_kernel=gats_kernel,
+                    dtype=dtype,
                 ),
             )
-            self.add_module(
-                f"self_{blk}", AttentionalPropagation(d_model, num_heads, norm="instance")
-            )
-            self.add_module(
-                f"cross_{blk}", AttentionalPropagation(d_model, num_heads, norm="instance")
-            )
-        self.final_proj = nn.Linear(d_model, d_model)
+            for kind in ("self", "cross"):
+                self.add_module(f"{kind}_{blk}", AttentionalPropagation(
+                    d_model, num_heads, norm="instance", dtype=dtype,
+                    mixed_attention=mixed_attention,
+                ))
+        self.final_proj = Dense(d_model, d_model, dtype)
 
     def forward(
         self,
@@ -87,12 +104,26 @@ class GATsSPG(nn.Module):
         masks True = real. Returns conf_matrix [B, N2, N3] (None when
         fused), matches0 [B, N2] (-1 unmatched), matching_scores0,
         matches1 [B, N3], matching_scores1, valid0, valid1."""
-        x2, x3 = desc2d.float(), desc3d.float()
-        leaves = leaf_desc.float()
+        if self.block_fused and torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            raise RuntimeError("block_fused is inference-only, as in the JAX package: run "
+                               "under torch.no_grad() / torch.inference_mode()")
+        dt = self.dtype
+        x2, x3, leaves = desc2d.to(dt), desc3d.to(dt), leaf_desc.to(dt)
+        if self.block_fused:  # the block kernels read fp32 (bf16-valued) leaves
+            leaves = leaves.float().contiguous()
         for blk in range(self.num_blocks):
             gats = getattr(self, f"gats_{blk}")
             self_layer = getattr(self, f"self_{blk}")
             cross_layer = getattr(self, f"cross_{blk}")
+            if self.block_fused:
+                x2, x3 = fused_gats_block(
+                    x2.float().contiguous(), x3.float().contiguous(), leaves, mask2d, mask3d,
+                    leaf_mask, pack_block_params(gats, self_layer, cross_layer),
+                    alpha=gats.alpha, num_heads=self.num_heads, dtype=dt,
+                )
+                x2, x3 = x2.to(dt), x3.to(dt)
+                continue
             x3 = gats(leaves, x3, leaf_mask)
             x2 = x2 + self_layer(x2, x2, mask2d, mask2d)
             x3 = x3 + self_layer(x3, x3, mask3d, mask3d)

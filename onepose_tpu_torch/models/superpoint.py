@@ -9,8 +9,16 @@ top-k, bilinear descriptor sampling.
 
 The public layouts are the JAX package's: images [B, H, W, 1] and a
 descriptor map [B, H/8, W/8, C]. Convolutions run NCHW inside through
-`F.conv2d`. `nms_kernel=True` runs NMS through the CUDA kernel
-(`ops.kernels.score_path`); the depth-to-space before it stays plain.
+`F.conv2d`, in `dtype` (float32 or bfloat16; parameters stay fp32): the
+image is rounded to `dtype` first, the head outputs are promoted to fp32
+before the softmax and the descriptor normalisation.
+
+Kernel flags (the JAX package's `nms_pallas` and `use_pallas`):
+- nms_kernel: NMS through the CUDA kernel (`ops.kernels.score_path`); the
+  depth-to-space before it stays plain;
+- vgg_kernel: the four encoder stages through the fused VGG-stage kernel
+  (`ops.kernels.vgg_stage`), NHWC, bf16 taps with fp32 sums in any
+  `dtype`, as the JAX package computes them; the heads stay plain.
 
 Top-k ties: `jax.lax.top_k` puts the lowest index first and `torch.topk`
 does not promise any order, so every top-k here is a stable descending
@@ -25,6 +33,7 @@ from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
 from onepose_tpu_torch.ops.kernels.score_path import nms, simple_nms
+from onepose_tpu_torch.ops.kernels.vgg_stage import vgg_stage
 
 __all__ = [
     "SuperPoint",
@@ -52,11 +61,13 @@ class SuperPoint(nn.Module):
         nms_radius: int = 4,
         nms_kernel: bool = False,
         dtype: torch.dtype = torch.float32,
+        vgg_kernel: bool = False,
     ):
         super().__init__()
-        check_compute_dtype(dtype)
+        self.dtype = check_compute_dtype(dtype)
         self.nms_radius = nms_radius
         self.nms_kernel = nms_kernel
+        self.vgg_kernel = vgg_kernel
         conv = lambda cin, cout, k=3: nn.Conv2d(cin, cout, k, padding=k // 2)  # noqa: E731
         self.conv1a, self.conv1b = conv(1, 64), conv(64, 64)
         self.conv2a, self.conv2b = conv(64, 64), conv(64, 64)
@@ -65,20 +76,42 @@ class SuperPoint(nn.Module):
         self.convPa, self.convPb = conv(128, 256), conv(256, 65, 1)
         self.convDa, self.convDb = conv(128, 256), conv(256, descriptor_dim, 1)
 
-    def forward(self, image: torch.Tensor) -> dict:
-        x = image.float().permute(0, 3, 1, 2)  # NHWC -> NCHW
-        for a, b, pool in (
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """The JAX package's nn.Conv(dtype=...): the product rounded to dtype, then the
+        bias added in dtype."""
+        d = self.dtype
+        y = F.conv2d(x.to(d), conv.weight.to(d), padding=conv.padding)
+        return y + conv.bias.to(d)[:, None, None]
+
+    def _encoder(self, image: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 1] -> the stride-8 feature map [B, 128, H/8, W/8] in dtype."""
+        x = image.to(self.dtype)
+        stages = (
             (self.conv1a, self.conv1b, True),
             (self.conv2a, self.conv2b, True),
             (self.conv3a, self.conv3b, True),
             (self.conv4a, self.conv4b, False),
-        ):
-            x = F.relu(b(F.relu(a(x))))
+        )
+        if self.vgg_kernel:
+            x = x.float().contiguous()  # NHWC through the fused stages
+
+            def hwio(conv):
+                return conv.weight.permute(2, 3, 1, 0)
+
+            for a, b, pool in stages:
+                x = vgg_stage(x, hwio(a), a.bias, hwio(b), b.bias, pool)
+            return x.permute(0, 3, 1, 2).to(self.dtype)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for a, b, pool in stages:
+            x = F.relu(self._conv(b, F.relu(self._conv(a, x))))
             if pool:
                 x = F.max_pool2d(x, 2, 2)
+        return x
 
-        logits = self.convPb(F.relu(self.convPa(x)))  # [B, 65, h, w]
-        probs = torch.softmax(logits, dim=1)[:, :-1]  # [B, 64, h, w]
+    def forward(self, image: torch.Tensor) -> dict:
+        x = self._encoder(image)
+        logits = self._conv(self.convPb, F.relu(self._conv(self.convPa, x)))  # [B, 65, h, w]
+        probs = torch.softmax(logits.float(), dim=1)[:, :-1]  # [B, 64, h, w]
         b, _, h, w = probs.shape
         # Channel c = 8 * dy + dx -> full-resolution pixel (8y + dy, 8x + dx).
         scores = probs.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2).reshape(b, h * 8, w * 8)
@@ -87,7 +120,7 @@ class SuperPoint(nn.Module):
         else:
             scores = simple_nms(scores, self.nms_radius)
 
-        desc = self.convDb(F.relu(self.convDa(x)))
+        desc = self._conv(self.convDb, F.relu(self._conv(self.convDa, x))).float()
         desc = desc / torch.linalg.vector_norm(desc, dim=1, keepdim=True)
         return {"score_map": scores, "descriptor_map": desc.permute(0, 2, 3, 1)}
 

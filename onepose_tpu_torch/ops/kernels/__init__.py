@@ -9,13 +9,24 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 | score_path    | score_path.py::simple_nms_pallas          | csrc/score_path.cu |
 | gats          | gats.py::_gats_pallas_raw                 | csrc/gats.cu       |
 | dual_softmax  | dual_softmax.py::dual_softmax_match       | csrc/dual_softmax.cu |
+| vgg_stage     | vgg_stage.py::_vgg_stage_pallas           | csrc/vgg_stage.cu  |
+| gats_block    | gats_block.py::fused_gats_block           | csrc/gats_block.cu |
+
+`gats_block` counts one launch per call of its wrapper, which runs the
+block as a sequence of 33 CUDA kernels.
 """
 
 from __future__ import annotations
 
-from onepose_tpu_torch.ops.kernels import dual_softmax, gats, score_path
+from onepose_tpu_torch.ops.kernels import dual_softmax, gats, gats_block, score_path, vgg_stage
 
-_MODULES = {"nms": score_path, "gats": gats, "dual_softmax": dual_softmax}
+_MODULES = {
+    "nms": score_path,
+    "vgg_stage": vgg_stage,
+    "gats": gats,
+    "gats_block": gats_block,
+    "dual_softmax": dual_softmax,
+}
 
 
 def launch_counts() -> dict[str, int]:

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "--ptxas-options=-v",  # registers / shared memory / spills in the build log
 )
-KERNELS = ("score_path", "gats", "dual_softmax")
+KERNELS = ("score_path", "gats", "dual_softmax", "vgg_stage", "gats_block")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> (argtypes, restype).
@@ -44,6 +44,14 @@ SIGNATURES = {
     },
     "dual_softmax": {
         "dual_softmax_launch": ([_P, _I, _I, _I, _F] + [_P] * 10, _I),
+    },
+    "vgg_stage": {
+        "vgg_stage_launch": ([_P] * 6 + [_I] * 7 + [_P], _I),
+    },
+    "gats_block": {
+        "gats_block_launch": ([_P] + [_I] * 6 + [_F, _I, _P], _I),
+        "gats_block_num_ptrs": ([], _I),
+        "gats_block_gemm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
     },
 }
 
@@ -133,7 +141,7 @@ def stream(device: torch.device) -> ctypes.c_void_p:
 
 def require_cuda_input(t: torch.Tensor, what: str, ndim: int, dtype=torch.float32):
     """Raise unless `t` is what a kernel takes: a contiguous CUDA tensor of
-    `dtype` and rank `ndim`, 16-byte aligned, that needs no gradient (the
+    `dtype` (fp32 unless the kernel takes bf16 there) and rank `ndim`, 16-byte aligned, that needs no gradient (the
     kernels are forward-only)."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
@@ -146,6 +154,16 @@ def require_cuda_input(t: torch.Tensor, what: str, ndim: int, dtype=torch.float3
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: data pointer is not 16-byte aligned")
     if t.requires_grad:
+        raise RuntimeError(
+            f"{what}: the CUDA kernel is forward-only; run under "
+            "torch.no_grad() / torch.inference_mode()"
+        )
+
+
+def require_inference(what: str, *tensors) -> None:
+    """Raise if autograd is recording and any of `tensors` needs a gradient:
+    the kernels are forward-only, as the JAX package's are (no VJP)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what}: the CUDA kernel is forward-only; run under "
             "torch.no_grad() / torch.inference_mode()"

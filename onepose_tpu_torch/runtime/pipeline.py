@@ -3,16 +3,20 @@
 Port of onepose_tpu/runtime/pipeline.py (the serving program that
 `bench.py` and `onepose_tpu infer` run). Per frame batch:
 
-  images [B, H, W, 1] --SuperPoint (NMS kernel)--> dense score/descriptor maps
+  images [B, H, W, 1] --SuperPoint--> dense score/descriptor maps
   --extract_keypoints--> K static keypoint slots + mask
-  --GATsSPG (GATs + dual-softmax kernels) vs ObjectAnnotation--> matches
+  --GATsSPG vs ObjectAnnotation--> matches
   --gather--> 2D-3D correspondences --RANSAC-PnP + GN refine--> poses
 
-The kernel flags `nms_kernel`, `gats_kernel` and `fused_match` default to
-on here (the JAX package ships its kernels opt-in after TPU measurements
-that say nothing about this card). Compute is fp32 only: the JAX serving
-default of bfloat16 is not ported yet. `sharded` waits for the
-multi-device slice.
+`compute_dtype` defaults to bfloat16, the JAX package's serving default:
+the convolutions and the matcher compute in bf16 while score ordering,
+normalisations, the match head and RANSAC-PnP stay fp32. With
+`kernels=True` (the default here; the JAX package ships its kernels
+opt-in after TPU measurements that say nothing about this card) the
+default modules launch the hand-written kernels of their dtype's path:
+  bf16: NMS, VGG stage (SuperPoint); fused block, dual softmax (GATsSPG);
+  fp32: NMS (SuperPoint); GATs leaf attention, dual softmax (GATsSPG).
+`sharded` waits for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -69,9 +73,10 @@ def stack_annotations(annos: list) -> ObjectAnnotation:
 class PosePipeline:
     """Whole-frame pose estimation.
 
-    Configuration (keypoint budget, hypothesis count, kernel flags) is bound
-    at construction; modules are moved to `device` and put in eval mode.
-    Explicitly passed superpoint / matcher modules are used as they are."""
+    Configuration (keypoint budget, hypothesis count, compute dtype,
+    kernels) is bound at construction; modules are moved to `device` and
+    put in eval mode. Explicitly passed superpoint / matcher modules are
+    used as they are."""
 
     def __init__(
         self,
@@ -83,16 +88,20 @@ class PosePipeline:
         nms_radius: int = 4,
         ransac_hypotheses: int = 512,
         reproj_threshold: float = 5.0,
-        compute_dtype: torch.dtype = torch.float32,
-        nms_kernel: bool = True,
-        gats_kernel: bool = True,
-        fused_match: bool = True,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        kernels: bool = True,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
-        check_compute_dtype(compute_dtype)
-        self.superpoint = superpoint or SuperPoint(nms_radius=nms_radius, nms_kernel=nms_kernel)
-        self.matcher = matcher or GATsSPG(gats_kernel=gats_kernel, fused_match=fused_match)
+        bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+        self.superpoint = superpoint or SuperPoint(
+            nms_radius=nms_radius, nms_kernel=kernels, vgg_kernel=kernels and bf16,
+            dtype=compute_dtype,
+        )
+        self.matcher = matcher or GATsSPG(
+            gats_kernel=kernels and not bf16, block_fused=kernels and bf16, fused_match=kernels,
+            dtype=compute_dtype,
+        )
         self.superpoint.to(self.device).eval()
         self.matcher.to(self.device).eval()
         self.max_keypoints = max_keypoints

@@ -129,6 +129,40 @@ def test_gats_spg_matches_jax(gats_kernel, fused_match):
     assert (got["matches0"] >= 0).sum() > 0
 
 
+@pytest.mark.parametrize("block_fused", [False, True])
+@pytest.mark.parametrize("mixed_attention", [False, True])
+def test_gats_spg_bf16_matches_jax(block_fused, mixed_attention):
+    """bf16 GNN (JAX's serving dtype) against JAX, fused and unfused blocks.
+
+    Tolerances: conf_matrix 1.5e-2 absolute and matches0 agreeing on at
+    least 95% of the slots. Each layer agrees bit for bit on over 99% of
+    its bf16 outputs (the frameworks sum in another order; JAX's mixed
+    contractions keep fp32 operands on the CPU, where the port rounds them
+    as JAX does on an accelerator), and a 1-ulp flip of a bf16 final
+    projection (2^-8 relative) moves a conf value near 0.8 by about 1e-2
+    through the scores' 1 / 0.07 scale."""
+    args = _inputs()
+    jax_model = JaxGATsSPG(num_blocks=2, dtype=jnp.bfloat16, block_fused=block_fused,
+                           mixed_attention=mixed_attention)
+    params = JaxGATsSPG(num_blocks=2).init(jax.random.PRNGKey(3), *_j(*args))
+    want = jax_model.apply(params, *_j(*args))
+    model = GATsSPG(num_blocks=2, dtype=torch.bfloat16, block_fused=block_fused,
+                    mixed_attention=mixed_attention)
+    model.load_state_dict(bridge.gats_spg_state_dict(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        got = model(*_t(*args))
+    np.testing.assert_allclose(got["conf_matrix"].numpy(), np.asarray(want["conf_matrix"]),
+                               atol=1.5e-2, rtol=0)
+    agree = np.mean(got["matches0"].numpy() == np.asarray(want["matches0"]))
+    assert agree >= 0.95, agree
+    assert (got["matches0"] >= 0).sum() > 0
+
+
 def test_gats_spg_rejects_non_fp32():
-    with pytest.raises(ValueError, match="float32"):
-        GATsSPG(num_blocks=1, dtype=torch.bfloat16)
+    """float32 and bfloat16 are the compute dtypes; float16 raises."""
+    for dtype in (torch.float32, torch.bfloat16):
+        model = GATsSPG(num_blocks=1, dtype=dtype)
+        assert model.final_proj.dtype == dtype and model.self_0.attn.dtype == dtype
+    assert not GATsSPG(num_blocks=1, dtype=torch.bfloat16, gats_kernel=True).gats_0.shipped
+    with pytest.raises(ValueError, match="bfloat16"):
+        GATsSPG(num_blocks=1, dtype=torch.float16)

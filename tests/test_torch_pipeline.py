@@ -14,6 +14,11 @@ weights few pairs clear 0.2, and the comparison needs matches.
 
 Tolerances: keypoints, masks, matches0 and num_inliers identical;
 descriptors 1e-5; poses 1e-4 where pnp_ok.
+
+The bf16 serving configuration (SuperPoint with the NMS and VGG-stage
+kernels, GATsSPG with the fused block and dual-softmax kernels, the JAX
+package's serving default) is compared the same way, with bf16
+tolerances: see test_bf16_images_to_poses_matches_jax.
 """
 
 import jax
@@ -137,9 +142,89 @@ def test_from_features_with_batched_annotations_matches_jax(setup):
     assert int(got["num_matches"][1]) >= 4
 
 
+@pytest.fixture(scope="module")
+def setup_bf16(setup):
+    """The bf16 serving configuration with every kernel flag on, on both
+    sides, with setup's weights, images and annotation."""
+    s = setup
+    jsp = JaxSuperPoint(dtype=jnp.bfloat16, nms_pallas=True, use_pallas=True)
+    jm = JaxGATsSPG(num_blocks=BLOCKS, dtype=jnp.bfloat16, block_fused=True, fused_match=True,
+                    match_threshold=THR)
+    jax_pipe = JaxPipeline(superpoint=jsp, matcher=jm, max_keypoints=KPTS, ransac_hypotheses=HYP)
+    sp = SuperPoint(dtype=torch.bfloat16, nms_kernel=True, vgg_kernel=True)
+    sp.load_state_dict(s["pipe"].superpoint.state_dict())
+    m = GATsSPG(num_blocks=BLOCKS, dtype=torch.bfloat16, block_fused=True, fused_match=True,
+                match_threshold=THR)
+    m.load_state_dict(s["pipe"].matcher.state_dict())
+    pipe = PosePipeline(superpoint=sp, matcher=m, max_keypoints=KPTS, ransac_hypotheses=HYP,
+                        device="cpu")
+    return dict(jax_pipe=jax_pipe, pipe=pipe)
+
+
+def test_bf16_images_to_poses_matches_jax(setup, setup_bf16):
+    """Images to poses in bf16, every kernel flag on, against the JAX
+    PosePipeline built the same way.
+
+    From the same images: the kept keypoint scores of each frame, sorted,
+    agree within 1e-4 + 1e-2 relative, and every output is finite. Slot
+    positions are not compared here: with random weights the score map is
+    nearly flat (every score within 0.02 of 1/65), and NMS and top-k turn
+    1-ulp bf16 differences into other picks (JAX's own XLA and Pallas bf16
+    paths do not agree on every slot either).
+
+    From the same features (the JAX side's bf16 keypoints and
+    descriptors), the bf16 matcher and RANSAC-PnP: matches0 agree on at
+    least 95% of the slots, and poses agree within 1e-3 on the frames
+    whose matches0 are identical (then RANSAC sees the same
+    correspondences and the same draws; the solve is fp32 on both sides).
+    """
+    s = setup
+    key = jax.random.PRNGKey(7)
+    want = setup_bf16["jax_pipe"](s["sp_params"], s["m_params"], jnp.asarray(s["images"]),
+                                  jnp.asarray(s["K"]), s["jax_anno"], key)
+    anno = ObjectAnnotation(**{k: torch.from_numpy(v) for k, v in s["anno"].items()})
+    got = setup_bf16["pipe"](s["images"], s["K"], anno, draws=_draws(key))
+    for k in ("pose", "descriptors", "kpt_scores", "matching_scores0"):
+        assert torch.isfinite(got[k]).all(), k
+    assert got["pose"].shape == (B, 4, 4) and got["kpt_mask"].sum() > 0
+    ws = -np.sort(-np.where(np.asarray(want["kpt_mask"]), np.asarray(want["kpt_scores"]), 0), 1)
+    gs = -np.sort(-np.where(got["kpt_mask"].numpy(), got["kpt_scores"].numpy(), 0), 1)
+    np.testing.assert_allclose(gs, ws, atol=1e-4, rtol=1e-2)
+
+    feats_j = JaxSuperPoint(dtype=jnp.bfloat16, nms_pallas=True, use_pallas=True).apply(
+        s["sp_params"], jnp.asarray(s["images"]))
+    from onepose_tpu.models.superpoint import extract_keypoints as jax_extract
+
+    feats = jax_extract(feats_j["score_map"], feats_j["descriptor_map"], max_keypoints=KPTS)
+    key = jax.random.PRNGKey(8)
+    want = setup_bf16["jax_pipe"].from_features(s["m_params"], feats, jnp.asarray(s["K"]),
+                                                s["jax_anno"], key)
+    got = setup_bf16["pipe"].from_features({k: np.asarray(v) for k, v in feats.items()}, s["K"],
+                                           anno, draws=_draws(key))
+    agree = np.mean(got["matches0"].numpy() == np.asarray(want["matches0"]))
+    assert agree >= 0.95, agree
+    same = np.all(got["matches0"].numpy() == np.asarray(want["matches0"]), axis=-1)
+    same &= got["pnp_ok"].numpy() & np.asarray(want["pnp_ok"])
+    assert same.any(), "no frame with identical matches to compare poses on"
+    np.testing.assert_allclose(got["pose"].numpy()[same], np.asarray(want["pose"])[same],
+                               atol=1e-3)
+    assert got["num_matches"].sum() > 0
+
+
 def test_pipeline_defaults_to_cuda_and_fp32_only():
-    with pytest.raises((RuntimeError, ValueError)):
-        PosePipeline(compute_dtype=torch.bfloat16, device="cpu")
+    """Defaults: CUDA, bf16 with the bf16 kernel set (the JAX package's
+    serving default); fp32 keeps the fp32 kernel set; fp16 raises."""
+    pipe = PosePipeline(device="cpu")
+    sp, m = pipe.superpoint, pipe.matcher
+    assert sp.dtype == torch.bfloat16 and m.dtype == torch.bfloat16
+    assert sp.nms_kernel and sp.vgg_kernel and m.block_fused and m.fused_match
+    assert not m.gats_0.gats_kernel
+    pipe = PosePipeline(compute_dtype=torch.float32, device="cpu")
+    sp, m = pipe.superpoint, pipe.matcher
+    assert sp.nms_kernel and not sp.vgg_kernel and m.gats_0.gats_kernel and m.fused_match
+    assert not m.block_fused
+    with pytest.raises(ValueError, match="bfloat16"):
+        PosePipeline(compute_dtype=torch.float16, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PosePipeline()

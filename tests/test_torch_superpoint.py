@@ -108,13 +108,57 @@ def test_bridge_conv_and_dense_weights():
     np.testing.assert_allclose(z.numpy(), np.asarray(want_dense), atol=1e-5, rtol=0)
 
 
-def test_superpoint_state_dict_loads_strictly():
+@pytest.mark.parametrize(
+    "kwargs", [{}, {"dtype": torch.bfloat16}, {"dtype": torch.bfloat16, "vgg_kernel": True}])
+def test_superpoint_state_dict_loads_strictly(kwargs):
+    """The same state_dict loads with and without the kernel flag, in every
+    dtype (parameters stay fp32)."""
     params = JaxSuperPoint().init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)))
     sd = bridge.superpoint_state_dict(jax.tree.map(np.asarray, params))
-    missing, unexpected = SuperPoint().load_state_dict(sd, strict=True)
+    model = SuperPoint(**kwargs)
+    missing, unexpected = model.load_state_dict(sd, strict=True)
     assert not missing and not unexpected
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("vgg_kernel", [False, True])
+def test_bf16_dense_forward_matches_jax(vgg_kernel):
+    """bf16 SuperPoint against JAX SuperPoint(dtype=bf16, use_pallas=...).
+
+    Dense maps: the raw score map (nms_radius=0 keeps every pixel) and the
+    descriptors within 1e-2 absolute (bf16 keeps 8 significant bits; the
+    sums run in another order). Keypoint slots after NMS and top-k: at
+    least 80% agree. With random weights the score map is nearly flat
+    (every score within 0.02 of 1/65), so NMS and top-k turn 1-ulp bf16
+    differences into other picks: JAX's own two bf16 paths (XLA and
+    Pallas) do not agree on every slot either."""
+    rng = np.random.default_rng(4)
+    img = rng.random((2, 64, 64, 1)).astype(np.float32)
+    params = JaxSuperPoint().init(jax.random.PRNGKey(4), jnp.asarray(img))
+    sd = bridge.superpoint_state_dict(jax.tree.map(np.asarray, params))
+    out = {}
+    for radius in (0, 4):
+        jax_sp = JaxSuperPoint(dtype=jnp.bfloat16, use_pallas=vgg_kernel, nms_radius=radius)
+        model = SuperPoint(dtype=torch.bfloat16, vgg_kernel=vgg_kernel, nms_radius=radius,
+                           nms_kernel=radius > 0)
+        model.load_state_dict(sd)
+        with torch.no_grad():
+            out[radius] = jax_sp.apply(params, jnp.asarray(img)), model(torch.from_numpy(img))
+    want, got = out[0]
+    np.testing.assert_allclose(got["score_map"].numpy(), np.asarray(want["score_map"]),
+                               atol=1e-4, rtol=1e-2)
+    np.testing.assert_allclose(got["descriptor_map"].numpy(), np.asarray(want["descriptor_map"]),
+                               atol=1e-2, rtol=0)
+    want, got = out[4]
+    kw = jax_extract(want["score_map"], want["descriptor_map"], max_keypoints=64)
+    kg = extract_keypoints(got["score_map"], got["descriptor_map"], max_keypoints=64)
+    same = np.all(kg["keypoints"].numpy() == np.asarray(kw["keypoints"]), axis=-1)
+    assert same.mean() >= 0.8, same.mean()
+    assert kg["mask"].sum() > 0
 
 
 def test_superpoint_rejects_non_fp32():
-    with pytest.raises(ValueError, match="float32"):
-        SuperPoint(dtype=torch.bfloat16)
+    """float32 and bfloat16 are the compute dtypes; float16 raises."""
+    assert SuperPoint(dtype=torch.bfloat16).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        SuperPoint(dtype=torch.float16)
