@@ -13,7 +13,7 @@ Phases, each printing its lines before the last:
      one PyTorch call computes the same thing, that call's time;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
-  4. the main paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
+  4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
      2000 x 8 points, 512 hypotheses, 4 blocks, d_model 256, 4 heads,
      random weights from a seed, in bf16 (the serving default: NMS, VGG
      stage, fused block and dual-softmax kernels) and in fp32 (NMS, GATs
@@ -21,7 +21,13 @@ Phases, each printing its lines before the last:
      per path, agreement with the CPU plain path on a small input and
      between the paths; per-stage times and launches, device busy share
      and frames/s of bf16 kernels on / off and fp32 kernels on / off;
-  5. one JSON line {"kernels": [...]}, then the last line
+  5. the pair matcher of `map` (make_superglue_pair_matcher, SuperGlue at
+     full width, random weights from a seed): 24 frames x 1024 keypoints in
+     chunks of 16 (the resident Sinkhorn kernel) and 12 frames x 4096
+     keypoints in chunks of 7 (the streamed one); launches per chunk,
+     kernels on against off, stage times, device time and Sinkhorn's
+     share, ms per chunk, pairs/s and peak memory, kernels on and off;
+  6. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -41,7 +47,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "ransac", "main")
+PHASES = ("build", "kernels", "ransac", "main", "pairs")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -76,6 +82,26 @@ TIMED_CALLS = 10
 # the comparisons then see real matches and RANSAC real correspondences.
 # The work is the same at any threshold (static shapes).
 MATCH_THRESHOLD = 0.0
+# K6 [B, M, N] couplings (keypoints + dustbin): map's default (1024
+# keypoints, chunks of 16; three waves of pairs), then a ragged one. K7:
+# the SfM budget (4096 keypoints, chunks of 7), then a ragged one whose
+# blocks stream several row blocks each.
+SINKHORN_SHAPES = ((16, 1025, 1025), (3, 301, 257))
+STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049))
+SINKHORN_ITERS = 100
+SINKHORN_ABS = 1e-3
+# exp on the special-function units: 16 per clock per SM, 132 SMs, 1.98 GHz.
+EXP_PER_S = 16 * 132 * 1.98e9
+# The pair matcher of `map` at full width (SuperGlue: d_model 256, 4 heads,
+# 9 layers, 100 Sinkhorn iterations) with random weights: (a) map's default
+# of 1024 keypoints in chunks of 16 (K6), (b) the SfM budget of 4096
+# keypoints, where the HBM guard caps the chunk at 7 (K7).
+PAIRS = (dict(label="a", frames=24, keypoints=1024, pairs=32, pair_chunk=16, chunk=16,
+              kernel="sinkhorn"),
+         dict(label="b", frames=12, keypoints=4096, pairs=14, pair_chunk=16, chunk=7,
+              kernel="sinkhorn_stream"))
+PAIR_HW = (480, 640)
+PAIR_RUNS = 2  # timed match_pairs calls per setting, in turns (on, off, off, on)
 
 
 def log(msg: str) -> None:
@@ -88,7 +114,8 @@ def fail(msg: str) -> None:
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") for the work at the card's peaks;
-    ops_per_s is the peak rate of the operand type (fp32 SIMT, bf16 MMA)."""
+    ops_per_s is the peak rate of the operation's type (fp32 SIMT, bf16 MMA,
+    exp on the special-function units)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
@@ -260,6 +287,7 @@ def phase_kernels(torch, timer):
                 s.numel() * 4 + b * (m + n) * 8, 10 * s.numel())
     rows["vgg_stage"] = _kernels_vgg(torch, timer, g)
     rows["gats_block"] = _kernels_block(torch, timer, g)
+    rows.update(_kernels_sinkhorn(torch, timer, g))
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -429,6 +457,99 @@ def _kernels_block(torch, timer, g):
     if not err <= 1e-3 * float(ref.abs().max()):
         fail("the gats_block GEMM differs from its plain version")
     return row
+
+
+def _sinkhorn_input(torch, g, b, m, n):
+    """The transport problem of log_sinkhorn for a planted assignment (after
+    the JAX test's, test_pallas_kernels.py:506-513): scores of unit
+    descriptors and copies of them with noise of norm 0.2, at scale 8, 10%
+    of the keypoints masked, a dustbin score of 1. Returns (couplings
+    [b, m, n], log_mu, log_nu, norm, mask0, mask1)."""
+    from onepose_tpu_torch.models.superglue import sinkhorn_problem
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    k0, k1 = m - 1, n - 1
+    d1 = unit(torch.randn((b, k1, 64), generator=g, device=DEV))
+    pick = torch.randint(0, k1, (k0,), generator=g, device=DEV)
+    d0 = unit(d1[:, pick] + 0.2 / 8 * torch.randn((b, k0, 64), generator=g, device=DEV))
+    scores = torch.einsum("bmc,bnc->bmn", d0, d1) * 8.0
+    m0 = torch.rand((b, k0), generator=g, device=DEV) >= 0.1
+    m1 = torch.rand((b, k1), generator=g, device=DEV) >= 0.1
+    c, mu, nu, norm = sinkhorn_problem(scores, torch.tensor(1.0, device=DEV), m0, m1)
+    return c, mu, nu, norm, m0, m1
+
+
+def _kernels_sinkhorn(torch, timer, g):
+    """K6 and K7 against the plain scan, 100 iterations: u and v within
+    SINKHORN_ABS on the slots that carry mass (masked slots hold NEG_INF
+    sentinels whose value depends on summation order: an fp32 ulp at 1e9 is
+    64), and the matches extracted from the log-assignment identical. The
+    kernels sum the exponentials in another order than torch.logsumexp;
+    100 contracting iterations keep the difference near the fp32 rounding
+    of potentials of size 10 to 20. Matches at MATCH_THRESHOLD: at 4096
+    keypoints a planted pair's assignment stays below 0.2 (thousands of
+    competitors at scale 8). K7 also with bf16 storage (the plain
+    version rounds the coupling the same way). Bounds count the
+    exponentials at EXP_PER_S (2 per coupling entry per iteration) and
+    each input byte once."""
+    from onepose_tpu_torch.models.superglue import extract_matches
+    from onepose_tpu_torch.ops.kernels import sinkhorn, sinkhorn_stream
+
+    plain = sinkhorn.sinkhorn_potentials_plain
+    runs = [("sinkhorn", shape, None) for shape in SINKHORN_SHAPES]
+    runs += [("sinkhorn_stream", shape, dt) for shape in STREAM_SHAPES
+             for dt in (None, torch.bfloat16)]
+    rows, extra = {}, []
+    for i, (name, shape, cdt) in enumerate(runs):
+        c, mu, nu, norm, m0, m1 = _sinkhorn_input(torch, g, *shape)
+        if name == "sinkhorn":
+            kern = lambda: sinkhorn.sinkhorn_kernel(c, mu, nu, SINKHORN_ITERS)  # noqa: E731
+        else:
+            kern = lambda: sinkhorn_stream.sinkhorn_stream_kernel(  # noqa: E731
+                c, mu, nu, SINKHORN_ITERS, coupling_dtype=cdt)
+        ref = lambda: plain(c, mu, nu, SINKHORN_ITERS, coupling_dtype=cdt)  # noqa: E731
+        (u, v), (ur, vr) = kern(), ref()
+        torch.cuda.synchronize()
+        ones = torch.ones((shape[0], 1), dtype=torch.bool, device=DEV)
+        vm0, vm1 = torch.cat([m0, ones], 1), torch.cat([m1, ones], 1)
+        err = max(float((u - ur).abs()[vm0].max()), float((v - vr).abs()[vm1].max()))
+        zs = [c + a[:, :, None] + b[:, None, :] - norm[:, None, None]
+              for a, b in ((u, v), (ur, vr))]
+        mk, mp = (extract_matches(z, MATCH_THRESHOLD, m0, m1)["matches0"] for z in zs)
+        bad, hits = int((mk != mp).sum()), int((mp >= 0).sum())
+        finite = bool(torch.isfinite(u).all() and torch.isfinite(v).all())
+        store = "bf16" if cdt is not None else "fp32"
+        log(f"[kernels] {name} {shape} {store} x {SINKHORN_ITERS}: max abs err on valid slots "
+            f"{err:.3e} (<= {SINKHORN_ABS}), {bad} match mismatches (0 required), {hits} matches")
+        if not (err <= SINKHORN_ABS and bad == 0 and hits > 0 and finite):
+            fail(f"the {name} kernel differs from its plain version")
+        prod = shape == (SINKHORN_SHAPES if name == "sinkhorn" else STREAM_SHAPES)[0]
+        if not prod:
+            continue
+        b, m, n = shape
+        ms = timer(kern, reps=10)
+        plain_ms = timer(ref, reps=3, warmup=1)
+        n_bytes = 4 * (b * m * n + 2 * b * (m + n))
+        bms, by = bound(n_bytes, 2 * b * m * n * SINKHORN_ITERS, EXP_PER_S)
+        if cdt is not None:
+            extra.append(f"[kernels] {name} {shape} bf16 storage: kernel {ms:.4f} ms, plain "
+                         f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            continue
+        k = "K6" if name == "sinkhorn" else "K7"
+        log(f"[kernels] {name} ({k}) {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; one "
+            f"sweep of the coupling per iteration would take "
+            f"{b * m * n * 4 * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        rows[name] = dict(
+            name=name, route="cuda", source=f"onepose_tpu_torch/csrc/{name}.cu",
+            replaces=("onepose_tpu/ops/pallas/sinkhorn.py:78" if name == "sinkhorn" else
+                      "onepose_tpu/ops/pallas/sinkhorn_stream.py:105"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+            bound_by=by)
+    for line in extra:
+        log(line)
+    return rows
 
 
 def _synthetic_matches(torch, g, b, n, outlier_frac=0.3, noise=0.5):
@@ -636,8 +757,9 @@ def phase_main(torch, rows):
     draws = torch.rand((B, HYP, 3), generator=g, device=DEV)
 
     nb = MAIN["blocks"]
-    want = {"bf16 on": {"nms": 1, "vgg_stage": 4, "gats": 0, "gats_block": nb, "dual_softmax": 1},
-            "fp32 on": {"nms": 1, "vgg_stage": 0, "gats": nb, "gats_block": 0, "dual_softmax": 1}}
+    none = dict.fromkeys(launch_counts(), 0)
+    want = {"bf16 on": {**none, "nms": 1, "vgg_stage": 4, "gats_block": nb, "dual_softmax": 1},
+            "fp32 on": {**none, "nms": 1, "gats": nb, "dual_softmax": 1}}
     res = {}
     for label, pipe in pipes.items():
         pipe(imgs, K, anno, draws=draws)  # warm-up (cuDNN autotune, first launches)
@@ -823,12 +945,175 @@ def _device_busy(torch, label, pipe, imgs, K, anno, draws, calls=3) -> None:
         log(f"[main] profiler top kernel, {label}: {ms:.3f} ms/call  {name[:100]}")
 
 
+def _pair_feats(np, cfg, seed):
+    """Random sequence features: unit descriptors, each frame sharing half
+    of its keypoints (noisy copies) with the frame before, 10% of the
+    keypoints masked."""
+    rng = np.random.default_rng(seed)
+    f, n = cfg["frames"], cfg["keypoints"]
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    desc = unit(rng.standard_normal((f, n, 256), dtype=np.float32))
+    for i in range(1, f):
+        src = desc[i - 1, rng.permutation(n)[: n // 2]]
+        desc[i, : n // 2] = unit(src + 0.1 / 16 * rng.standard_normal(src.shape, dtype=np.float32))
+    h, w = PAIR_HW
+    kpts = rng.uniform((0, 0), (w, h), size=(f, n, 2)).astype(np.float32)
+    return {"keypoints": kpts, "descriptors": desc,
+            "scores": rng.random((f, n), dtype=np.float32), "mask": rng.random((f, n)) >= 0.1,
+            "image_hw": PAIR_HW}
+
+
+def _pair_stages(torch, model, feats, pairs):
+    """The stages of one chunk through SuperGlue as (name, call) pairs: the
+    GNN up to the scores, log_sinkhorn, extract_matches."""
+    from onepose_tpu_torch.models.superglue import extract_matches, log_sinkhorn
+
+    idx = torch.as_tensor(pairs, device=DEV)
+    ii, jj = idx[:, 0], idx[:, 1]
+    k, d, s, m = (torch.from_numpy(feats[x]).to(DEV) for x in
+                  ("keypoints", "descriptors", "scores", "mask"))
+    st = {}
+
+    def gnn():
+        st["sim"] = model.similarity(k[ii], k[jj], d[ii], d[jj], s[ii], s[jj], PAIR_HW, PAIR_HW,
+                                     m[ii], m[jj])
+
+    def sink():
+        st["z"] = log_sinkhorn(st["sim"], model.bin_score, m[ii], m[jj],
+                               model.sinkhorn_iterations, kernel=model.sinkhorn_kernel)
+
+    def extract():
+        st["out"] = extract_matches(st["z"], model.match_threshold, m[ii], m[jj])
+
+    return (("gnn", gnn), ("sinkhorn", sink), ("extract_matches", extract)), st
+
+
+def _profile_stages(torch, stages) -> dict:
+    """(kernel launches, device ms) of each stage, each under its own
+    torch.profiler (CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, call in stages:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out[name] = (len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+    return out
+
+
+def phase_pairs(torch, rows):
+    """make_superglue_pair_matcher at full width on shapes (a) and (b):
+    launch counts per chunk, kernels on against off, stage times, device
+    time and Sinkhorn's share of it, ms per chunk, pairs/s, peak memory."""
+    import numpy as np
+
+    from onepose_tpu_torch.models.superglue import SuperGlue
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from onepose_tpu_torch.parallel.sfm_parallel import make_superglue_pair_matcher
+
+    log(f"[pairs] TF32: cudnn {torch.backends.cudnn.allow_tf32}, matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32} (the main path's setting)")
+    torch.manual_seed(0)
+    sd = SuperGlue().state_dict()
+    for seed, cfg in enumerate(PAIRS):
+        tag = f"({cfg['label']}) {cfg['frames']} frames x {cfg['keypoints']} keypoints"
+        feats = _pair_feats(np, cfg, seed)
+        rng = np.random.default_rng(seed)
+        pairs = np.stack([np.arange(cfg["pairs"]) % cfg["frames"],
+                          (np.arange(cfg["pairs"]) + 1 + rng.integers(0, 2, cfg["pairs"]))
+                          % cfg["frames"]], 1)
+        models, matchers = {}, {}
+        for label, kern in (("on", None), ("off", False)):
+            models[label] = SuperGlue(match_threshold=MATCH_THRESHOLD, sinkhorn_kernel=kern)
+            models[label].load_state_dict(sd)
+            matchers[label] = make_superglue_pair_matcher(models[label], feats,
+                                                          pair_chunk=cfg["pair_chunk"], device=DEV)
+        chunk = matchers["on"].chunk
+        n_chunks = -(-len(pairs) // chunk)
+        if chunk != cfg["chunk"]:
+            fail(f"{tag}: chunk {chunk}, want {cfg['chunk']}")
+        res = {}
+        for label, match in matchers.items():
+            match(pairs[:chunk])  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()  # this path's counts: 0 just before it, read just after
+            res[label] = match(pairs)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = dict.fromkeys(counts, 0)
+            if label == "on":
+                want[cfg["kernel"]] = n_chunks
+            log(f"[pairs] {tag}, kernels {label}: launches in one match_pairs call of "
+                f"{len(pairs)} pairs ({n_chunks} chunks of {chunk}): {counts} (want {want})")
+            if counts != want:
+                fail(f"{tag}: the kernels-{label} pair matcher did not launch as expected")
+            if label == "on" and cfg["kernel"] in rows:
+                rows[cfg["kernel"]]["launches"] = counts[cfg["kernel"]]
+        agree = float((res["on"] == res["off"]).mean())
+        hits = int((res["on"] >= 0).sum())
+        log(f"[pairs] {tag}: kernels on vs off, matches agreeing {agree:.6f} (>= 0.99), "
+            f"{hits} matches in {len(pairs)} pairs")
+        if agree < 0.99 or hits == 0:
+            fail(f"{tag}: the kernels-on pair matcher disagrees with the kernels-off one")
+
+        device_ms = {}
+        with torch.inference_mode():
+            for label, model in models.items():
+                stages, st = _pair_stages(torch, model, feats, pairs[:chunk])
+                times = {}
+                for _ in range(3):
+                    for name, call in stages:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        call()
+                        torch.cuda.synchronize()
+                        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+                z, out = st["z"], st["out"]
+                if not (bool(torch.isfinite(z).all()) and bool(torch.isfinite(
+                        out["matching_scores0"]).all())):
+                    fail(f"{tag}: the log-assignment is not finite (kernels {label})")
+                prof = _profile_stages(torch, stages)
+                total = sum(ms for _, ms in prof.values())
+                device_ms[label] = total
+                log(f"[pairs] {tag}, kernels {label}, one chunk of {chunk}: stages host ms "
+                    "(median of 3, synchronized) " + ", ".join(
+                        f"{k} {statistics.median(v):.2f}" for k, v in times.items())
+                    + "; launches and device ms " + ", ".join(
+                        f"{k} {n} {ms:.2f}" for k, (n, ms) in prof.items())
+                    + f"; device {total:.2f} ms, Sinkhorn {100 * prof['sinkhorn'][1] / total:.1f}%")
+        runs = {"on": [], "off": []}
+        for label in ("on", "off", "off", "on") * PAIR_RUNS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            matchers[label](pairs)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runs[label].append(sec * 1e3 / n_chunks)
+            log(f"[pairs] {tag}, kernels {label}: {sec * 1e3 / n_chunks:.2f} ms per chunk of "
+                f"{chunk}, {len(pairs) / sec:.1f} pairs/s, peak memory {peak:.2f} GiB")
+        for label, v in runs.items():
+            ms = statistics.median(v)
+            log(f"[pairs] {tag}, kernels {label} (median of {len(v)} calls): {ms:.2f} ms per "
+                f"chunk, {len(pairs) / (ms * n_chunks) * 1e3:.1f} pairs/s; device "
+                f"{device_ms[label]:.2f} ms per chunk")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
+    t_start = time.perf_counter()
 
     import torch
 
@@ -854,6 +1139,9 @@ def main(argv=None) -> int:
         phase_ransac(torch)
     if "main" in phases:
         phase_main(torch, rows)
+    if "pairs" in phases:
+        phase_pairs(torch, rows)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s of command time, the build included")
     if set(phases) != set(PHASES):
         log(f"[partial] ran {phases} of {list(PHASES)}: no result line")
         return 0

@@ -1,15 +1,16 @@
 """Weight bridge: JAX (linen) parameter trees -> the port's state_dicts.
 
 Input is a nested mapping of numpy arrays, e.g.
-`jax.tree.map(np.asarray, params)` of the JAX SuperPoint or GATsSPG, with or
-without the top-level "params" collection. Module paths map one to one,
+`jax.tree.map(np.asarray, params)` of the JAX SuperPoint, GATsSPG or
+SuperGlue, with or without the top-level "params" collection. Module paths map one to one,
 because the port's modules carry the JAX module names (`conv1a`,
 `gats_0`, `self_0.attn.proj_q`, `final_proj`, ...):
 - a conv `kernel` [kh, kw, in, out] (HWIO) becomes `weight` [out, in, kh, kw]
   (OIHW);
 - a dense `kernel` [in, out] becomes a Linear `weight` [out, in];
-- `bias` and the raw GATs parameters `W` [C, C] and `a` [2C, 1] (and folded
-  batch-norm `bn_scale_*` / `bn_bias_*`) are copied as they are.
+- `bias`, the raw GATs parameters `W` [C, C] and `a` [2C, 1], the folded
+  batch-norm `bn_scale_*` / `bn_bias_*` and SuperGlue's scalar
+  `bin_score` are copied as they are.
 Attention channels keep the head-major order c = h * D + d of the JAX
 package; no permutation is applied.
 """
@@ -65,4 +66,14 @@ def gats_spg_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     bad = [n for n in sd if not n.startswith(prefixes)]
     if bad:
         raise ValueError(f"not GATsSPG parameters: {bad[:5]}")
+    return sd
+
+
+def superglue_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for `models.superglue.SuperGlue` from JAX SuperGlue params."""
+    sd = jax_to_state_dict(params)
+    prefixes = ("kenc.", "self_", "cross_", "final_proj.")
+    bad = [n for n in sd if not (n.startswith(prefixes) or n == "bin_score")]
+    if bad:
+        raise ValueError(f"not SuperGlue parameters: {bad[:5]}")
     return sd

@@ -1,6 +1,6 @@
-"""Shared model building blocks: point-MLPs and masked linear attention.
+"""Shared model building blocks: point-MLPs, masked linear and softmax attention.
 
-Port of onepose_tpu/models/common.py for the GATsSPG path. Point sets are
+Port of onepose_tpu/models/common.py for the GATsSPG and SuperGlue paths. Point sets are
 channel-last [B, N, C] and masks are bool [B, N] with True = valid, as in
 the JAX package. Linear layers carry the JAX module names (`dense_0`, `proj_q`,
 `merge`, ...) so that `models.bridge` maps parameters one to one.
@@ -12,8 +12,10 @@ internals run in fp32. `mixed=True` with bf16 feeds the linear-attention
 contractions bf16-rounded operands with fp32 sums (`mixed_einsum`), as
 the JAX package does on an accelerator.
 
-Softmax / flash attention belong to SuperGlue and are not ported yet
-(ROADMAP.md); `MultiHeadAttention(kind="softmax")` raises.
+`masked_softmax_attention` (SuperGlue) is plain PyTorch, as the JAX
+package leaves it to XLA; its opt-in `use_flash=True` route goes to
+`F.scaled_dot_product_attention` where the JAX package calls its library
+TPU flash kernel. No path of the port takes that route by default.
 """
 
 from __future__ import annotations
@@ -144,11 +146,61 @@ def masked_linear_attention(
     return torch.einsum("bnhd,bhde,bnh->bnhe", phi_q, kv, z) * m
 
 
+def _flash_softmax_attention(q, k, v, kv_mask, sm_scale):
+    """Softmax attention through `F.scaled_dot_product_attention` with a
+    key mask, fp32. q/k/v: [B, N|M, H, D]. Rows whose keys are all masked
+    are zeroed, as the JAX flash route does (the plain path returns the
+    mean of v there)."""
+    qt, kt, vt = (x.float().transpose(1, 2) for x in (q, k, v))
+    mask = None if kv_mask is None else kv_mask[:, None, None, :]
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm_scale)
+    out = out.transpose(1, 2)
+    if kv_mask is not None:
+        out = torch.where(kv_mask.any(dim=1)[:, None, None, None], out, 0.0)
+    return out
+
+
+def masked_softmax_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    use_flash: Optional[bool] = None,
+) -> torch.Tensor:
+    """Multi-head scaled dot-product attention with key-side masking.
+
+    q: [B, N, H, D]; k, v: [B, M, H, D]; kv_mask: [B, M] (True = valid).
+    Returns [B, N, H, D]; masked keys get logits NEG_INF, so a row whose
+    keys are all masked averages v uniformly. The softmax runs in fp32.
+
+    compute_dtype bf16: q, k, v and the probabilities are rounded to bf16
+    and both contractions sum in fp32 (JAX on an accelerator; JAX on the CPU
+    keeps the probabilities fp32). None or fp32: all fp32.
+
+    use_flash: the opt-in fused route (`_flash_softmax_attention`)."""
+    d = q.shape[-1]
+    if use_flash:
+        return _flash_softmax_attention(q, k, v, kv_mask, sm_scale=1.0 / float(d) ** 0.5)
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        cd = compute_dtype
+        logits = mixed_einsum("bnhd,bmhd->bhnm", q, k, dtype=cd) / float(d) ** 0.5
+        if kv_mask is not None:
+            logits = logits.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        return mixed_einsum("bhnm,bmhd->bnhd", probs, v, dtype=cd)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) / float(d) ** 0.5
+    if kv_mask is not None:
+        logits = logits.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
+    return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v)
+
+
 class MultiHeadAttention(nn.Module):
-    """Q/K/V projections + linear attention + output merge. Channels are
-    head-major (c = h * D + d), so the head split is a plain reshape. The
-    projections and the merge compute in `dtype`, the attention in fp32
-    (with bf16-operand contractions when `mixed` and `dtype` is bf16)."""
+    """Q/K/V projections + attention + output merge. kind: 'linear'
+    (GATsSPG) or 'softmax' (SuperGlue). Channels are head-major
+    (c = h * D + d), so the head split is a plain reshape. The projections
+    and the merge compute in `dtype`, the attention in fp32 (with
+    bf16-operand contractions when `mixed` and `dtype` is bf16)."""
 
     def __init__(
         self,
@@ -161,11 +213,9 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.dtype = check_compute_dtype(dtype)
         self.mixed = mixed
-        if kind != "linear":
-            raise NotImplementedError(
-                f"attention kind {kind!r}: softmax attention (SuperGlue) is "
-                "not ported yet, see ROADMAP.md"
-            )
+        if kind not in ("linear", "softmax"):
+            raise ValueError(f"unknown attention kind {kind!r}")
+        self.kind = kind
         self.num_heads = num_heads
         self.d_model = d_model
         self.proj_q = Dense(d_model, d_model, dtype)
@@ -186,7 +236,8 @@ class MultiHeadAttention(nn.Module):
         k = self.proj_k(source).reshape(b, m, self.num_heads, hd).float()
         v = self.proj_v(source).reshape(b, m, self.num_heads, hd).float()
         cd = self.dtype if self.mixed and self.dtype != torch.float32 else None
-        out = masked_linear_attention(q, k, v, source_mask, compute_dtype=cd)
+        attend = masked_softmax_attention if self.kind == "softmax" else masked_linear_attention
+        out = attend(q, k, v, source_mask, compute_dtype=cd)
         return self.merge(out.to(self.dtype).reshape(b, n, self.d_model))
 
 

@@ -11,14 +11,25 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 | dual_softmax  | dual_softmax.py::dual_softmax_match       | csrc/dual_softmax.cu |
 | vgg_stage     | vgg_stage.py::_vgg_stage_pallas           | csrc/vgg_stage.cu  |
 | gats_block    | gats_block.py::fused_gats_block           | csrc/gats_block.cu |
+| sinkhorn      | sinkhorn.py::sinkhorn_potentials          | csrc/sinkhorn.cu   |
+| sinkhorn_stream | sinkhorn_stream.py::sinkhorn_potentials_streamed | csrc/sinkhorn_stream.cu |
 
 `gats_block` counts one launch per call of its wrapper, which runs the
-block as a sequence of 33 CUDA kernels.
+block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
+each run all their iterations in one cooperative launch.
 """
 
 from __future__ import annotations
 
-from onepose_tpu_torch.ops.kernels import dual_softmax, gats, gats_block, score_path, vgg_stage
+from onepose_tpu_torch.ops.kernels import (
+    dual_softmax,
+    gats,
+    gats_block,
+    score_path,
+    sinkhorn,
+    sinkhorn_stream,
+    vgg_stage,
+)
 
 _MODULES = {
     "nms": score_path,
@@ -26,6 +37,8 @@ _MODULES = {
     "gats": gats,
     "gats_block": gats_block,
     "dual_softmax": dual_softmax,
+    "sinkhorn": sinkhorn,
+    "sinkhorn_stream": sinkhorn_stream,
 }
 
 

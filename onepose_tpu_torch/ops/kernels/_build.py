@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "--ptxas-options=-v",  # registers / shared memory / spills in the build log
 )
-KERNELS = ("score_path", "gats", "dual_softmax", "vgg_stage", "gats_block")
+KERNELS = ("score_path", "gats", "dual_softmax", "vgg_stage", "gats_block", "sinkhorn",
+           "sinkhorn_stream")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> (argtypes, restype).
@@ -52,6 +53,14 @@ SIGNATURES = {
         "gats_block_launch": ([_P] + [_I] * 6 + [_F, _I, _P], _I),
         "gats_block_num_ptrs": ([], _I),
         "gats_block_gemm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    },
+    "sinkhorn": {
+        "sinkhorn_max_blocks": ([_I], _I),
+        "sinkhorn_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    },
+    "sinkhorn_stream": {
+        "sinkhorn_stream_max_blocks": ([_I], _I),
+        "sinkhorn_stream_launch": ([_P, _I] + [_P] * 5 + [_I] * 10 + [_P], _I),
     },
 }
 
@@ -129,6 +138,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def resident_blocks(lib: ctypes.CDLL, fn: str, smem: int) -> int:
+    """Blocks of a cooperative kernel resident on the card at once, from
+    the library's occupancy entry point `fn` (negative: a CUDA error)."""
+    n = getattr(lib, fn)(int(smem))
+    if n < 0:
+        check(lib, -n, fn)
+    return n
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

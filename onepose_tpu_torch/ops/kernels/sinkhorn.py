@@ -1,0 +1,153 @@
+"""Resident log-space Sinkhorn: the CUDA kernel `csrc/sinkhorn.cu` (K6), the
+plain version shared with the streamed kernel, and the size guard.
+
+Replaces onepose_tpu/ops/pallas/sinkhorn.py::sinkhorn_potentials. Contract:
+
+  (couplings [B, M, N], log_mu [B, M], log_nu [B, N], iters) -> (u, v)
+  u = mu - lse_row(C + v), then v = nu - lse_col(C + u), `iters` times
+  from u = v = 0, so that C + u[:, :, None] + v[:, None, :] is the
+  log-assignment.
+
+Bound on the H100: operations, the exponentials. Each iteration takes one
+exp per coupling entry for the row update and one for the column update:
+2 * B * M * N * iters, 3.4e9 at [16, 1025, 1025] x 100, about 0.8 ms on
+the special-function units; the coupling is read from device memory once.
+
+Design (see the source): one persistent cooperative launch. Each block
+holds a band of whole rows of one pair in shared memory for all
+iterations, updates u for its band locally, writes per-column partial
+(max, sum of exp) of C + u for its band, and after a grid-wide barrier
+every block of the pair reduces its pair's partials into v. Pairs that do
+not fit on the card at once run in waves, looped inside the one launch.
+`plan` fixes the bands; `fits_smem` says whether one pair's bands fit on
+the card's SMs at once (the guard that routes larger couplings to the
+streamed kernel, `ops.kernels.sinkhorn_stream`).
+
+`sinkhorn_potentials` launches the kernel on CUDA tensors and runs
+`sinkhorn_potentials_plain` only on CPU tensors. Forward-only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from onepose_tpu_torch.ops.kernels import _build
+
+launches = 0  # kernel launches since the last reset (ops.kernels.reset_launches)
+SMS = 132  # H100 SXM streaming multiprocessors
+SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def sinkhorn_potentials_plain(
+    couplings: torch.Tensor,
+    log_mu: torch.Tensor,
+    log_nu: torch.Tensor,
+    iters: int = 100,
+    coupling_dtype: Optional[torch.dtype] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' function in plain PyTorch (the scan of the JAX
+    package's log_sinkhorn). coupling_dtype bf16 rounds the coupling to
+    bf16 first, as the streamed kernel stores it; arithmetic is fp32."""
+    c = couplings.float() if coupling_dtype is None else couplings.to(coupling_dtype).float()
+    log_mu, log_nu = log_mu.float(), log_nu.float()
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(c + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(c + u[:, :, None], dim=1)
+    return u, v
+
+
+def band_smem(rows: int, n: int) -> int:
+    """Shared memory of a block holding `rows` coupling rows of width n,
+    the pair's v [n] and the band's u [rows], fp32."""
+    return 4 * (rows * n + n + rows)
+
+
+def max_band_rows(n: int, smem_per_block: int = SMEM_PER_BLOCK) -> int:
+    return max(0, (smem_per_block // 4 - n) // (n + 1))
+
+
+def fits_smem(m: int, n: int, sms: int = SMS, smem_per_block: int = SMEM_PER_BLOCK) -> bool:
+    """True when one pair's [m, n] coupling, in bands of whole rows that fit
+    a block's shared memory beside its v and u, needs no more blocks than
+    the card has SMs: the resident kernel can hold it. (1025, 1025): 19
+    blocks of 54 rows; (2049, 2049): 76 of 27; (4097, 4097) would need 316."""
+    rows = max_band_rows(n, smem_per_block)
+    return rows >= 1 and -(-m // rows) <= sms
+
+
+class Plan(NamedTuple):
+    blocks_per_pair: int  # bands of one pair, one block each
+    rows: int  # rows per band (the last band may hold fewer)
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def plan(m: int, n: int, smem_per_block: int = SMEM_PER_BLOCK) -> Plan:
+    """Bands of an [m, n] coupling: the fewest per pair, with the rows
+    spread evenly over them."""
+    rows_max = max_band_rows(n, smem_per_block)
+    if rows_max < 1:
+        raise ValueError(f"sinkhorn: a coupling row of {n} fp32 does not fit shared memory")
+    per_pair = -(-m // rows_max)
+    rows = -(-m // per_pair)
+    return Plan(per_pair, rows, band_smem(rows, n))
+
+
+def pairs_per_wave(b: int, blocks_per_pair: int, max_blocks: int) -> int:
+    """Pairs resident at once when `max_blocks` blocks of the kernel fit on
+    the card together; the launch loops over ceil(b / pairs) waves."""
+    if blocks_per_pair > max_blocks:
+        raise ValueError(f"sinkhorn: one pair needs {blocks_per_pair} resident blocks, the "
+                         f"card holds {max_blocks}")
+    return min(b, max_blocks // blocks_per_pair)
+
+
+def sinkhorn_potentials(
+    couplings: torch.Tensor,
+    log_mu: torch.Tensor,
+    log_nu: torch.Tensor,
+    iters: int = 100,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """couplings [B, M, N] fp32 log-scores (masked slots NEG_INF), log_mu
+    [B, M], log_nu [B, N] -> (u [B, M], v [B, N])."""
+    if couplings.device.type == "cpu":
+        return sinkhorn_potentials_plain(couplings, log_mu, log_nu, iters)
+    return sinkhorn_kernel(couplings, log_mu, log_nu, iters)
+
+
+def check_inputs(what: str, couplings, log_mu, log_nu) -> None:
+    b, m, n = couplings.shape
+    _build.require_cuda_input(log_mu, f"{what} log_mu", 2)
+    _build.require_cuda_input(log_nu, f"{what} log_nu", 2)
+    if log_mu.shape != (b, m) or log_nu.shape != (b, n):
+        raise ValueError(f"{what}: log_mu must be [B, M] and log_nu [B, N] for couplings "
+                         f"{tuple(couplings.shape)}")
+
+
+def sinkhorn_kernel(
+    couplings: torch.Tensor,
+    log_mu: torch.Tensor,
+    log_nu: torch.Tensor,
+    iters: int = 100,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the resident kernel (one cooperative launch per call)."""
+    _build.require_cuda_input(couplings, "sinkhorn couplings", 3)
+    check_inputs("sinkhorn", couplings, log_mu, log_nu)
+    b, m, n = couplings.shape
+    lib = _build.load("sinkhorn")
+    p = plan(m, n)
+    max_blocks = _build.resident_blocks(lib, "sinkhorn_max_blocks", p.smem)
+    ppw = pairs_per_wave(b, p.blocks_per_pair, max_blocks)
+    f32 = dict(dtype=torch.float32, device=couplings.device)
+    u, v = torch.empty(b, m, **f32), torch.empty(b, n, **f32)
+    part = torch.empty(2 * b * p.blocks_per_pair * 2 * n, **f32)
+    P = _build.ptr
+    err = lib.sinkhorn_launch(P(couplings), P(log_mu), P(log_nu), P(u), P(v), P(part), b, m, n,
+                              int(iters), p.rows, p.blocks_per_pair, ppw, p.smem,
+                              _build.stream(couplings.device))
+    _build.check(lib, err, "sinkhorn kernel")
+    global launches
+    launches += 1
+    return u, v

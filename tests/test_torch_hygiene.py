@@ -19,7 +19,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys, onepose_tpu_torch, onepose_tpu_torch.runtime, "
         "onepose_tpu_torch.geometry, onepose_tpu_torch.models.bridge, "
-        "onepose_tpu_torch.ops.kernels\n"
+        "onepose_tpu_torch.ops.kernels, onepose_tpu_torch.models.superglue, "
+        "onepose_tpu_torch.models.nn_matcher, onepose_tpu_torch.parallel.sfm_parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'onepose_tpu', "
         "'triton')]\n"
         "print(bad)\n"
