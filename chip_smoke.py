@@ -10,7 +10,10 @@ Phases, each printing its lines before the last:
      main path's production shapes and at ragged, masked shapes, and time
      both (CUDA events, L2 flushed before each launch, median), beside the
      bound at the card's peak rate for the kernel's operand type and, where
-     one PyTorch call computes the same thing, that call's time;
+     one PyTorch call computes the same thing, that call's time; with the
+     breakdowns of the VGG stage (each encoder stage beside cuDNN's conv
+     pair) and of the fused block (launched from Python and replayed as a
+     CUDA graph; device ms per CUDA kernel from torch.profiler);
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
@@ -59,12 +62,13 @@ DEV = "cuda"
 NMS_SHAPES = ((8, 512, 512), (3, 136, 200))  # [B, H, W]
 GATS_SHAPES = ((8, 2000, 8, 256, True), (3, 37, 5, 96, True), (2, 300, 8, 256, False))
 DUAL_SHAPES = ((8, 1000, 2000), (3, 45, 203))  # [B, M, N]
-# [B, H, W, Cin, C1, C2, pool]: the four stages of one encoder pass, then ragged ones.
+# [B, H, W, Cin, C1, C2, pool]: the four stages of one encoder pass, then ragged ones
+# (the last with input channels padded to 128 and C1 != C2).
 VGG_SHAPES = (
     ((8, 512, 512, 1, 64, 64, True), (8, 256, 256, 64, 64, 64, True),
      (8, 128, 128, 64, 128, 128, True), (8, 64, 64, 128, 128, 128, False)),
     ((3, 136, 200, 1, 64, 64, True), (3, 68, 100, 64, 128, 128, True),
-     (3, 68, 100, 128, 128, 128, False)),
+     (3, 68, 100, 128, 128, 128, False), (2, 36, 70, 96, 64, 128, True)),
 )
 BLOCK_SHAPES = ((8, 1000, 2000, 8, 256, True), (3, 37, 45, 5, 256, True),
                 (2, 300, 200, 8, 256, False))  # [B, N2, N3, L, C, masked]
@@ -306,8 +310,11 @@ def _kernels_vgg(torch, timer, g):
     (the same rounding points; the fp32 sums run in another order), the
     rest within 2^-6 of the largest output: where a conv1 sum lands on the
     other side of a bf16 rounding boundary, that one-ulp flip of conv1's
-    output moves conv2's sums by a few ulps of their own. Timed as one
-    encoder pass (the four production stages)."""
+    output moves conv2's sums by a few ulps of their own. The tile height
+    the kernel picks must equal `vgg_stage.tile_rows`' (which the CPU
+    replay of the schedule uses). Timed as one encoder pass (the four
+    production stages) with the weights packed once, as SuperPoint's
+    PackCache keeps them, then stage by stage."""
     import torch.nn.functional as F
 
     from onepose_tpu_torch.ops.kernels import vgg_stage
@@ -323,9 +330,16 @@ def _kernels_vgg(torch, timer, g):
         b2 = torch.randn((c2,), generator=g, device=DEV) * 0.1
         return x, w1, b1, w2, b2, pool
 
+    from onepose_tpu_torch.ops.kernels import _build
+
     prod, err = [], 0.0
+    klib = _build.load("vgg_stage")
     for i, shapes in enumerate(VGG_SHAPES):
         for shape in shapes:
+            cin, c1, c2 = shape[3:6]
+            th = klib.vgg_stage_tile_rows(cin, c1, c2)
+            if th != vgg_stage.tile_rows(cin, c1, c2):
+                fail(f"vgg_stage tile height {th} differs from the Python mirror's")
             args = stage_args(*shape)
             out = vgg_stage.vgg_stage_kernel(*args).float()
             ref = vgg_stage.vgg_stage_plain(*args).float()
@@ -334,7 +348,8 @@ def _kernels_vgg(torch, timer, g):
             err, top = float((out - ref).abs().max()), float(ref.abs().max())
             ulp = (out - ref).abs() / _bf16_ulp(torch, torch.maximum(out.abs(), ref.abs()))
             nz = float((ref != 0).float().mean())
-            log(f"[kernels] vgg_stage {shape}: {same:.6f} of elements bit-identical (>= 0.99), "
+            log(f"[kernels] vgg_stage {shape}, tiles of {th} x 32: {same:.6f} of elements "
+                f"bit-identical (>= 0.99), "
                 f"max abs err {err:.3e} (<= 2^-6 x max |plain| = {top / 64:.3e}); "
                 f"{int((ulp > 1).sum())} of {ref.numel()} elements over one bf16 ulp of their "
                 f"own value (max {float(ulp.max()):.1f}); {nz:.3f} non-zero")
@@ -365,9 +380,21 @@ def _kernels_vgg(torch, timer, g):
             if pool:
                 F.max_pool2d(z, 2, 2)
 
-    ms = timer(lambda: [vgg_stage.vgg_stage_kernel(*a) for a in prod])
+    # The weights packed once, as SuperPoint's PackCache keeps them on the main path.
+    packs = [vgg_stage.pack_stage_weights(*a[1:5]) for a in prod]
+    ms = timer(lambda: [vgg_stage.vgg_stage_kernel(*a, packed=p) for a, p in zip(prod, packs)])
     plain = timer(lambda: [vgg_stage.vgg_stage_plain(*a) for a in prod], reps=5)
     lib = timer(library)
+    # The breakdown: each stage's launch alone, beside cuDNN's pair and its bound.
+    for a, p, la, shape in zip(prod, packs, lib_args, VGG_SHAPES[0]):
+        b, h, w, cin, c1, c2, pool = shape
+        k_ms = timer(lambda a=a, p=p: vgg_stage.vgg_stage_kernel(*a, packed=p))
+        l_ms = timer(lambda la=la: (lambda xl, w1l, w2l, b1l, b2l, pool: F.relu(F.conv2d(
+            F.relu(F.conv2d(xl, w1l, b1l, padding=1)), w2l, b2l, padding=1)))(*la))
+        ops = 2 * b * h * w * 9 * (cin * c1 + c1 * c2)
+        log(f"[kernels] vgg_stage breakdown {shape}: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} "
+            f"TFLOP/s), cuDNN conv pair + ReLU {l_ms:.4f} ms, bound {ops / BF16_OPS_PER_S * 1e3:.4f}"
+            f" ms ({ops / 1e9:.1f} GFLOP)")
     row = dict(name="vgg_stage", route="cuda", source="onepose_tpu_torch/csrc/vgg_stage.cu",
                replaces="onepose_tpu/ops/pallas/vgg_stage.py:160", max_abs_err=err, ms=ms,
                plain_ms=plain, library_ms=lib)
@@ -404,21 +431,58 @@ def _block_ops(b, n2, n3, L, c, h=4):
     return 4 * b * n3 * (L + 1) * c + gemm + attn
 
 
+def _kernel_breakdown(torch, fn, calls=3) -> dict:
+    """{CUDA kernel name: (launches, device ms)} per call of fn, from
+    torch.profiler over `calls` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return {k: (n // calls, ms / calls) for k, (n, ms) in out.items()}
+
+
+def _graph_ms(torch, timer, fn) -> float:
+    """Median time of fn's kernels captured once in a CUDA graph and
+    replayed (no host work in the window)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture (kernel build, allocator)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timer(graph.replay)
+
+
 def _kernels_block(torch, timer, g):
     """K4: fp32 within 1e-4 absolute of the plain version; bf16 within
     BLOCK_BF16_REL of the largest output (the same rounding points; a sum
     that lands on the other side of a bf16 rounding boundary moves one
     operand by 2^-8, and four attention layers with instance norms carry
-    that on). Timed in bf16 at the production shape, one launch (33 CUDA
-    kernels); the block's GEMM alone beside bf16 torch.matmul."""
+    that on). bf16 runs with bf16 leaves, as the main path holds them.
+    Timed in bf16 at the production shape, one launch (37 CUDA kernels)
+    with the weights packed once, as GATsSPG's PackCache keeps them; the
+    block's GEMM alone beside bf16 torch.matmul."""
     from onepose_tpu_torch.ops.kernels import gats_block
 
     row = None
     for i, shape in enumerate(BLOCK_SHAPES):
         args = _block_inputs(torch, g, *shape)
         for dtype in (torch.float32, torch.bfloat16):
-            out = gats_block.gats_block_kernel(*args, dtype=dtype)
-            ref = gats_block.fused_gats_block_plain(*args, dtype=dtype)
+            a = args if dtype == torch.float32 else (*args[:2], args[2].bfloat16(), *args[3:])
+            out = gats_block.gats_block_kernel(*a, dtype=dtype)
+            ref = gats_block.fused_gats_block_plain(*a, dtype=dtype)
             torch.cuda.synchronize()
             err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
             rel = max(float((o - r).abs().max() / r.abs().max()) for o, r in zip(out, ref))
@@ -430,9 +494,11 @@ def _kernels_block(torch, timer, g):
                 fail("gats_block kernels differ from their plain version")
         if i == 0:
             b, n2, n3, L, c, _ = shape
-            ms = timer(lambda: gats_block.gats_block_kernel(*args))
-            plain = timer(lambda: gats_block.fused_gats_block_plain(*args), reps=5)
-            n_bytes = sum(t.numel() * t.element_size() for t in args[:6] if t is not None)
+            a = (*args[:2], args[2].bfloat16(), *args[3:])
+            kw = gats_block.kernel_weights(args[6], torch.bfloat16)
+            ms = timer(lambda: gats_block.gats_block_kernel(*a, packed=kw))
+            plain = timer(lambda: gats_block.fused_gats_block_plain(*a), reps=5)
+            n_bytes = sum(t.numel() * t.element_size() for t in a[:6] if t is not None)
             n_bytes += sum(t.numel() * 2 for t in args[6].values()) + 4 * b * (n2 + n3) * c
             row = dict(name="gats_block", route="cuda",
                        source="onepose_tpu_torch/csrc/gats_block.cu",
@@ -440,13 +506,24 @@ def _kernels_block(torch, timer, g):
                        ms=ms, plain_ms=plain, library_ms=None)
             row["bound_ms"], row["bound_by"] = bound(n_bytes, _block_ops(b, n2, n3, L, c),
                                                      BF16_OPS_PER_S)
+            graph_ms = _graph_ms(torch, timer, lambda: gats_block.gats_block_kernel(*a, packed=kw))
+            log(f"[kernels] gats_block {shape} bf16, one block: {ms:.4f} ms launched from Python "
+                f"(the wrapper and 37 launches on the host), {graph_ms:.4f} ms replayed as one "
+                "CUDA graph (the device's time alone)")
+            by_name = _kernel_breakdown(torch, lambda: gats_block.gats_block_kernel(*a, packed=kw))
+            n_launch = sum(n for n, _ in by_name.values())
+            log(f"[kernels] gats_block breakdown, one bf16 block {shape}: {n_launch} CUDA kernels, "
+                f"{sum(ms for _, ms in by_name.values()):.4f} ms of device time (torch.profiler)")
+            for name, (n, k_ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+                log(f"[kernels] gats_block breakdown: {k_ms:.4f} ms in {n} launch(es)  {name[:90]}")
     m, k, n = GEMM_SHAPE
     a = torch.randn((m, k), generator=g, device=DEV)
     w = torch.randn((k, n), generator=g, device=DEV) * k**-0.5
     bias = torch.randn((n,), generator=g, device=DEV) * 0.1
-    out, ref = gats_block.gemm(a, w, bias), gats_block.gemm_plain(a, w, bias)
+    wp = gats_block.pack_gemm_weight(w, torch.bfloat16)
+    out, ref = gats_block.gemm(a, w, bias, packed=wp), gats_block.gemm_plain(a, w, bias)
     err = float((out - ref).abs().max())
-    ms = timer(lambda: gats_block.gemm(a, w, bias))
+    ms = timer(lambda: gats_block.gemm(a, w, bias, packed=wp))
     plain = timer(lambda: gats_block.gemm_plain(a, w, bias), reps=5)
     ab, wb = a.bfloat16(), w.bfloat16()
     lib = timer(lambda: torch.matmul(ab, wb))

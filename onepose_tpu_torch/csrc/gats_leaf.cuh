@@ -1,7 +1,11 @@
-// GATs leaf attention, fp32: the device kernel and its launcher, shared by
-// gats.cu (K2) and gats_block.cu (the GATs part of the fused block, K4).
-// See gats.cu for what it computes, its bound and its design.
+// GATs leaf attention, fp32 arithmetic: the device kernel and its
+// launcher, shared by gats.cu (K2) and gats_block.cu (the GATs part of the
+// fused block, K4). See gats.cu for what it computes, its bound and its
+// design. The leaves are fp32, or bf16 where their values are bf16 (the
+// bf16 serving path): read as they are, widened to fp32 in registers.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -15,10 +19,22 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-// K4: float4 chunks per lane, ceil(C / 128).
-template <int K4>
+// Four consecutive leaf values from chunk i (in units of 4 elements).
+__device__ __forceinline__ float4 load4(const float* p, size_t i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, size_t i) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + i);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// K4: float4 chunks per lane, ceil(C / 128); LT: the leaves' type.
+template <int K4, typename LT>
 __global__ void __launch_bounds__(kThreads)
-gats_kernel(const float* __restrict__ leaves, const float* __restrict__ d3,
+gats_kernel(const LT* __restrict__ leaves, const float* __restrict__ d3,
             const float* __restrict__ mask_add, const float* __restrict__ wa,
             float* __restrict__ out, int P, int L, int C, float alpha) {
   const int point = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -28,7 +44,7 @@ gats_kernel(const float* __restrict__ leaves, const float* __restrict__ d3,
   const float4* wa_leaf = reinterpret_cast<const float4*>(wa);
   const float4* wa_self = wa_leaf + C4;
   const float4* x3 = reinterpret_cast<const float4*>(d3) + static_cast<size_t>(point) * C4;
-  const float4* lv = reinterpret_cast<const float4*>(leaves) + static_cast<size_t>(point) * L * C4;
+  const size_t lv = static_cast<size_t>(point) * L * C4;  // the point's first leaf chunk
 
   float4 acc[K4], wl[K4];
   float e3 = 0.f;
@@ -50,13 +66,13 @@ gats_kernel(const float* __restrict__ leaves, const float* __restrict__ d3,
   float denom = 1.f;
 
   for (int l = 0; l < L; ++l) {
-    const float4* row = lv + static_cast<size_t>(l) * C4;
+    const size_t row = lv + static_cast<size_t>(l) * C4;
     float4 v[K4];
     float e = 0.f;
 #pragma unroll
     for (int k = 0; k < K4; ++k) {
       const int c = lane + 32 * k;
-      v[k] = c < C4 ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[k] = c < C4 ? load4(leaves, row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       e += dot4(v[k], wl[k]);
     }
     e = warp_sum(e);
@@ -93,22 +109,23 @@ gats_kernel(const float* __restrict__ leaves, const float* __restrict__ d3,
   }
 }
 
-template <int K4>
-void launch(const float* leaves, const float* d3, const float* mask_add, const float* wa,
+template <int K4, typename LT>
+void launch(const LT* leaves, const float* d3, const float* mask_add, const float* wa,
             float* out, int P, int L, int C, float alpha, cudaStream_t stream) {
   const int warps_per_block = kThreads / 32;
   const int blocks = (P + warps_per_block - 1) / warps_per_block;
-  gats_kernel<K4><<<blocks, kThreads, 0, stream>>>(leaves, d3, mask_add, wa, out, P, L, C, alpha);
+  gats_kernel<K4, LT><<<blocks, kThreads, 0, stream>>>(leaves, d3, mask_add, wa, out, P, L, C, alpha);
 }
 
 // The launch for C channels (a multiple of 4, at most 512).
-inline void dispatch(const float* leaves, const float* d3, const float* mask_add, const float* wa,
+template <typename LT>
+void dispatch(const LT* leaves, const float* d3, const float* mask_add, const float* wa,
                      float* out, int P, int L, int C, float alpha, cudaStream_t stream) {
   switch ((C / 4 + 31) / 32) {
-    case 1: launch<1>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
-    case 2: launch<2>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
-    case 3: launch<3>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
-    default: launch<4>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
+    case 1: launch<1, LT>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
+    case 2: launch<2, LT>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
+    case 3: launch<3, LT>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
+    default: launch<4, LT>(leaves, d3, mask_add, wa, out, P, L, C, alpha, stream); break;
   }
 }
 

@@ -1,5 +1,5 @@
-// bf16 tensor-core helpers shared by the implicit-GEMM conv (vgg_stage.cu)
-// and the tiled GEMM of the fused GATsSPG block (gats_block.cu).
+// bf16 tensor-core helpers shared by the VGG stage (vgg_stage.cu) and the
+// fused GATsSPG block's attention kernels (gats_block.cu).
 //
 // mma.sync m16n8k16, A row-major 16x16 bf16, B column-major 16x8 bf16, C/D
 // 16x8 fp32. With g = lane / 4 and t = lane % 4, a thread holds
@@ -26,11 +26,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 // Two bf16 at p (4-byte aligned) as one register.
 __device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The same from read-only global memory.
-__device__ __forceinline__ uint32_t ldg_bf16x2(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 // (lo, hi) rounded to nearest bf16, lo in the low half.

@@ -16,7 +16,10 @@ Kernel flags (names as in the JAX package's counterparts):
   fp32 only;
 - block_fused: each [GATs, self, cross] block through the fused block
   kernels (`ops.kernels.gats_block`), inference only; the modules keep
-  their parameters, so state_dicts load alike;
+  their parameters, so state_dicts load alike. The packed block weights
+  (and, on CUDA, their kernel layout) are kept in a `PackCache` and packed
+  again only when a parameter of the block changes (`block_weights`);
+  bf16 leaves go to the kernels as they are;
 - mixed_attention: with bf16, the linear-attention contractions take bf16
   operands with fp32 sums (unfused blocks only);
 - fused_match: the dual-softmax CUDA kernel (`ops.kernels.dual_softmax`).
@@ -37,8 +40,13 @@ from torch import nn
 from onepose_tpu_torch._device import check_compute_dtype
 from onepose_tpu_torch.models.common import NEG_INF, AttentionalPropagation, Dense
 from onepose_tpu_torch.models.gats import GraphAttentionLayer
+from onepose_tpu_torch.ops.kernels._layout import PackCache
 from onepose_tpu_torch.ops.kernels.dual_softmax import dual_softmax_match
-from onepose_tpu_torch.ops.kernels.gats_block import fused_gats_block, pack_block_params
+from onepose_tpu_torch.ops.kernels.gats_block import (
+    fused_gats_block,
+    kernel_weights,
+    pack_block_params,
+)
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -90,6 +98,18 @@ class GATsSPG(nn.Module):
                     mixed_attention=mixed_attention,
                 ))
         self.final_proj = Dense(d_model, d_model, dtype)
+        self._packs = PackCache()
+
+    def block_weights(self, blk: int) -> tuple:
+        """Block blk's (pack_block_params, kernel_weights in the model's
+        dtype or None off CUDA), from the cache."""
+        layers = [getattr(self, f"{k}_{blk}") for k in ("gats", "self", "cross")]
+
+        def pack():
+            params = pack_block_params(*layers)
+            return params, (kernel_weights(params, self.dtype) if params["wa"].is_cuda else None)
+
+        return self._packs.get(blk, [p for m in layers for p in m.parameters()], pack)
 
     def forward(
         self,
@@ -110,17 +130,18 @@ class GATsSPG(nn.Module):
                                "under torch.no_grad() / torch.inference_mode()")
         dt = self.dtype
         x2, x3, leaves = desc2d.to(dt), desc3d.to(dt), leaf_desc.to(dt)
-        if self.block_fused:  # the block kernels read fp32 (bf16-valued) leaves
-            leaves = leaves.float().contiguous()
+        if self.block_fused:  # the block kernels read the leaves in dt (bf16 or fp32)
+            leaves = leaves.contiguous()
         for blk in range(self.num_blocks):
             gats = getattr(self, f"gats_{blk}")
             self_layer = getattr(self, f"self_{blk}")
             cross_layer = getattr(self, f"cross_{blk}")
             if self.block_fused:
+                params, packed = self.block_weights(blk)
                 x2, x3 = fused_gats_block(
                     x2.float().contiguous(), x3.float().contiguous(), leaves, mask2d, mask3d,
-                    leaf_mask, pack_block_params(gats, self_layer, cross_layer),
-                    alpha=gats.alpha, num_heads=self.num_heads, dtype=dt,
+                    leaf_mask, params, alpha=gats.alpha, num_heads=self.num_heads, dtype=dt,
+                    packed=packed,
                 )
                 x2, x3 = x2.to(dt), x3.to(dt)
                 continue

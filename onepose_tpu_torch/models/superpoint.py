@@ -18,7 +18,9 @@ Kernel flags (the JAX package's `nms_pallas` and `use_pallas`):
   depth-to-space before it stays plain;
 - vgg_kernel: the four encoder stages through the fused VGG-stage kernel
   (`ops.kernels.vgg_stage`), NHWC, bf16 taps with fp32 sums in any
-  `dtype`, as the JAX package computes them; the heads stay plain.
+  `dtype`, as the JAX package computes them; the heads stay plain. The
+  kernel's packed weights are kept in a `PackCache` and packed again only
+  when a conv parameter changes (`packed_stages`).
 
 Top-k ties: `jax.lax.top_k` puts the lowest index first and `torch.topk`
 does not promise any order, so every top-k here is a stable descending
@@ -32,8 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
+from onepose_tpu_torch.ops.kernels._layout import PackCache
 from onepose_tpu_torch.ops.kernels.score_path import nms, simple_nms
-from onepose_tpu_torch.ops.kernels.vgg_stage import vgg_stage
+from onepose_tpu_torch.ops.kernels.vgg_stage import pack_stage_weights, vgg_stage
 
 __all__ = [
     "SuperPoint",
@@ -75,6 +78,26 @@ class SuperPoint(nn.Module):
         self.conv4a, self.conv4b = conv(128, 128), conv(128, 128)
         self.convPa, self.convPb = conv(128, 256), conv(256, 65, 1)
         self.convDa, self.convDb = conv(128, 256), conv(256, descriptor_dim, 1)
+        self._packs = PackCache()
+
+    def _stages(self):
+        return (
+            (self.conv1a, self.conv1b, True),
+            (self.conv2a, self.conv2b, True),
+            (self.conv3a, self.conv3b, True),
+            (self.conv4a, self.conv4b, False),
+        )
+
+    def packed_stages(self) -> list:
+        """The four stages' `pack_stage_weights`, from the cache."""
+
+        def hwio(conv):
+            return conv.weight.permute(2, 3, 1, 0)
+
+        return [self._packs.get(i, (a.weight, a.bias, b.weight, b.bias),
+                                lambda a=a, b=b: pack_stage_weights(hwio(a), a.bias, hwio(b),
+                                                                    b.bias))
+                for i, (a, b, _) in enumerate(self._stages())]
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         """The JAX package's nn.Conv(dtype=...): the product rounded to dtype, then the
@@ -86,20 +109,16 @@ class SuperPoint(nn.Module):
     def _encoder(self, image: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 1] -> the stride-8 feature map [B, 128, H/8, W/8] in dtype."""
         x = image.to(self.dtype)
-        stages = (
-            (self.conv1a, self.conv1b, True),
-            (self.conv2a, self.conv2b, True),
-            (self.conv3a, self.conv3b, True),
-            (self.conv4a, self.conv4b, False),
-        )
+        stages = self._stages()
         if self.vgg_kernel:
             x = x.float().contiguous()  # NHWC through the fused stages
+            packed = self.packed_stages() if x.device.type == "cuda" else [None] * 4
 
             def hwio(conv):
                 return conv.weight.permute(2, 3, 1, 0)
 
-            for a, b, pool in stages:
-                x = vgg_stage(x, hwio(a), a.bias, hwio(b), b.bias, pool)
+            for (a, b, pool), p in zip(stages, packed):
+                x = vgg_stage(x, hwio(a), a.bias, hwio(b), b.bias, pool, packed=p)
             return x.permute(0, 3, 1, 2).to(self.dtype)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         for a, b, pool in stages:

@@ -48,9 +48,10 @@ SIGNATURES = {
     },
     "vgg_stage": {
         "vgg_stage_launch": ([_P] * 6 + [_I] * 7 + [_P], _I),
+        "vgg_stage_tile_rows": ([_I] * 3, _I),
     },
     "gats_block": {
-        "gats_block_launch": ([_P] + [_I] * 6 + [_F, _I, _P], _I),
+        "gats_block_launch": ([_P] + [_I] * 6 + [_F, _I, _I, _P], _I),
         "gats_block_num_ptrs": ([], _I),
         "gats_block_gemm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
     },

@@ -18,24 +18,32 @@ rounded where it feeds the numerator; the per-head normaliser goes through
 reciprocal), unlike the XLA attention path, which keeps it in fp32.
 
 Bound on the H100: operations, about 66 GFLOP per block at the production
-shape (0.067 ms at 989 TFLOP/s of bf16). The kernel is a sequence of 33
-hand-written launches (GATs, tiled bf16 tensor-core GEMMs, kv moments,
-apply, instance-norm statistics); see the source for the design.
+shape (0.067 ms at 989 TFLOP/s of bf16). The kernel is a sequence of 37
+hand-written launches (GATs, GEMMs on wgmma with TMA-fed weights in bf16,
+kv moments, apply, instance-norm statistics); see the source for the
+design. In bf16 the leaves may come as bf16 (the values the bf16 path
+holds), and the attention output and message are stored in bf16 between
+launches: their readers round them to bf16, so no rounding point moves.
 
 `fused_gats_block` launches the kernels on CUDA tensors and runs
 `fused_gats_block_plain` only on CPU tensors. Forward-only: a CUDA input
-that requires grad raises.
+that requires grad raises. `kernel_weights` lays the packed parameters out
+for the kernels; a caller that runs the same weights again passes its
+result as `packed=` (GATsSPG keeps it in a `PackCache`), so that a
+call holds only kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from onepose_tpu_torch.ops.kernels import _build
+from onepose_tpu_torch.ops.kernels._layout import swizzle128
 from onepose_tpu_torch.ops.kernels.gats import (
     additive_mask,
     gats_leaf_attention_plain,
@@ -57,8 +65,10 @@ PTRS = (
     "cross_b1",
     "x2o", "x3o",
     "x3g", "x2s", "x3s", "qkv2", "qkv3", "att", "msg", "t", "kvpart", "kv", "skpart", "sk",
-    "mean", "rstd",
+    "pmean", "pm2", "mean", "rstd",
 )
+STAT_ROWS = 128  # rows per partial instance-norm statistic (csrc: SROWS)
+GEMM_N = 256  # the bf16 GEMM's tile width: C must be a multiple of it in bf16
 
 
 def pack_block_params(gats_layer, self_layer, cross_layer) -> dict:
@@ -169,32 +179,44 @@ def fused_gats_block(
     alpha: float = 0.2,
     num_heads: int = 4,
     dtype: torch.dtype = torch.bfloat16,
+    packed: Optional[dict] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One [GATs, self, cross] block: x2 [B, N2, C], x3 [B, N3, C], leaves
-    [B, N3, L, C], bool masks [B, N2] / [B, N3] / [B, N3, L] or None,
-    params from `pack_block_params`; dtype float32 or bfloat16. Returns
-    (x2', x3') fp32; the kernels on CUDA."""
+    [B, N3, L, C] (fp32, or bf16 in bf16), bool masks [B, N2] / [B, N3] /
+    [B, N3, L] or None, params from `pack_block_params`; dtype float32 or
+    bfloat16. Returns (x2', x3') fp32; the kernels on CUDA, with `packed`
+    = kernel_weights(params, dtype) if given."""
     args = (x2, x3, leaves, mask2, mask3, leaf_mask, params, alpha, num_heads, dtype)
     if x2.device.type == "cpu":
         return fused_gats_block_plain(*args)
-    return gats_block_kernel(*args)
+    return gats_block_kernel(*args, packed=packed)
 
 
-def _kernel_weights(params: dict, dtype: torch.dtype) -> dict:
-    """The packed params as the kernel takes them: weights [N][K] of
-    `dtype` (q, k and v side by side: [3C][C]), biases fp32."""
-    out = {"wa": params["wa"].float().contiguous()}
-    for s in ("self", "cross"):
-        w4, b4 = params[f"{s}_w4"], params[f"{s}_b4"]
-        out[f"{s}_wqkv"] = torch.cat([w4[0].T, w4[1].T, w4[2].T]).to(dtype).contiguous()
-        out[f"{s}_bqkv"] = torch.cat([b4[0], b4[1], b4[2]]).float().contiguous()
-        out[f"{s}_wm"] = w4[3].T.to(dtype).contiguous()
-        out[f"{s}_bm"] = b4[3].float().contiguous()
-        for k in ("w0", "w1"):
-            out[f"{s}_{k}"] = params[f"{s}_{k}"].T.to(dtype).contiguous()
-        for k in ("b0", "b1"):
-            out[f"{s}_{k}"] = params[f"{s}_{k}"].float().contiguous()
-    return out
+def pack_gemm_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A GEMM's [K, N] weight as the kernels read it: bf16 `swizzle128`
+    chunks [K / 64, N, 64] (the wgmma kernel's TMA tiles), or fp32 [N, K]."""
+    if dtype == torch.bfloat16:
+        return swizzle128(w.T)
+    return w.T.float().contiguous()
+
+
+def kernel_weights(params: dict, dtype: torch.dtype) -> dict:
+    """The packed params as the kernels take them: each GEMM's weight by
+    `pack_gemm_weight` (q, k and v side by side: N = 3C), biases and wa
+    fp32."""
+    with torch.no_grad():
+        out = {"wa": params["wa"].float().contiguous()}
+        for s in ("self", "cross"):
+            w4, b4 = params[f"{s}_w4"], params[f"{s}_b4"]
+            out[f"{s}_wqkv"] = pack_gemm_weight(torch.cat([w4[0], w4[1], w4[2]], dim=1), dtype)
+            out[f"{s}_bqkv"] = torch.cat([b4[0], b4[1], b4[2]]).float().contiguous()
+            out[f"{s}_wm"] = pack_gemm_weight(w4[3], dtype)
+            out[f"{s}_bm"] = b4[3].float().contiguous()
+            for k in ("w0", "w1"):
+                out[f"{s}_{k}"] = pack_gemm_weight(params[f"{s}_{k}"], dtype)
+            for k in ("b0", "b1"):
+                out[f"{s}_{k}"] = params[f"{s}_{k}"].float().contiguous()
+        return out
 
 
 def gats_block_kernel(
@@ -208,17 +230,22 @@ def gats_block_kernel(
     alpha: float = 0.2,
     num_heads: int = 4,
     dtype: torch.dtype = torch.bfloat16,
+    packed: Optional[dict] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernels on the plain version's inputs (x2, x3 and
-    leaves fp32)."""
+    """Launch the CUDA kernels on the plain version's inputs (x2 and x3
+    fp32; leaves fp32, or bf16 when dtype is bf16); `packed`: their
+    `kernel_weights(params, dtype)`, packed here if None."""
     B, N2, C = x2.shape
     N3, L = leaves.shape[1], leaves.shape[2]
     _build.require_inference("gats_block", x2, x3, leaves, *params.values())
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gats_block kernel: dtype {dtype} is not float32 or bfloat16")
-    if C != HEAD_DIM * num_heads or C > 512:
-        raise ValueError(f"gats_block kernel needs C = 64 * num_heads <= 512, got C={C}, "
-                         f"{num_heads} heads")
+    if C != HEAD_DIM * num_heads or C > 512 or (dtype == torch.bfloat16 and C % GEMM_N):
+        raise ValueError(f"gats_block kernel needs C = 64 * num_heads <= 512 (a multiple of "
+                         f"{GEMM_N} in bf16), got C={C}, {num_heads} heads")
+    leaves_bf16 = leaves.dtype == torch.bfloat16
+    if leaves_bf16 and dtype != torch.bfloat16:
+        raise ValueError("gats_block kernel: bf16 leaves need dtype bfloat16")
     if x3.shape != (B, N3, C) or leaves.shape != (B, N3, L, C) or min(N2, N3) == 0:
         raise ValueError("gats_block: x3 must be [B, N3, C] and leaves [B, N3, L, C], N2, N3 > 0")
     dev = x2.device
@@ -226,38 +253,58 @@ def gats_block_kernel(
     def mask(m, n):
         return torch.ones((B, n), device=dev) if m is None else m.float().contiguous()
 
+    kw = kernel_weights(params, dtype) if packed is None else packed
     t = {"x2": x2, "x3": x3, "leaves": leaves, "m2": mask(mask2, N2), "m3": mask(mask3, N3),
-         "leafadd": additive_mask(leaf_mask), **_kernel_weights(params, dtype)}
+         "leafadd": additive_mask(leaf_mask), **kw}
     for name in ("x2", "x3", "leaves", "m2", "m3", "leafadd", "wa"):
         if t[name] is not None:
-            _build.require_cuda_input(t[name], f"gats_block {name}", t[name].dim())
+            _build.require_cuda_input(t[name], f"gats_block {name}", t[name].dim(),
+                                      dtype=t[name].dtype if name == "leaves" else torch.float32)
     for name, v in t.items():
         if name.endswith(("_wqkv", "_wm", "_w0", "_w1")):
-            _build.require_cuda_input(v, f"gats_block {name}", 2, dtype=dtype)
+            _build.require_cuda_input(v, f"gats_block {name}", 3 if dtype == torch.bfloat16 else 2,
+                                      dtype=dtype)
     n, chunks = max(N2, N3), -(-max(N2, N3) // 64)
+    parts = -(-n // STAT_ROWS)
 
-    def empty(*shape):
-        return torch.empty(shape, device=dev)
-
-    t.update(
-        x2o=empty(B, N2, C), x3o=empty(B, N3, C), x3g=empty(B, N3, C), x2s=empty(B, N2, C),
-        x3s=empty(B, N3, C), qkv2=empty(B * N2, 3 * C), qkv3=empty(B * N3, 3 * C),
-        att=empty(B * n, C), msg=empty(B * n, C), t=empty(B * n, 2 * C),
-        kvpart=empty(B, num_heads, chunks, HEAD_DIM, HEAD_DIM),
-        kv=empty(B, num_heads, HEAD_DIM, HEAD_DIM), skpart=empty(B, chunks, C), sk=empty(B, C),
-        mean=empty(B, 2 * C), rstd=empty(B, 2 * C),
-    )
+    # Outputs on their own; the scratch in one fp32 and one `dtype` buffer.
+    t["x2o"], t["x3o"] = (torch.empty((B, n_, C), device=dev) for n_ in (N2, N3))
+    scratch = {
+        "x3g": (B, N3, C), "x2s": (B, N2, C), "x3s": (B, N3, C), "qkv2": (B * N2, 3 * C),
+        "qkv3": (B * N3, 3 * C), "t": (B * n, 2 * C),
+        "kvpart": (B, num_heads, chunks, HEAD_DIM, HEAD_DIM),
+        "kv": (B, num_heads, HEAD_DIM, HEAD_DIM), "skpart": (B, chunks, C), "sk": (B, C),
+        "pmean": (B, parts, 2 * C), "pm2": (B, parts, 2 * C), "mean": (B, 2 * C),
+        "rstd": (B, 2 * C),
+    }
+    t.update(_carve(torch.empty(sum(math.prod(v) for v in scratch.values()), device=dev),
+                    scratch))
+    t.update(_carve(torch.empty(2 * B * n * C, device=dev, dtype=dtype),
+                    {"att": (B * n, C), "msg": (B * n, C)}))
     lib = _build.load("gats_block")
     if lib.gats_block_num_ptrs() != len(PTRS):
         raise RuntimeError("gats_block: the pointer table differs from the CUDA source's")
     table = (ctypes.c_void_p * len(PTRS))(*[None if t[k] is None else t[k].data_ptr()
                                             for k in PTRS])
     err = lib.gats_block_launch(table, B, N2, N3, L, C, num_heads, float(alpha),
-                                int(dtype == torch.bfloat16), _build.stream(dev))
+                                int(dtype == torch.bfloat16), int(leaves_bf16),
+                                _build.stream(dev))
     _build.check(lib, err, "gats_block kernels")
     global launches
     launches += 1
     return t["x2o"], t["x3o"]
+
+
+def _carve(buf: torch.Tensor, shapes: dict) -> dict:
+    """Views of consecutive pieces of buf with the given shapes (every size
+    here is a multiple of 64 elements, so each view stays 16-byte
+    aligned)."""
+    out, off = {}, 0
+    for name, shape in shapes.items():
+        n = math.prod(shape)
+        out[name] = buf[off:off + n].view(shape)
+        off += n
+    return out
 
 
 def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -268,17 +315,21 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The block's tiled GEMM alone (the kernel on CUDA), for timing it
-    against a library GEMM: a [M, K] fp32, w [K, N], bias [N]; N a multiple
-    of 64, K of 64 (bf16) or 32 (fp32). Returns fp32 [M, N]."""
+         dtype: torch.dtype = torch.bfloat16, packed: Optional[torch.Tensor] = None
+         ) -> torch.Tensor:
+    """The block's GEMM alone (the kernel on CUDA), for timing it against a
+    library GEMM: a [M, K] fp32, w [K, N], bias [N]; bf16: N a multiple of
+    256, K of 64; fp32: N of 64, K of 32. `packed`: pack_gemm_weight(w,
+    dtype), packed here if None. Returns fp32 [M, N]."""
     if a.device.type == "cpu":
         return gemm_plain(a, w, bias, dtype)
     (m, k), n = a.shape, w.shape[1]
-    wt, b = w.T.to(dtype).contiguous(), bias.float().contiguous()
+    bf16 = dtype == torch.bfloat16
+    wt = pack_gemm_weight(w, dtype) if packed is None else packed
+    b = bias.float().contiguous()
     _build.require_cuda_input(a, "gats_block gemm a", 2)
-    _build.require_cuda_input(wt, "gats_block gemm w", 2, dtype=dtype)
-    if w.shape[0] != k or n % 64 or k % (64 if dtype == torch.bfloat16 else 32):
+    _build.require_cuda_input(wt, "gats_block gemm w", 3 if bf16 else 2, dtype=dtype)
+    if w.shape[0] != k or n % (GEMM_N if bf16 else 64) or k % (64 if bf16 else 32):
         raise ValueError(f"gats_block gemm: [{m}, {k}] x {tuple(w.shape)} does not tile")
     out = torch.empty((m, n), device=a.device)
     lib = _build.load("gats_block")

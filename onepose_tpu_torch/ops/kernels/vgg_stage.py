@@ -5,8 +5,9 @@ Replaces onepose_tpu/ops/pallas/vgg_stage.py::_vgg_stage_pallas (public
 activations, with bf16 taps and fp32 sums. Bound on the H100: operations,
 about 311 GFLOP for the four production stages of a batch of 8 at 512 x
 512 (0.32 ms at 989 TFLOP/s of bf16). The kernel keeps each tile's conv1
-output in shared memory and feeds it straight to conv2 (an implicit GEMM
-on the bf16 tensor cores); see the source for the design.
+output in shared memory and feeds it straight to conv2; both multi-channel
+convs are implicit GEMMs on wgmma with the weights streamed into shared
+memory by TMA bulk copies; see the source for the design.
 
 Rounding points (the Pallas kernel's): the input is rounded to bf16;
 each conv sums bf16 taps in fp32, adds the fp32 bias, applies ReLU and
@@ -15,7 +16,9 @@ is fp32 for the single-channel image stage and bf16 for the others.
 
 `vgg_stage` launches the kernel on a CUDA tensor and runs
 `vgg_stage_plain` only on a CPU tensor. Forward-only: a CUDA input that
-requires grad raises.
+requires grad raises. `pack_stage_weights` lays the weights out for the
+kernel; a caller that runs the same weights again passes its result as
+`packed=` (SuperPoint keeps it in a `PackCache`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from onepose_tpu_torch.ops.kernels import _build
+from onepose_tpu_torch.ops.kernels._layout import swizzle128
 from onepose_tpu_torch.utils.precision import fp32_matmuls, rounded
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_launches)
@@ -65,17 +69,52 @@ def vgg_stage(
     w2: torch.Tensor,
     b2: torch.Tensor,
     pool: bool = True,
+    packed: tuple | None = None,
 ) -> torch.Tensor:
-    """One fused VGG stage (see the module docstring); the kernel on CUDA."""
+    """One fused VGG stage (see the module docstring); the kernel on CUDA,
+    with `packed` = pack_stage_weights(w1, b1, w2, b2) if given."""
     if x.device.type == "cpu":
         return vgg_stage_plain(x, w1, b1, w2, b2, pool)
-    return vgg_stage_kernel(x, w1, b1, w2, b2, pool)
+    return vgg_stage_kernel(x, w1, b1, w2, b2, pool, packed)
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
     """HWIO [3, 3, Cin, Cout] -> the kernel's [9 taps, Cout, Cin] bf16."""
     kh, kw, cin, cout = w.shape
     return w.permute(0, 1, 3, 2).reshape(kh * kw, cout, cin).to(BF16).contiguous()
+
+
+def pack_stage_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                       b2: torch.Tensor) -> tuple:
+    """HWIO weights and biases -> the kernel's (w1, b1, w2, b2): conv1's taps
+    [9, C1] bf16 for a single-channel input, else both convs' taps as
+    `swizzle128` chunks [9, ceil(Cin / 64), Cout, 64]; biases fp32."""
+    with torch.no_grad():
+        w1p, w2p = pack_conv_weight(w1.detach()), pack_conv_weight(w2.detach())
+        w1p = w1p[..., 0].contiguous() if w1.shape[2] == 1 else swizzle128(w1p)
+        return (w1p, b1.detach().float().contiguous(), swizzle128(w2p),
+                b2.detach().float().contiguous())
+
+
+TILE_W = 32  # the kernel's output tile width (before the pool)
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+
+
+def tile_rows(cin: int, c1: int, c2: int) -> int:
+    """The kernel's output tile height for these channels (csrc/vgg_stage.cu
+    `Cfg::TH`): the largest of 16, 8, 4, 2 whose shared-memory layout fits
+    (half the card's per-block limit for the image stage, which runs two
+    blocks per SM), 0 if none does."""
+    kp = -(-cin // 64) * 64
+    single = cin == 1
+    stages, limit = (2, SMEM_LIMIT // 2 - 1024) if single else (3, SMEM_LIMIT)
+    for th in (16, 8, 4, 2):
+        ring = stages * 128 * max(c1, c2) + 128
+        tin = (th + 4) * (TILE_W + 4) * (4 if single else (kp + 8) * 2)
+        t1 = (th + 2) * (TILE_W + 2) * (c1 + 8) * 2
+        if ring + -(-tin // 16) * 16 + t1 + 1024 <= limit:
+            return th
+    return 0
 
 
 def vgg_stage_kernel(
@@ -85,8 +124,10 @@ def vgg_stage_kernel(
     w2: torch.Tensor,
     b2: torch.Tensor,
     pool: bool = True,
+    packed: tuple | None = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the plain version's inputs. The kernel
+    """Launch the CUDA kernel on the plain version's inputs (`packed`: their
+    `pack_stage_weights`, packed here if None). The kernel
     reads a single-channel input as fp32 and rounds it to bf16 itself; a
     multi-channel input is rounded to bf16 here (the Pallas wrapper's
     `io_dtype` cast), which leaves the previous stage's output exact."""
@@ -102,10 +143,9 @@ def vgg_stage_kernel(
         raise ValueError(f"vgg_stage kernel: the 2 x 2 pool needs even H and W, got {h} x {w}")
     if (cin != 1 and (cin % 16 or cin > 128)) or c1 not in (64, 128) or c2 not in (64, 128):
         raise ValueError(f"vgg_stage kernel: unsupported channels {cin} -> {c1} -> {c2}")
-    w1p, w2p = pack_conv_weight(w1.detach()), pack_conv_weight(w2.detach())
-    b1f, b2f = b1.detach().float().contiguous(), b2.detach().float().contiguous()
-    for t, what in ((w1p, "w1"), (w2p, "w2")):
-        _build.require_cuda_input(t, f"vgg_stage {what}", 3, dtype=BF16)
+    w1p, b1f, w2p, b2f = pack_stage_weights(w1, b1, w2, b2) if packed is None else packed
+    for t, what, nd in ((w1p, "w1", 2 if cin == 1 else 4), (w2p, "w2", 4)):
+        _build.require_cuda_input(t, f"vgg_stage {what}", nd, dtype=BF16)
     for t, what in ((b1f, "b1"), (b2f, "b2")):
         _build.require_cuda_input(t, f"vgg_stage {what}", 1)
     out_hw = (h // 2, w // 2) if pool else (h, w)

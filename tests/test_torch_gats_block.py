@@ -26,7 +26,7 @@ from onepose_tpu.ops.pallas.gats_block import fused_gats_block as jax_block
 from onepose_tpu.ops.pallas.gats_block import pack_block_params as jax_pack
 from onepose_tpu_torch.models import bridge
 from onepose_tpu_torch.models.gats_spg import GATsSPG
-from onepose_tpu_torch.ops.kernels import gats_block, launch_counts, reset_launches
+from onepose_tpu_torch.ops.kernels import _layout, gats_block, launch_counts, reset_launches
 
 torch.set_num_threads(2)
 
@@ -130,3 +130,117 @@ def test_gemm_plain_rounds_operands(dtype):
     want = a.to(dtype).double() @ w.to(dtype).double() + bias.double()
     assert got.dtype == torch.float32 and got.shape == (70, 64)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-5)
+
+
+# --- The CUDA kernels' schedules and storage, replayed in torch ---
+
+def _stat_parts_emulated(t, n_rows, rows=gats_block.STAT_ROWS):
+    """csrc/gats_block.cu colpart + colcombine in torch: per part of `rows`
+    rows of an example, the mean (8 row lanes strided by 8, then the lanes
+    summed in order) and the centred M2 the same way; then Chan's merge of
+    the parts in order. t [B * N, K] fp32 -> mean, rstd [B, K]."""
+    k = t.shape[1]
+    t = t.reshape(-1, n_rows, k)
+    n, mu, m2 = torch.zeros(()), torch.zeros(t.shape[0], k), torch.zeros(t.shape[0], k)
+
+    def lanes(x):  # the kernel's order: lane l sums rows l, l + 8, ...; then lanes 0..7
+        acc = [torch.zeros(x.shape[0], k) for _ in range(8)]
+        for r in range(x.shape[1]):
+            acc[r % 8] = acc[r % 8] + x[:, r]
+        tot = torch.zeros(x.shape[0], k)
+        for a in acc:
+            tot = tot + a
+        return tot
+
+    for r0 in range(0, n_rows, rows):
+        part = t[:, r0:r0 + rows]
+        npart = torch.tensor(float(part.shape[1]))
+        pm = lanes(part) / npart
+        pm2 = lanes((part - pm[:, None]) ** 2)
+        tot = n + npart
+        d = pm - mu
+        mu = mu + d * (npart / tot)
+        m2 = m2 + pm2 + d * d * (n * npart / tot)
+        n = tot
+    return mu, 1.0 / torch.sqrt(m2 / n_rows + gats_block.EPS_NORM)
+
+
+@pytest.mark.parametrize("n_rows", [37, 300, 2000])
+def test_norm_statistics_in_parts_match_two_pass(n_rows):
+    """The partial statistics and their fixed-order combine give the two-pass
+    mean and centred variance of the plain version (fp32, 1e-6 relative)."""
+    rng = np.random.default_rng(n_rows)
+    t = torch.from_numpy((rng.normal(size=(2 * n_rows, 64)) * 2.0 + 3.0).astype(np.float32))
+    mu, rstd = _stat_parts_emulated(t, n_rows)
+    x = t.double().reshape(2, n_rows, 64)
+    mu_ref = x.mean(dim=1)
+    var_ref = (x - mu_ref[:, None]).square().mean(dim=1)
+    np.testing.assert_allclose(mu.numpy(), mu_ref.numpy(), rtol=1e-6)
+    var = 1.0 / rstd.double() ** 2 - gats_block.EPS_NORM
+    np.testing.assert_allclose(var.numpy(), var_ref.numpy(), rtol=1e-6)
+
+
+def test_bf16_storage_leaves_the_plain_block_bit_identical():
+    """The bf16 kernels store the attention output and the message in bf16
+    and read bf16 leaves: the GEMMs that read att and msg round them to bf16
+    anyway, and bf16 leaves hold the values the fp32 copy held, so the
+    plain block gives the same bits either way."""
+    (x2, x3, leaves), masks, _, model = _setup(seed=4)
+    p = _port_params(model)
+    args = [torch.from_numpy(a) for a in (x2, x3)]
+    mk = [torch.from_numpy(m) for m in masks]
+    lv = torch.from_numpy(leaves).bfloat16()
+    got = gats_block.fused_gats_block_plain(*args, lv, *mk, p, dtype=torch.bfloat16)
+    want = gats_block.fused_gats_block_plain(*args, lv.float(), *mk, p, dtype=torch.bfloat16)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rng = np.random.default_rng(6)
+    att = torch.from_numpy(rng.normal(size=(40, C)).astype(np.float32))
+    w, b = p["self_w4"][3], p["self_b4"][3]
+    assert torch.equal(gats_block.gemm_plain(att, w, b), gats_block.gemm_plain(
+        att.bfloat16().float(), w, b))
+    msg = torch.from_numpy(rng.normal(size=(40, C)).astype(np.float32))
+    xm = torch.cat([args[0][0, :16].repeat(3, 1)[:40], msg], dim=1)
+    xm_b = torch.cat([args[0][0, :16].repeat(3, 1)[:40], msg.bfloat16().float()], dim=1)
+    w0, b0 = p["self_w0"], p["self_b0"]
+    assert torch.equal(gats_block.gemm_plain(xm, w0, b0), gats_block.gemm_plain(xm_b, w0, b0))
+
+
+def test_kernel_weights_layout():
+    """kernel_weights packs each GEMM weight [K, N] as swizzled bf16 chunks
+    [K / 64, N, 64] (fp32 [N, K] for the fp32 kernels)."""
+    _, _, _, model = _setup()
+    p = _port_params(model)
+    kw = gats_block.kernel_weights(p, torch.bfloat16)
+    assert kw["self_wqkv"].shape == (C // 64, 3 * C, 64)
+    assert kw["cross_w0"].shape == (2 * C // 64, 2 * C, 64)
+    w4 = p["self_w4"]
+    qkv = torch.cat([w4[0], w4[1], w4[2]], dim=1)  # [C, 3C]
+    assert torch.equal(_layout.unswizzle128(kw["self_wqkv"], C), qkv.T.bfloat16())
+    assert torch.equal(_layout.unswizzle128(kw["self_w1"], 2 * C), p["self_w1"].T.bfloat16())
+    k32 = gats_block.kernel_weights(p, torch.float32)
+    assert torch.equal(k32["cross_wm"], p["cross_w4"][3].T)
+
+
+def test_gatsspg_caches_block_weights():
+    """GATsSPG(block_fused) packs each block's weights once, gives what a
+    fresh pack gives, and packs again after an in-place parameter update."""
+    (x2, x3, leaves), masks, _, model = _setup(seed=5)
+    fused = GATsSPG(num_blocks=1, block_fused=True)
+    fused.load_state_dict(model.state_dict())
+    args = [torch.from_numpy(a) for a in (x2, x3, leaves, *masks)]
+    with torch.no_grad():
+        first = fused(*args)
+        assert fused._packs.packs == 1
+        again = fused(*args)
+        assert fused._packs.packs == 1
+        assert torch.equal(first["matches0"], again["matches0"])
+        uncached = gats_block.fused_gats_block(
+            *args[:6], gats_block.pack_block_params(fused.gats_0, fused.self_0, fused.cross_0),
+            dtype=torch.float32)
+        cached = gats_block.fused_gats_block(*args[:6], fused.block_weights(0)[0],
+                                             dtype=torch.float32)
+        assert all(torch.equal(a, b) for a, b in zip(uncached, cached))
+        fused.self_0.mlp.dense_1.bias.add_(0.5)
+        fused(*args)
+        assert fused._packs.packs == 2
+        assert torch.equal(fused.block_weights(0)[0]["self_b1"], fused.self_0.mlp.dense_1.bias)
