@@ -13,7 +13,9 @@ Phases, each printing its lines before the last:
      one PyTorch call computes the same thing, that call's time; with the
      breakdowns of the VGG stage (each encoder stage beside cuDNN's conv
      pair) and of the fused block (launched from Python and replayed as a
-     CUDA graph; device ms per CUDA kernel from torch.profiler);
+     CUDA graph; device ms per CUDA kernel from torch.profiler), and the
+     Sinkhorn kernels at 1 and 100 iterations (fixed cost and us per
+     iteration; K7's sweep rate, in fp32 and with bf16 storage);
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
@@ -27,9 +29,10 @@ Phases, each printing its lines before the last:
   5. the pair matcher of `map` (make_superglue_pair_matcher, SuperGlue at
      full width, random weights from a seed): 24 frames x 1024 keypoints in
      chunks of 16 (the resident Sinkhorn kernel) and 12 frames x 4096
-     keypoints in chunks of 7 (the streamed one); launches per chunk,
-     kernels on against off, stage times, device time and Sinkhorn's
-     share, ms per chunk, pairs/s and peak memory, kernels on and off;
+     keypoints in chunks of 7 (the streamed one, also with its coupling
+     stored in bf16); launches per chunk, kernels on against off, stage
+     times, device time and Sinkhorn's share, ms per chunk, pairs/s and
+     peak memory, kernels on and off;
   6. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
@@ -89,9 +92,12 @@ MATCH_THRESHOLD = 0.0
 # K6 [B, M, N] couplings (keypoints + dustbin): map's default (1024
 # keypoints, chunks of 16; three waves of pairs), then a ragged one. K7:
 # the SfM budget (4096 keypoints, chunks of 7), then a ragged one whose
-# blocks stream several row blocks each.
-SINKHORN_SHAPES = ((16, 1025, 1025), (3, 301, 257))
-STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049))
+# blocks stream several row blocks each. The shapes after those reach the
+# other instantiations (warps a group x chunks a thread): K6 8 x 1 and
+# 16 x 1; K7 16 x 2, and one row a step at 16 x 5 and 16 x 7.
+SINKHORN_SHAPES = ((16, 1025, 1025), (3, 301, 257), (2, 1201, 1201), (2, 301, 2401))
+STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049), (2, 700, 4401), (1, 1000, 9001),
+                 (1, 1500, 13001))
 SINKHORN_ITERS = 100
 SINKHORN_ABS = 1e-3
 # exp on the special-function units: 16 per clock per SM, 132 SMs, 1.98 GHz.
@@ -158,8 +164,13 @@ def phase_build():
     log(f"[build] {len(logs)} of {len(_build.KERNELS)} kernel libraries compiled with "
         f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        fn = ""
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Function properties for" in line:
+                fn = line.split()[-1]  # the mangled name: template arguments as Li<n>E
+            elif "spill" in line:
+                log(f"[build] {name} {fn}: {line.strip()}")
+            elif "Used" in line:
                 log(f"[build] {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -578,14 +589,16 @@ def _kernels_sinkhorn(torch, timer, g):
     runs = [("sinkhorn", shape, None) for shape in SINKHORN_SHAPES]
     runs += [("sinkhorn_stream", shape, dt) for shape in STREAM_SHAPES
              for dt in (None, torch.bfloat16)]
-    rows, extra = {}, []
+    rows = {}
     for i, (name, shape, cdt) in enumerate(runs):
         c, mu, nu, norm, m0, m1 = _sinkhorn_input(torch, g, *shape)
-        if name == "sinkhorn":
-            kern = lambda: sinkhorn.sinkhorn_kernel(c, mu, nu, SINKHORN_ITERS)  # noqa: E731
-        else:
-            kern = lambda: sinkhorn_stream.sinkhorn_stream_kernel(  # noqa: E731
-                c, mu, nu, SINKHORN_ITERS, coupling_dtype=cdt)
+
+        def call(iters, name=name, c=c, mu=mu, nu=nu, cdt=cdt):
+            if name == "sinkhorn":
+                return sinkhorn.sinkhorn_kernel(c, mu, nu, iters)
+            return sinkhorn_stream.sinkhorn_stream_kernel(c, mu, nu, iters, coupling_dtype=cdt)
+
+        kern = lambda: call(SINKHORN_ITERS)  # noqa: E731
         ref = lambda: plain(c, mu, nu, SINKHORN_ITERS, coupling_dtype=cdt)  # noqa: E731
         (u, v), (ur, vr) = kern(), ref()
         torch.cuda.synchronize()
@@ -604,28 +617,34 @@ def _kernels_sinkhorn(torch, timer, g):
             fail(f"the {name} kernel differs from its plain version")
         prod = shape == (SINKHORN_SHAPES if name == "sinkhorn" else STREAM_SHAPES)[0]
         if not prod:
+            log(f"[kernels] {name} {shape} {store}: kernel {timer(kern, reps=3):.4f} ms at "
+                f"iters={SINKHORN_ITERS}")
             continue
         b, m, n = shape
+        one = timer(lambda: call(1), reps=10)
         ms = timer(kern, reps=10)
         plain_ms = timer(ref, reps=3, warmup=1)
+        per_iter = (ms - one) / (SINKHORN_ITERS - 1)
+        key = name if cdt is None else "sinkhorn_stream_bf16"
+        k = "K6" if name == "sinkhorn" else "K7"
+        line = (f"[kernels] {key} ({k}) {shape} {store}: kernel {ms:.4f} ms at iters="
+                f"{SINKHORN_ITERS}, {one:.4f} ms at iters=1: {per_iter * 1e3:.2f} us per "
+                f"iteration, {one - per_iter:.4f} ms fixed; plain {plain_ms:.4f} ms")
+        if name == "sinkhorn_stream":
+            sweep = b * m * sinkhorn_stream.row_pitch(n) * (2 if cdt is not None else 4)
+            line += (f"; sweeps of {sweep / 1e6:.1f} MB at {sweep / per_iter / 1e9:.3f} TB/s per "
+                     f"iteration, {sweep * SINKHORN_ITERS / ms / 1e9:.3f} TB/s over the call; one "
+                     f"sweep per iteration at {HBM_BYTES_PER_S / 1e12:.2f} TB/s would take "
+                     f"{sweep * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        log(line)
         n_bytes = 4 * (b * m * n + 2 * b * (m + n))
         bms, by = bound(n_bytes, 2 * b * m * n * SINKHORN_ITERS, EXP_PER_S)
-        if cdt is not None:
-            extra.append(f"[kernels] {name} {shape} bf16 storage: kernel {ms:.4f} ms, plain "
-                         f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-            continue
-        k = "K6" if name == "sinkhorn" else "K7"
-        log(f"[kernels] {name} ({k}) {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; one "
-            f"sweep of the coupling per iteration would take "
-            f"{b * m * n * 4 * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3:.3f} ms")
-        rows[name] = dict(
-            name=name, route="cuda", source=f"onepose_tpu_torch/csrc/{name}.cu",
+        rows[key] = dict(
+            name=key, route="cuda", source=f"onepose_tpu_torch/csrc/{name}.cu",
             replaces=("onepose_tpu/ops/pallas/sinkhorn.py:78" if name == "sinkhorn" else
                       "onepose_tpu/ops/pallas/sinkhorn_stream.py:105"),
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
             bound_by=by)
-    for line in extra:
-        log(line)
     return rows
 
 
@@ -1085,6 +1104,38 @@ def _profile_stages(torch, stages) -> dict:
     return out
 
 
+def _pairs_bf16_storage(torch, sd, feats, pairs, cfg, chunk, n_chunks, res_off, rows, tag):
+    """(b) once more with K7's coupling stored in bf16 (SuperGlue's
+    sinkhorn_stream_bf16): launches of one match_pairs call (the
+    sinkhorn_stream_bf16 row's count), agreement with the plain path, ms per
+    chunk of one timed call."""
+    from onepose_tpu_torch.models.superglue import SuperGlue
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from onepose_tpu_torch.parallel.sfm_parallel import make_superglue_pair_matcher
+
+    model = SuperGlue(match_threshold=MATCH_THRESHOLD, sinkhorn_stream_bf16=True)
+    model.load_state_dict(sd)
+    match = make_superglue_pair_matcher(model, feats, pair_chunk=cfg["pair_chunk"], device=DEV)
+    match(pairs[:chunk])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = match(pairs)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["sinkhorn_stream"] = n_chunks
+    agree = float((res == res_off).mean())
+    log(f"[pairs] {tag}, kernels on, K7 bf16 storage: launches {counts} (want {want}); matches "
+        f"agreeing with kernels off {agree:.6f}, {int((res >= 0).sum())} matches; "
+        f"{sec * 1e3 / n_chunks:.2f} ms per chunk of {chunk} (one call)")
+    if counts != want or int((res >= 0).sum()) == 0:
+        fail(f"{tag}: the bf16-storage pair matcher did not launch K7 as expected")
+    if "sinkhorn_stream_bf16" in rows:
+        rows["sinkhorn_stream_bf16"]["launches"] = counts["sinkhorn_stream"]
+
+
 def phase_pairs(torch, rows):
     """make_superglue_pair_matcher at full width on shapes (a) and (b):
     launch counts per chunk, kernels on against off, stage times, device
@@ -1133,6 +1184,9 @@ def phase_pairs(torch, rows):
                 fail(f"{tag}: the kernels-{label} pair matcher did not launch as expected")
             if label == "on" and cfg["kernel"] in rows:
                 rows[cfg["kernel"]]["launches"] = counts[cfg["kernel"]]
+        if cfg["kernel"] == "sinkhorn_stream":
+            _pairs_bf16_storage(torch, sd, feats, pairs, cfg, chunk, n_chunks, res["off"], rows,
+                                tag)
         agree = float((res["on"] == res["off"]).mean())
         hits = int((res["on"] >= 0).sum())
         log(f"[pairs] {tag}: kernels on vs off, matches agreeing {agree:.6f} (>= 0.99), "

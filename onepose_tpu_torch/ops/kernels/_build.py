@@ -17,9 +17,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
 
 import torch
@@ -56,12 +58,12 @@ SIGNATURES = {
         "gats_block_gemm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
     },
     "sinkhorn": {
-        "sinkhorn_max_blocks": ([_I], _I),
-        "sinkhorn_launch": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        "sinkhorn_max_blocks": ([_I] * 3, _I),
+        "sinkhorn_launch": ([_P] * 8 + [_I] * 10 + [_P], _I),
     },
     "sinkhorn_stream": {
-        "sinkhorn_stream_max_blocks": ([_I], _I),
-        "sinkhorn_stream_launch": ([_P, _I] + [_P] * 5 + [_I] * 10 + [_P], _I),
+        "sinkhorn_stream_max_blocks": ([_I] * 3, _I),
+        "sinkhorn_stream_launch": ([_P, _I] + [_P] * 7 + [_I] * 13 + [_P], _I),
     },
 }
 
@@ -89,6 +91,23 @@ def library_path(name: str) -> Path:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+@lru_cache(maxsize=None)
+def variants(name: str) -> dict[tuple[int, int], int]:
+    """The instantiations that `csrc/<name>.cu` lists in its X-macro
+    `VARIANTS`, as X(W, KC, RS): (warps a group, chunks a thread) -> rows a
+    group step. The source's pick() expands the same list, so a plan that
+    chooses from this table names only a compiled kernel."""
+    text = (CSRC / f"{name}.cu").read_text()
+    found = re.search(r"^#define VARIANTS\(X\)((?:.*\\\n)*.*)$", text, re.M)
+    if found is None:
+        raise RuntimeError(f"csrc/{name}.cu defines no VARIANTS(X) list")
+    table = {(int(w), int(kc)): int(rs)
+             for w, kc, rs in re.findall(r"X\((\d+),\s*(\d+),\s*(\d+)\)", found.group(1))}
+    if not table:
+        raise RuntimeError(f"csrc/{name}.cu: VARIANTS(X) lists no instantiation")
+    return table
 
 
 def build(names=KERNELS) -> dict[str, str]:
@@ -141,10 +160,11 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def resident_blocks(lib: ctypes.CDLL, fn: str, smem: int) -> int:
+def resident_blocks(lib: ctypes.CDLL, fn: str, *args: int) -> int:
     """Blocks of a cooperative kernel resident on the card at once, from
-    the library's occupancy entry point `fn` (negative: a CUDA error)."""
-    n = getattr(lib, fn)(int(smem))
+    the library's occupancy entry point `fn` called with `args` (negative:
+    a CUDA error)."""
+    n = getattr(lib, fn)(*map(int, args))
     if n < 0:
         check(lib, -n, fn)
     return n

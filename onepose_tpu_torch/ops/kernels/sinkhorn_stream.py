@@ -17,14 +17,20 @@ exponentials, 2 * B * M * N * iters (2.35e10 at [7, 4097, 4097] x 100,
 about 5.6 ms); the design's own floor is one sweep of the coupling per
 iteration, 470 MB at that shape, 14 ms in fp32 and 7 ms in bf16.
 
-Design (see the source): one persistent cooperative launch. The blocks of
-a pair split its rows; in every iteration each block streams its rows
-through shared memory in blocks of `block_rows`, with 16-byte loads, and
-keeps its columns' online accumulators in shared memory; after a
-grid-wide barrier every block of the pair reduces the pair's per-block
-partials into v. The wrapper stores the coupling with its row pitch padded
-to a multiple of 8 elements, so that every row starts 16-byte aligned; the
-kernel never reads the padding.
+Design (see the source and `csrc/sinkhorn.cuh`): one persistent
+cooperative launch. The blocks of a pair split its rows. Each block
+streams its rows, iteration after iteration, through a ring of `stages`
+stages of `stage_rows` rows in shared memory (one TMA bulk copy per
+stage, about 64 KB; the last warp to leave a stage refills its slot), so
+the loads run on across the iterations' ends. Its 16 warps, in groups of
+W, take RS rows of a stage at a time (`layout`: two, one above 8704
+columns), keep v and their columns' online accumulators in registers and
+work in base 2, one exponential per entry and direction; rows of up to
+14848 columns, the instantiations of the source's VARIANTS list. The groups merge into one partial per block; the pair's
+blocks meet at arrival counters (the scratch `ctr`, zeroed per call)
+around a column reduce split over them. The wrapper stores the coupling with its row
+pitch padded to a multiple of 8 elements, so that every row starts
+16-byte aligned; the padding is NEG_INF.
 
 `sinkhorn_potentials_streamed` launches the kernel on CUDA tensors and
 runs the plain version only on CPU tensors. Forward-only.
@@ -38,8 +44,11 @@ import torch
 
 from onepose_tpu_torch.ops.kernels import _build
 from onepose_tpu_torch.ops.kernels.sinkhorn import (
+    RED_BYTES,
     SMEM_PER_BLOCK,
+    WARPS,
     check_inputs,
+    group_layout,
     sinkhorn_potentials_plain,
 )
 
@@ -52,38 +61,70 @@ def row_pitch(n: int) -> int:
     return -(-n // PITCH) * PITCH
 
 
-def block_smem(rows: int, ldc: int) -> int:
-    """Shared memory of a block streaming `rows` rows of pitch ldc (fp32),
-    with v and the two column accumulators [ldc] and the rows' u."""
-    return 4 * (rows * ldc + 3 * ldc + rows)
+STAGE_BYTES = 65536  # bytes a stage aims at (one bulk copy)
+MIN_STAGES = 3
+
+
+def layout(n: int) -> tuple[int, int, int]:
+    """(W, KC, RS) of the instantiation for n columns, from the source's
+    VARIANTS: two groups of 8 warps up to 4352 columns, else one of 16
+    (one row a step above 8704), at most 14848 columns."""
+    return group_layout(n, _build.variants("sinkhorn_stream"), "sinkhorn_stream")
+
+
+class Ring(NamedTuple):
+    stage_rows: int  # rows of a stage
+    stages: int  # stages in the ring
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def ring(n: int, elem_bytes: int = 4, smem_per_block: int = SMEM_PER_BLOCK) -> Ring:
+    """Stages of about STAGE_BYTES of whole rows (pitch `row_pitch(n)`, a
+    whole number of block steps, all groups x RS rows, where possible), as
+    many as shared memory holds beside the exchange and the groups' merge
+    buffer [2, n] (none with one group), each with an mbarrier and a
+    counter (16 bytes); fewer rows a stage if that leaves fewer than
+    MIN_STAGES. [*, 4097]: 3 stages of 4 fp32 rows or of 8 bf16 rows, 64 KB
+    each; [*, 14848]: 3 stages of one fp32 row."""
+    row = row_pitch(n) * elem_bytes
+    w, _, rs = layout(n)
+    merge = 8 * n if w < WARPS else 0
+    room = smem_per_block - RED_BYTES - merge
+    q = WARPS // w * rs
+    r = -(-STAGE_BYTES // (row * q)) * q
+    if room // (r * row + 16) < MIN_STAGES:
+        r = (room // MIN_STAGES - 16) // row
+        r = r - r % q if r >= q else r
+    if r < 1:
+        raise ValueError(f"sinkhorn_stream: {MIN_STAGES} coupling rows of {n} do not fit shared "
+                         "memory")
+    stages = room // (r * row + 16)
+    return Ring(r, stages, stages * (r * row + 16) + RED_BYTES + merge)
 
 
 class Plan(NamedTuple):
-    block_rows: int  # rows streamed through shared memory at a time
+    stage_rows: int  # rows of a stage
+    stages: int  # stages in the ring
     blocks_per_pair: int  # blocks that split one pair's rows
     rows: int  # rows of a pair per block (the last block may hold fewer)
     pairs_per_wave: int  # pairs resident at once; the launch loops over waves
     smem: int  # dynamic shared memory per block, bytes
+    warps_per_group: int  # W: warps that take RS rows at a time
+    chunks: int  # KC: 4-column chunks a thread owns
 
 
-def block_rows(n: int, smem_per_block: int = SMEM_PER_BLOCK) -> int:
-    ldc = row_pitch(n)
-    return max(0, (smem_per_block // 4 - 3 * ldc) // (ldc + 1))
-
-
-def plan(b: int, m: int, n: int, max_blocks: int,
+def plan(b: int, m: int, n: int, max_blocks: int, elem_bytes: int = 4,
          smem_per_block: int = SMEM_PER_BLOCK) -> Plan:
     """Split a [b, m, n] problem over `max_blocks` resident blocks: as many
-    blocks per pair as there are row blocks, up to an equal share of the
-    card, and the pairs in waves when there are more pairs than blocks."""
-    r = block_rows(n, smem_per_block)
-    if r < 1:
-        raise ValueError(f"sinkhorn_stream: a coupling row of {n} fp32 does not fit shared "
-                         "memory")
-    per_pair = max(1, min(-(-m // r), max_blocks // b))
+    blocks per pair as there are stages of rows, up to an equal share of
+    the card, and the pairs in waves when there are more pairs than blocks;
+    the groups as `layout` gives them."""
+    rg = ring(n, elem_bytes, smem_per_block)
+    w, kc, _ = layout(n)
+    per_pair = max(1, min(-(-m // rg.stage_rows), max_blocks // b))
     rows = -(-m // per_pair)
-    return Plan(r, per_pair, rows, min(b, max_blocks // per_pair),
-                block_smem(r, row_pitch(n)))
+    return Plan(rg.stage_rows, rg.stages, per_pair, rows, min(b, max_blocks // per_pair), rg.smem,
+                w, kc)
 
 
 def stored_coupling(couplings: torch.Tensor, coupling_dtype: Optional[torch.dtype]):
@@ -129,16 +170,22 @@ def sinkhorn_stream_kernel(
     b, m, n = couplings.shape
     stored = stored_coupling(couplings, coupling_dtype)
     lib = _build.load("sinkhorn_stream")
-    smem = block_smem(block_rows(n), row_pitch(n))
-    p = plan(b, m, n, _build.resident_blocks(lib, "sinkhorn_stream_max_blocks", smem))
+    esize = stored.element_size()
+    w, kc, _ = layout(n)
+    max_blocks = _build.resident_blocks(lib, "sinkhorn_stream_max_blocks", w, kc,
+                                        ring(n, esize).smem)
+    p = plan(b, m, n, max_blocks, esize)
     f32 = dict(dtype=torch.float32, device=couplings.device)
     u, v = torch.empty(b, m, **f32), torch.empty(b, n, **f32)
-    part = torch.empty(2 * b * p.blocks_per_pair * 2 * n, **f32)
+    part = torch.empty(b * p.blocks_per_pair * 2 * n, **f32)
+    vbuf = torch.empty(b * n, **f32)
+    ctr = torch.zeros(b, dtype=torch.int32, device=couplings.device)  # the pair barriers
     P = _build.ptr
     err = lib.sinkhorn_stream_launch(
         P(stored), int(stored.dtype == torch.bfloat16), P(log_mu), P(log_nu), P(u), P(v),
-        P(part), b, m, n, stored.shape[2], int(iters), p.block_rows, p.rows,
-        p.blocks_per_pair, p.pairs_per_wave, p.smem, _build.stream(couplings.device))
+        P(part), P(vbuf), P(ctr), b, m, n, stored.shape[2], int(iters), p.stage_rows, p.stages,
+        p.rows, p.blocks_per_pair, p.pairs_per_wave, p.warps_per_group, p.chunks, p.smem,
+        _build.stream(couplings.device))
     _build.check(lib, err, "sinkhorn_stream kernel")
     global launches
     launches += 1

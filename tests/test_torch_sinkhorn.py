@@ -87,65 +87,299 @@ def test_plain_bf16_matches_jax_streamed():
     assert float((u32 - u).abs()[torch.from_numpy(m0)].max()) > 1e-4
 
 
-def _emulate(c, mu, nu, iters, rows, block_rows=None):
-    """The CUDA kernels' schedule in torch: blocks of `rows` rows per pair,
-    each streaming its rows in blocks of `block_rows` (None: one resident
-    band) with an online column fold that starts empty; per-block partials
-    reduced into v after every iteration."""
+L2E, LN2 = 1.4426950408889634, 0.6931471805599453
+EMPTY = float("-inf")
+
+
+def _fold(m, s, ys):
+    """sinkhorn.cuh fold: the entries of a step (a list of rows) into online
+    column accumulators: the step's max, one rescale, one exponential per
+    entry."""
+    mn = torch.stack([m] + ys).amax(0)
+    s = s * torch.exp2(m - mn)
+    for y in ys:
+        s = s + torch.exp2(y - mn)
+    return mn, s
+
+
+def _merge(m, s, m2, s2):
+    """lse_merge in base 2: an empty side is taken over as it is."""
+    mn = torch.maximum(m, m2)
+    both = s * torch.exp2(m - mn) + s2 * torch.exp2(m2 - mn)
+    s_out = torch.where(m2 == EMPTY, s, torch.where(m == EMPTY, s2, both))
+    return torch.where(m2 == EMPTY, m, torch.where(m == EMPTY, m2, mn)), s_out
+
+
+def _warp_of_column(n, threads, lanes):
+    """The warp of a group that owns each column (sinkhorn.cuh Columns):
+    chunk q = j // 4 on thread q % threads, the tail column on thread j -
+    4 * threads * chunks."""
+    kc, tail = sinkhorn.column_layout(n, threads)
+    j = torch.arange(n)
+    owner = torch.where(j < 4 * threads * kc, (j // 4) % threads, j - 4 * threads * kc)
+    assert int((j >= 4 * threads * kc).sum()) == tail and bool((owner < threads).all())
+    return owner // lanes
+
+
+def _row_u(x, warp_of, warps, mu2):
+    """row_step: per-warp max and sum of exponentials, one exchange; base 2."""
+    mw = torch.full((warps,), EMPTY).scatter_reduce(0, warp_of, x, "amax")
+    sh = torch.where(mw == EMPTY, 0.0, mw)
+    sw = torch.zeros(warps).scatter_add(0, warp_of, torch.exp2(x - sh[warp_of]))
+    M = mw.max()
+    S = torch.where(mw == EMPTY, 0.0, sw * torch.exp2(mw - M)).sum()
+    return mu2 - (M + torch.log2(S))
+
+
+def _reduce_slice(pm, ps, j0, j1, threads, chunk=8):
+    """reduce_slice: `sub` lanes a column, lane l taking partials l, l + sub,
+    ... `chunk` at a time into an online (max, sum); then the lanes' max,
+    each lane's sum scaled to it, and the xor tree; lane 0's result."""
+    cols, parts = j1 - j0, pm.shape[0]
+    sub = 32
+    while sub > 1 and sub * cols > threads:
+        sub //= 2
+    lanes = []
+    for lane in range(sub):
+        M, S = torch.full((cols,), EMPTY), torch.zeros(cols)
+        for p0 in range(lane, parts, chunk * sub):
+            ps_ = range(p0, min(parts, p0 + chunk * sub), sub)
+            cm = torch.stack([pm[p, j0:j1] for p in ps_]).amax(0)
+            S = torch.where(cm > M, S * torch.exp2(M - cm), S)
+            M = torch.maximum(M, cm)
+            for p in ps_:
+                S = S + ps[p, j0:j1] * torch.exp2(pm[p, j0:j1] - M)
+        lanes.append((M, S))
+    Mw = torch.stack([m for m, _ in lanes]).amax(0)
+    sums = [torch.where(m == EMPTY, 0.0, s * torch.exp2(m - Mw)) for m, s in lanes]
+    off = 1
+    while off < sub:
+        sums = [sums[lane] + sums[lane ^ off] for lane in range(sub)]
+        off *= 2
+    return Mw, sums[0]
+
+
+def _emulate(c, mu, nu, iters, rows, stage_rows=None, *, stages=3, lanes=4, warps=2, groups=2,
+             rs=2, reduce_threads=16, pairs_per_wave=None):
+    """The CUDA kernels' schedule in torch, at a small thread count (`lanes`
+    a warp, `warps` a group, `groups` a block): blocks of `rows` rows per
+    pair; stage_rows None is K6 (the band resident, each group taking `rs`
+    rows a step), else K7 (a ring of `stages` slots of `stage_rows` rows,
+    filled in order by a producer that runs at most `stages` ahead, across
+    iterations and waves; each group takes `rs` rows of a stage at a
+    time, as in a band). Base 2 throughout; each group folds its rows into
+    its own column accumulators (one rescale a step, one exponential per
+    entry); the groups are
+    merged into one partial per block; each block reduces its slice of
+    columns; pairs in waves of
+    `pairs_per_wave`, each block's ring carried from wave to wave."""
     b, m, n = c.shape
-    u, v = torch.zeros(b, m), torch.zeros(b, n)
-    empty = float("-inf")
-    for _ in range(iters):
-        parts = []
-        for r0 in range(0, m, rows):
-            r1 = min(m, r0 + rows)
-            acc_m, acc_s = torch.full((b, n), empty), torch.zeros(b, n)
-            for blk in range(r0, r1, block_rows or rows):
-                e = min(r1, blk + (block_rows or rows))
-                t = c[:, blk:e] + v[:, None, :]
-                mx = t.amax(dim=2)
-                u[:, blk:e] = mu[:, blk:e] - (mx + torch.log(torch.exp(t - mx[..., None]).sum(2)))
-                t2 = c[:, blk:e] + u[:, blk:e, None]
-                m2 = t2.amax(dim=1)
-                s2 = torch.exp(t2 - m2[:, None]).sum(1)
-                first = torch.isinf(acc_m)
-                mn = torch.maximum(acc_m, m2)
-                merged = acc_s * torch.exp(acc_m - mn) + s2 * torch.exp(m2 - mn)
-                acc_s = torch.where(first, s2, merged)
-                acc_m = torch.where(first, m2, mn)
-            parts.append((acc_m, acc_s))
-        pm = torch.stack([p[0] for p in parts])
-        ps = torch.stack([p[1] for p in parts])
-        mx = pm.amax(dim=0)
-        v = nu - (mx + torch.log((ps * torch.exp(pm - mx)).sum(0)))
-    return u, v
+    threads = lanes * warps
+    warp_of = _warp_of_column(n, threads, lanes)
+    cpp = -(-m // rows)
+    cols = -(-n // cpp)
+    ppw = pairs_per_wave or b
+    u2, v2 = torch.zeros(b, m), torch.zeros(b, n)
+    mu2, nu2 = mu * L2E, nu * L2E
+    # K7: each block's stage sequence over all its waves and iterations.
+    seqs = {}
+    for slot in range(ppw):
+        for k in range(cpp):
+            r0, r1 = k * rows, min(m, (k + 1) * rows)
+            seqs[slot, k] = [(p, row0, min(stage_rows, r1 - row0))
+                             for p in range(slot, b, ppw) for _ in range(iters)
+                             for row0 in range(r0, r1, stage_rows)] if stage_rows else []
+    rings = {key: dict(slots=torch.full((stages, stage_rows or 1, n), float("nan")),
+                       filled=[-1] * stages, fills=[0] * stages, issued=0, consumed=0)
+             for key in seqs}
+
+    def consume(key):
+        """The next stage of a block: the producer issues ahead while slots
+        are free; the slot must hold this stage, at the phase expected."""
+        rg, seq = rings[key], seqs[key]
+        while rg["issued"] < len(seq) and rg["issued"] < rg["consumed"] + stages:
+            gs = rg["issued"]
+            p, row0, nr = seq[gs]
+            sl = gs % stages
+            rg["slots"][sl, :nr] = c[p, row0:row0 + nr]  # rows past nr stay stale
+            rg["filled"][sl], rg["fills"][sl] = gs, rg["fills"][sl] + 1
+            rg["issued"] += 1
+        gs = rg["consumed"]
+        sl = gs % stages
+        assert rg["filled"][sl] == gs and (rg["fills"][sl] - 1) % 2 == (gs // stages) % 2
+        rg["consumed"] += 1
+        return seq[gs], rg["slots"][sl]
+
+    for w0 in range(0, b, ppw):
+        wave = [(slot, w0 + slot) for slot in range(ppw) if w0 + slot < b]
+        for _ in range(iters):
+            for slot, p in wave:
+                pm, ps = [], []
+                for k in range(cpp):
+                    r0, r1 = k * rows, min(m, (k + 1) * rows)
+                    acc = [[torch.full((n,), EMPTY), torch.zeros(n)] for _ in range(groups)]
+
+                    def step(g, idx, crows):
+                        """One group step: u of each row, then the rows folded."""
+                        if not idx:
+                            return
+                        for i, crow in zip(idx, crows):
+                            u2[p, i] = _row_u(crow * L2E + v2[p], warp_of, warps, mu2[p, i])
+                        ys = [cr * L2E + u2[p, i] for i, cr in zip(idx, crows)]
+                        acc[g][:] = _fold(*acc[g], ys)
+
+                    if stage_rows is None:
+                        for i0 in range(r0, r1, groups * rs):
+                            for g in range(groups):
+                                idx = list(range(i0 + g * rs, min(r1, i0 + (g + 1) * rs)))
+                                step(g, idx, [c[p, i] for i in idx])
+                    else:
+                        for _ in range(r0, r1, stage_rows):
+                            (p_, row0, nr), st = consume((slot, k))
+                            assert p_ == p
+                            for i0 in range(0, nr, groups * rs):
+                                for g in range(groups):
+                                    loc = list(range(i0 + g * rs, min(nr, i0 + (g + 1) * rs)))
+                                    step(g, [row0 + i for i in loc], [st[i] for i in loc])
+                    for g in range(groups - 1, 0, -1):  # merge_groups: into group 0
+                        acc[0][:] = _merge(*acc[0], *acc[g])
+                    pm.append(acc[0][0])
+                    ps.append(acc[0][1])
+                pm, ps = torch.stack(pm), torch.stack(ps)
+                for k in range(cpp):
+                    j0, j1 = min(n, k * cols), min(n, (k + 1) * cols)
+                    if j1 > j0:
+                        M, S = _reduce_slice(pm, ps, j0, j1, reduce_threads)
+                        v2[p, j0:j1] = nu2[p, j0:j1] - (M + torch.log2(S))
+    assert all(rg["consumed"] == len(seqs[key]) for key, rg in rings.items())
+    return u2 * LN2, v2 * LN2
 
 
 @pytest.mark.parametrize("block_rows", [None, 7])
 def test_kernel_schedule_matches_plain(block_rows):
-    """Resident bands (K6) and streamed row blocks (K7), with a ragged last
-    band and last row block, against the plain version."""
+    """Resident bands (K6) and streamed stages of 7 rows (K7, a ring of 3),
+    two rows a group step, with a ragged last band and stage, chunks of
+    masked columns (45 over 8 threads a group), against the plain version."""
     c, mu, nu, m0, m1 = map(torch.from_numpy, _problem(2, 2, 61, 45, scale=4.0))
     want = sinkhorn.sinkhorn_potentials_plain(c, mu, nu, ITERS)
-    got = _emulate(c, mu, nu, ITERS, rows=17, block_rows=block_rows)
+    got = _emulate(c, mu, nu, ITERS, rows=17, stage_rows=block_rows)
     _close_on(m0.numpy(), got[0], want[0])
     _close_on(m1.numpy(), got[1], want[1])
+
+
+SCHEDULES = {
+    # K7 as it runs: two groups, two rows a step. A block's 40 rows in
+    # stages of 3 (one step short) wrap a ring of 3 slots four times an
+    # iteration; 33 columns = 4 chunks of 8 threads + one tail column.
+    "ring_wraps": dict(shape=(2, 61, 33), rows=40, stage_rows=3, groups=2, rs=2),
+    # 5 pairs in waves of 2: the last wave holds one; the rings carry over.
+    "waves": dict(shape=(5, 30, 41), rows=16, stage_rows=4, pairs_per_wave=2, groups=2, rs=2),
+    # Bands of 20, 20, 20, 1: the last block's one row in a stage of 8; four
+    # rows a step, as K6 takes them.
+    "ragged_stage": dict(shape=(2, 61, 33), rows=20, stage_rows=8, groups=2, rs=4),
+    # K6 at four groups of one warp, the last band of 8 rows ragged.
+    "resident_groups": dict(shape=(3, 53, 37), rows=15, groups=4, warps=1, rs=2),
+    # K7's widest instantiations: one group of all the warps (nothing to
+    # merge), one row a step; 75 columns = 4 chunks of 16 threads + 11 tail.
+    "one_group": dict(shape=(2, 37, 75), rows=20, stage_rows=3, groups=1, warps=4, rs=1),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULES))
+def test_kernel_schedules_against_plain(case):
+    cfg = dict(SCHEDULES[case])
+    c, mu, nu, m0, m1 = map(torch.from_numpy, _problem(5, *cfg.pop("shape"), scale=4.0))
+    want = sinkhorn.sinkhorn_potentials_plain(c, mu, nu, ITERS)
+    got = _emulate(c, mu, nu, ITERS, **cfg)
+    _close_on(m0.numpy(), got[0], want[0])
+    _close_on(m1.numpy(), got[1], want[1])
+
+
+@pytest.mark.parametrize("stage_rows", [None, 4])
+def test_kernel_schedule_fully_masked_side(stage_rows):
+    """No valid keypoint on side 0 (log_sinkhorn's problem with dustbins):
+    every output finite, the dustbin row and the valid columns as the plain
+    version gives them."""
+    rng = np.random.default_rng(6)
+    scores = torch.from_numpy(rng.normal(size=(2, 20, 26)).astype(np.float32))
+    m0, m1 = torch.zeros(2, 20, dtype=torch.bool), torch.from_numpy(rng.random((2, 26)) < 0.8)
+    c, mu, nu, _ = superglue.sinkhorn_problem(scores, torch.tensor(1.0), m0, m1)
+    want = sinkhorn.sinkhorn_potentials_plain(c, mu, nu, ITERS)
+    got = _emulate(c, mu, nu, ITERS, rows=8, stage_rows=stage_rows)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    ones = torch.ones(2, 1, dtype=torch.bool)
+    _close_on(torch.cat([m0, ones], 1).numpy(), got[0], want[0])
+    _close_on(torch.cat([m1, ones], 1).numpy(), got[1], want[1])
 
 
 def test_fits_smem_and_plans():
     assert sinkhorn.fits_smem(1025, 1025)  # map's default, 1024 keypoints
     assert sinkhorn.fits_smem(2049, 2049)  # fits on the H100, unlike the TPU's VMEM
     assert not sinkhorn.fits_smem(4097, 4097)  # the SfM budget goes to K7
-    assert sinkhorn.plan(1025, 1025) == (19, 54, 4 * (54 * 1025 + 1025 + 54))
-    assert sinkhorn.plan(2049, 2049)[:2] == (76, 27)
+    # 22 bands of 47 rows (at most 54 fit; 48 is 3 block steps of 4 groups x
+    # 4 rows) at a pitch of 1028, the exchange, the groups' merge buffer and
+    # the band's mu beside; groups of 4 warps, two chunks a thread and the
+    # dustbin column as the tail.
+    assert sinkhorn.max_band_rows(1025) == 54
+    assert sinkhorn.plan(1025, 1025) == (22, 47, 4 * 47 * 1028 + 1024 + 8 * 1025 + 4 * 47, 4, 2)
+    assert sinkhorn.plan(2049, 2049)[:2] == (86, 24)  # groups of 8, 2 rows a step
+    assert sinkhorn.plan(7000, 1025)[:2] == (130, 54)  # whole steps would need 146 bands
     assert sinkhorn.plan(1025, 1025).smem <= sinkhorn.SMEM_PER_BLOCK
-    assert sinkhorn.pairs_per_wave(16, 19, 132) == 6  # 16 pairs in 3 waves
+    assert sinkhorn.plan(2049, 2049).smem <= sinkhorn.SMEM_PER_BLOCK
+    assert sinkhorn.pairs_per_wave(16, 22, 132) == 6  # 16 pairs in 3 waves
     with pytest.raises(ValueError, match="resident blocks"):
         sinkhorn.pairs_per_wave(1, 316, 132)
-    p = sinkhorn_stream.plan(7, 4097, 4097, 132)
-    assert p == (11, 18, 228, 7, 4 * (11 * 4104 + 3 * 4104 + 11))
-    assert p.smem <= sinkhorn.SMEM_PER_BLOCK
+    assert sinkhorn.column_layout(4097, 256) == (4, 1)  # 16 columns a thread + the dustbin
+    assert sinkhorn.column_layout(1025, 256) == (1, 1)
+    assert sinkhorn.column_layout(3000, 256) == (3, 0)  # 952 left over: a masked chunk
+    assert sinkhorn.column_layout(45, 256) == (1, 0)
+    # K7: 3 stages of 4 fp32 rows (8 bf16), 64 KB each, 18 blocks of 228 rows a pair.
+    stage = 4 * 4104 * 4
+    for esize, stage_rows in ((4, 4), (2, 8)):
+        p = sinkhorn_stream.plan(7, 4097, 4097, 132, esize)
+        assert p == (stage_rows, 3, 18, 228, 7, 3 * (stage + 16) + 1024 + 8 * 4097, 8, 4)
+        assert p.smem <= sinkhorn.SMEM_PER_BLOCK and p.stages >= sinkhorn_stream.MIN_STAGES
     assert sinkhorn_stream.plan(300, 33, 40, 132).pairs_per_wave == 132  # pairs in waves
+    assert sinkhorn_stream.plan(1, 9000, 8000, 132)[-2:] == (16, 4)
+    assert sinkhorn_stream.plan(1, 9000, 9000, 132)[-2:] == (16, 5)  # one row a step
+    # One group of 16 warps has no merge buffer: 3 stages of one fp32 row.
+    assert sinkhorn_stream.ring(14848) == (1, 3, 3 * (4 * 14848 + 16) + 1024)
+    with pytest.raises(ValueError, match="columns"):
+        sinkhorn_stream.plan(1, 9000, 14849, 132)
+    # Rows wider than K6's widest go to K7, even when few.
+    assert sinkhorn.fits_smem(100, 8704) and not sinkhorn.fits_smem(100, 8705)
+    with pytest.raises(ValueError, match="columns"):
+        sinkhorn.plan(100, 8705)
+
+
+@pytest.mark.parametrize("kernel,esize,widest", [
+    ("sinkhorn", 4, 8704), ("sinkhorn_stream", 4, 14848), ("sinkhorn_stream", 2, 14848)])
+def test_plans_take_only_compiled_variants(kernel, esize, widest):
+    """Every width up to the kernel's widest gets a plan whose (warps a
+    group, chunks a thread) is an instantiation the source compiles (its
+    VARIANTS list, which pick() expands), in shared memory, and every
+    instantiation serves some width; one more column raises."""
+    from onepose_tpu_torch.ops.kernels import _build
+
+    table = _build.variants(kernel)
+    assert "VARIANTS(CASE)" in (_build.CSRC / f"{kernel}.cu").read_text()
+    assert sinkhorn.max_columns(table) == widest
+    seen = set()
+    for n in range(1, widest + 1):
+        if kernel == "sinkhorn":
+            p = sinkhorn.plan(64, n)
+        else:
+            p = sinkhorn_stream.plan(2, 300, n, 132, esize)
+            assert p.stages >= sinkhorn_stream.MIN_STAGES
+        assert (p.warps_per_group, p.chunks) in table, n
+        assert p.smem <= sinkhorn.SMEM_PER_BLOCK, n
+        seen.add((p.warps_per_group, p.chunks))
+    assert seen == set(table)  # and no instantiation is dead
+    with pytest.raises(ValueError, match="columns"):
+        if kernel == "sinkhorn":
+            sinkhorn.plan(64, widest + 1)
+        else:
+            sinkhorn_stream.plan(2, 300, widest + 1, 132, esize)
 
 
 def test_stored_coupling_pads_rows_to_16_bytes():
