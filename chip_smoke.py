@@ -15,7 +15,10 @@ Phases, each printing its lines before the last:
      pair) and of the fused block (launched from Python and replayed as a
      CUDA graph; device ms per CUDA kernel from torch.profiler), and the
      Sinkhorn kernels at 1 and 100 iterations (fixed cost and us per
-     iteration; K7's sweep rate, in fp32 and with bf16 storage);
+     iteration; K7's sweep rate, in fp32 and with bf16 storage); NMS also
+     on plateau inputs and at radii 10 and 12 (its large-radius entry),
+     the dual-softmax head also with planted ties, through its masked
+     entry and at two shapes too wide for shared memory;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
@@ -23,7 +26,8 @@ Phases, each printing its lines before the last:
      random weights from a seed, in bf16 (the serving default: NMS, VGG
      stage, fused block and dual-softmax kernels) and in fp32 (NMS, GATs
      and dual-softmax kernels); shapes, finiteness, kernel launch counts
-     per path, agreement with the CPU plain path on a small input and
+     per path, no masked_fill over the match logits with the kernels on,
+     agreement with the CPU plain path on a small input and
      between the paths; per-stage times and launches, device busy share
      and frames/s of bf16 kernels on / off and fp32 kernels on / off;
   5. the pair matcher of `map` (make_superglue_pair_matcher, SuperGlue at
@@ -64,7 +68,9 @@ DEV = "cuda"
 # production shape (bench.py's serving configuration), the rest ragged.
 NMS_SHAPES = ((8, 512, 512), (3, 136, 200))  # [B, H, W]
 GATS_SHAPES = ((8, 2000, 8, 256, True), (3, 37, 5, 96, True), (2, 300, 8, 256, False))
-DUAL_SHAPES = ((8, 1000, 2000), (3, 45, 203))  # [B, M, N]
+# [B, M, N]; the last two rows are too wide for a band in shared memory
+# (every sweep reads device memory), with N % 4 == 0 and not.
+DUAL_SHAPES = ((8, 1000, 2000), (3, 45, 203), (1, 160, 24000), (1, 200, 20001))
 # [B, H, W, Cin, C1, C2, pool]: the four stages of one encoder pass, then ragged ones
 # (the last with input channels padded to 128 and C1 != C2).
 VGG_SHAPES = (
@@ -99,6 +105,7 @@ SINKHORN_SHAPES = ((16, 1025, 1025), (3, 301, 257), (2, 1201, 1201), (2, 301, 24
 STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049), (2, 700, 4401), (1, 1000, 9001),
                  (1, 1500, 13001))
 SINKHORN_ITERS = 100
+STREAM_DRAWS = 6  # more draws of K7's production inputs, checked but not timed
 SINKHORN_ABS = 1e-3
 # exp on the special-function units: 16 per clock per SM, 132 SMs, 1.98 GHz.
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -180,8 +187,10 @@ def phase_build():
     return smi
 
 
-def _nms_input(torch, g, b, h, w):
+def _nms_input(torch, g, b, h, w, plateau=False):
     s = torch.rand((b, h, w), generator=g, device=DEV) ** 4
+    if plateau:  # quantised scores: many exact ties
+        s = torch.floor(s * 8) / 8
     s[:, 5:8, 5:8] = 0.7
     s[:, 0, 0] = 2.0
     s[:, h - 1, w // 2] = 2.0
@@ -190,7 +199,7 @@ def _nms_input(torch, g, b, h, w):
     return s.contiguous()
 
 
-def _dual_input(torch, g, b, m, n, c=256):
+def _dual_descriptors(torch, g, b, m, n, c=256):
     def unit(x):
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
@@ -198,11 +207,29 @@ def _dual_input(torch, g, b, m, n, c=256):
     pick = torch.randperm(n, generator=g, device=DEV)[:m]
     noise = torch.randn((b, m, c), generator=g, device=DEV) * (0.3 / c**0.5)
     d2 = unit(d3[:, pick] + noise)  # each row's true column stands out
-    s = torch.einsum("bmc,bnc->bmn", d2, d3) / 0.07
     m2 = torch.rand((b, m), generator=g, device=DEV) < 0.9
     m3 = torch.rand((b, n), generator=g, device=DEV) < 0.9
+    return d2, d3, m2, m3
+
+
+def _dual_input(torch, g, b, m, n, ties=False):
+    """Masked logits; with ties, duplicated columns and rows planted so that
+    rows and columns have exact ties at their max."""
+    d2, d3, m2, m3 = _dual_descriptors(torch, g, b, m, n)
+    s = torch.einsum("bmc,bnc->bmn", d2, d3) / 0.07
+    if ties:
+        s[:, :, n - 1] = s[:, :, 3]  # duplicated columns: every row ties there
+        s[:, :, n // 2] = s[:, :, 3]
+        s[:, m - 1] = s[:, 5]  # a duplicated row: its columns tie
+        s[:, 7, [3, n // 2, n - 1]] = 40.0
+        m2[:, [5, 7, m - 1]] = True
+        m3[:, [3, n // 2, n - 1]] = True
     s = s.masked_fill(~m2[:, :, None], NEG_INF).masked_fill(~m3[:, None, :], NEG_INF)
     return s.contiguous()
+
+
+def _sms(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_kernels(torch, timer):
@@ -211,24 +238,32 @@ def phase_kernels(torch, timer):
     g = torch.Generator(device=DEV).manual_seed(0)
     rows = {}
 
-    # K1 NMS: bit-exact; the ragged shape at every radius class as well
-    # (the kernel is compiled once per radius).
+    # K1 NMS: bit-exact, on smooth and plateau (quantised) inputs; the fused
+    # entry at radii 0 .. 9 (compiled once per radius), the large-radius
+    # entry at 10 and 12.
     for i, shape in enumerate(NMS_SHAPES):
         prod = i == 0
-        s = _nms_input(torch, g, *shape)
-        for radius in (4,) if prod else (0, 1, 4, 9):
-            out, ref = score_path.nms(s, radius), score_path.simple_nms(s, radius)
-            torch.cuda.synchronize()
-            n_bad = int((out != ref).sum())
-            n_max = int((out > 0).sum())
-            log(f"[kernels] nms {shape} radius {radius}: {n_bad} differing pixels (bit-exact "
-                f"required), {n_max} maxima kept")
-            if n_bad or n_max == 0:
-                fail("nms kernel differs from simple_nms")
+        smooth = _nms_input(torch, g, *shape)
+        for s, plateau in ((smooth, False), (_nms_input(torch, g, *shape, plateau=True), True)):
+            for radius in (4, 10, 12) if prod else (0, 1, 4, 9, 10, 12):
+                out, ref = score_path.nms(s, radius), score_path.simple_nms(s, radius)
+                torch.cuda.synchronize()
+                n_bad = int((out != ref).sum())
+                n_max = int((out > 0).sum())
+                entry = "fused" if radius <= score_path.FUSED_MAX_RADIUS else "large-radius"
+                log(f"[kernels] nms {shape} radius {radius} ({entry} entry, "
+                    f"{'plateau' if plateau else 'smooth'} input): {n_bad} differing pixels "
+                    f"(bit-exact required), {n_max} maxima kept")
+                if n_bad or n_max == 0:
+                    fail("nms kernel differs from simple_nms")
         if prod:
-            err = float((out - ref).abs().max())
+            s = smooth
+            err = float((score_path.nms(s, 4) - score_path.simple_nms(s, 4)).abs().max())
             ms = timer(lambda: score_path.nms(s, 4))
             plain = timer(lambda: score_path.simple_nms(s, 4), reps=5)
+            large = timer(lambda: score_path.nms(s, 12), reps=5)
+            log(f"[kernels] nms {shape}: radius 12 (large-radius entry, 5 CUDA launches) "
+                f"{large:.4f} ms")
             rows["nms"] = dict(
                 name="nms", route="cuda", source="onepose_tpu_torch/csrc/score_path.cu",
                 replaces="onepose_tpu/ops/pallas/score_path.py:94", max_abs_err=err,
@@ -268,13 +303,10 @@ def phase_kernels(torch, timer):
             rows["gats"]["bound_ms"], rows["gats"]["bound_by"] = bound(
                 n_bytes, 4 * b * n3 * (L + 1) * c)
 
-    # K3 dual-softmax: identical matches, scores <= 1e-6 relative.
-    for i, shape in enumerate(DUAL_SHAPES):
-        prod = i == 0
-        s = _dual_input(torch, g, *shape)
-        out = dual_softmax.dual_softmax_match(s, 0.2)
-        ref = dual_softmax.dual_softmax_match_plain(s, 0.2)
-        torch.cuda.synchronize()
+    # K3 dual-softmax: identical matches, scores <= 1e-6 relative; at the
+    # production and ragged shapes, with planted exact ties, and through the
+    # masked entry (the kernel reads the masks) at the production shape.
+    def dual_check(label, out, ref):
         bad = int((out["matches0"] != ref["matches0"]).sum()
                   + (out["matches1"] != ref["matches1"]).sum())
         rel = max(
@@ -284,14 +316,55 @@ def phase_kernels(torch, timer):
         err = max(float((out[k] - ref[k]).abs().max())
                   for k in ("matching_scores0", "matching_scores1"))
         n_hits = int((out["matches0"] >= 0).sum())
-        log(f"[kernels] dual_softmax {shape}: {bad} match mismatches (0 required), {n_hits} "
+        log(f"[kernels] dual_softmax {label}: {bad} match mismatches (0 required), {n_hits} "
             f"matches, scores max rel err {rel:.3e} (<= 1e-6)")
         if bad or not rel <= 1e-6 or n_hits == 0:
             fail("dual_softmax kernel differs from its plain version")
-        if prod:
+        return err
+
+    for i, shape in enumerate(DUAL_SHAPES):
+        s = _dual_input(torch, g, *shape)
+        out = dual_softmax.dual_softmax_match(s, 0.2)
+        ref = dual_softmax.dual_softmax_match_plain(s, 0.2)
+        torch.cuda.synchronize()
+        err = dual_check(f"{shape} plan {tuple(dual_softmax.plan(*shape, _sms(torch)))}", out, ref)
+        ref_s = ref
+        st = _dual_input(torch, g, *shape, ties=True)
+        for thr in (0.2, 0.0):
+            out = dual_softmax.dual_softmax_match(st, thr)
+            ref = dual_softmax.dual_softmax_match_plain(st, thr)
+            torch.cuda.synchronize()
+            dual_check(f"{shape} planted ties, threshold {thr}", out, ref)
+        if i == 0:
             b, m, n = shape
+            d2, d3, m2, m3 = _dual_descriptors(torch, g, b, m, n)
+            raw = (torch.einsum("bmc,bnc->bmn", d2, d3) / 0.07).contiguous()
+            out = dual_softmax.dual_softmax_match(raw, 0.2, m2, m3)
+            ref = dual_softmax.dual_softmax_match_plain(raw, 0.2, m2, m3)
+            torch.cuda.synchronize()
+            dual_check(f"{shape} masked entry", out, ref)
             ms = timer(lambda: dual_softmax.dual_softmax_match(s, 0.2))
             plain = timer(lambda: dual_softmax.dual_softmax_match_plain(s, 0.2), reps=5)
+            # Every resident plan of the shape, each held to the plain
+            # version and timed in both orders, beside the planner's cost.
+            plans = dual_softmax.resident_plans(b, m, n, _sms(torch))
+            times = {q: [] for q in plans}
+            for q in plans + plans[::-1]:
+                times[q].append(timer(lambda q=q: dual_softmax.dual_softmax_kernel(s, 0.2, p=q)))
+            for q in plans:
+                dual_check(f"{shape} plan {tuple(q)}",
+                           dual_softmax.dual_softmax_kernel(s, 0.2, p=q), ref_s)
+            log(f"[kernels] dual_softmax {shape} plans (rows, bands, groups): " + "; ".join(
+                f"{q[:3]} cost {dual_softmax.plan_cost(q, b)} {t[0]:.4f} / {t[1]:.4f} ms"
+                for q, t in times.items()) + f"; chosen {dual_softmax.plan(b, m, n, _sms(torch))[:3]}")
+            masked_ms = timer(lambda: dual_softmax.dual_softmax_match(raw, 0.2, m2, m3))
+            fill_ms = timer(lambda: dual_softmax.apply_masks(raw, m2, m3))
+            per_call = _kernel_breakdown(torch, lambda: dual_softmax.dual_softmax_match(
+                raw, 0.2, m2, m3))
+            log(f"[kernels] dual_softmax {shape}: masked entry {masked_ms:.4f} ms against "
+                f"{fill_ms:.4f} ms for the two masked_fill passes it replaces; CUDA launches "
+                f"per call {sum(n for n, _ in per_call.values())}: " + ", ".join(
+                    f"{k[:60]} x{n} {t:.4f} ms" for k, (n, t) in per_call.items()))
             rows["dual_softmax"] = dict(
                 name="dual_softmax_match", route="cuda",
                 source="onepose_tpu_torch/csrc/dual_softmax.cu",
@@ -569,29 +642,63 @@ def _sinkhorn_input(torch, g, b, m, n):
     return c, mu, nu, norm, m0, m1
 
 
+def _near_tie_mismatches(torch, zk, zp, m0, m1, err):
+    """The rows whose matches differ between the kernel's (zk) and the plain
+    (zp) log-assignment, with their plain leads and the largest lead an
+    error of err in the potentials can overturn. A row's lead is the least
+    of: its best minus its runner-up, and the same in the columns of both
+    argmaxes (mutuality turns on those). A comparison inside a row moves by
+    two errors of v, inside a column by two of u, and each value compared
+    carries one fp32 rounding: tolerance 2 err + 2 ulps of the largest |z|.
+    Returns (number of rows, their leads, tolerance)."""
+    from onepose_tpu_torch.models.superglue import extract_matches
+
+    mk, mp = (extract_matches(z, MATCH_THRESHOLD, m0, m1)["matches0"] for z in (zk, zp))
+    bad = (mk != mp).nonzero().tolist()
+    if not bad:
+        return 0, [], 0.0
+    inner_p, inner_k = zp[:, :-1, :-1], zk[:, :-1, :-1]
+    top_r = inner_p.topk(2, dim=2).values
+    top_c = inner_p.topk(2, dim=1).values
+    lead_r, lead_c = top_r[..., 0] - top_r[..., 1], top_c[:, 0] - top_c[:, 1]
+    idx_p, idx_k = inner_p.argmax(dim=2), inner_k.argmax(dim=2)
+    leads = [min(float(lead_r[b, i]), float(lead_c[b, idx_p[b, i]]),
+                 float(lead_c[b, idx_k[b, i]])) for b, i in bad]
+    valid = m0[:, :, None] & m1[:, None, :]
+    ulp = torch.finfo(torch.float32).eps * float(inner_p[valid].abs().max())
+    return len(bad), leads, 2 * err + 2 * ulp
+
+
 def _kernels_sinkhorn(torch, timer, g):
     """K6 and K7 against the plain scan, 100 iterations: u and v within
     SINKHORN_ABS on the slots that carry mass (masked slots hold NEG_INF
     sentinels whose value depends on summation order: an fp32 ulp at 1e9 is
-    64), and the matches extracted from the log-assignment identical. The
-    kernels sum the exponentials in another order than torch.logsumexp;
-    100 contracting iterations keep the difference near the fp32 rounding
-    of potentials of size 10 to 20. Matches at MATCH_THRESHOLD: at 4096
-    keypoints a planted pair's assignment stays below 0.2 (thousands of
-    competitors at scale 8). K7 also with bf16 storage (the plain
-    version rounds the coupling the same way). Bounds count the
-    exponentials at EXP_PER_S (2 per coupling entry per iteration) and
-    each input byte once."""
+    64), and the matches extracted from the log-assignment identical but on
+    near ties (`_near_tie_mismatches`: a row may differ only where the plain
+    lead is within what the measured error can overturn; the leads are
+    printed). The kernels sum the exponentials in another order than
+    torch.logsumexp; 100 contracting iterations keep the difference near
+    the fp32 rounding of potentials of size 10 to 20. Matches at
+    MATCH_THRESHOLD: at 4096 keypoints a planted pair's assignment stays
+    below 0.2 (thousands of competitors at scale 8). K7 also with bf16
+    storage (the plain version rounds the coupling the same way), and in
+    fp32 at its production shape on STREAM_DRAWS more draws (a generator
+    each), where near ties turn up. Bounds count the exponentials at EXP_PER_S (2 per coupling entry
+    per iteration) and each input byte once."""
     from onepose_tpu_torch.models.superglue import extract_matches
     from onepose_tpu_torch.ops.kernels import sinkhorn, sinkhorn_stream
 
     plain = sinkhorn.sinkhorn_potentials_plain
-    runs = [("sinkhorn", shape, None) for shape in SINKHORN_SHAPES]
-    runs += [("sinkhorn_stream", shape, dt) for shape in STREAM_SHAPES
+    runs = [("sinkhorn", shape, None, g, "") for shape in SINKHORN_SHAPES]
+    runs += [("sinkhorn_stream", shape, dt, g, "") for shape in STREAM_SHAPES
              for dt in (None, torch.bfloat16)]
+    for k in range(STREAM_DRAWS, 0, -1):
+        gen = torch.Generator(device=DEV).manual_seed(6 + k)
+        runs.insert(len(SINKHORN_SHAPES) + 1,
+                    ("sinkhorn_stream", STREAM_SHAPES[0], None, gen, f" (draw {k + 1})"))
     rows = {}
-    for i, (name, shape, cdt) in enumerate(runs):
-        c, mu, nu, norm, m0, m1 = _sinkhorn_input(torch, g, *shape)
+    for name, shape, cdt, gen, draw in runs:
+        c, mu, nu, norm, m0, m1 = _sinkhorn_input(torch, gen, *shape)
 
         def call(iters, name=name, c=c, mu=mu, nu=nu, cdt=cdt):
             if name == "sinkhorn":
@@ -605,16 +712,25 @@ def _kernels_sinkhorn(torch, timer, g):
         ones = torch.ones((shape[0], 1), dtype=torch.bool, device=DEV)
         vm0, vm1 = torch.cat([m0, ones], 1), torch.cat([m1, ones], 1)
         err = max(float((u - ur).abs()[vm0].max()), float((v - vr).abs()[vm1].max()))
-        zs = [c + a[:, :, None] + b[:, None, :] - norm[:, None, None]
-              for a, b in ((u, v), (ur, vr))]
-        mk, mp = (extract_matches(z, MATCH_THRESHOLD, m0, m1)["matches0"] for z in zs)
-        bad, hits = int((mk != mp).sum()), int((mp >= 0).sum())
+        zk, zp = (c + a[:, :, None] + b[:, None, :] - norm[:, None, None]
+                  for a, b in ((u, v), (ur, vr)))
+        hits = int((extract_matches(zp, MATCH_THRESHOLD, m0, m1)["matches0"] >= 0).sum())
+        bad, leads, tol = _near_tie_mismatches(torch, zk, zp, m0, m1, err)
+        ties = all(lead <= tol for lead in leads)
         finite = bool(torch.isfinite(u).all() and torch.isfinite(v).all())
         store = "bf16" if cdt is not None else "fp32"
-        log(f"[kernels] {name} {shape} {store} x {SINKHORN_ITERS}: max abs err on valid slots "
-            f"{err:.3e} (<= {SINKHORN_ABS}), {bad} match mismatches (0 required), {hits} matches")
-        if not (err <= SINKHORN_ABS and bad == 0 and hits > 0 and finite):
+        line = (f"[kernels] {name} {shape} {store}{draw} x {SINKHORN_ITERS}: max abs err on "
+                f"valid slots {err:.3e} (<= {SINKHORN_ABS}), {bad} match mismatches (only on "
+                f"near ties), {hits} matches")
+        if bad:
+            line += (f"; plain leads of the mismatched rows "
+                     f"{', '.join(f'{x:.3e}' for x in leads)} against {tol:.3e} "
+                     f"(2 x err + 2 ulps): {'all near ties' if ties else 'NOT all near ties'}")
+        log(line)
+        if not (err <= SINKHORN_ABS and ties and hits > 0 and finite):
             fail(f"the {name} kernel differs from its plain version")
+        if draw:
+            continue
         prod = shape == (SINKHORN_SHAPES if name == "sinkhorn" else STREAM_SHAPES)[0]
         if not prod:
             log(f"[kernels] {name} {shape} {store}: kernel {timer(kern, reps=3):.4f} ms at "
@@ -872,6 +988,29 @@ def phase_main(torch, rows):
         for key in keys.get(label, ()):
             if key in rows:
                 rows[key]["launches"] = counts[key]
+
+    # The fused head reads the masks itself: no masked_fill over the
+    # [B, keypoints, points] logits in a kernels-on call (the off paths keep
+    # the two).
+    orig_fill, fills = torch.Tensor.masked_fill, []
+
+    def counting_fill(x, *a, **k):
+        if tuple(x.shape) == (B, KP, MAIN["points"]):
+            fills.append(1)
+        return orig_fill(x, *a, **k)
+
+    for label in labels:
+        fills.clear()
+        torch.Tensor.masked_fill = counting_fill
+        try:
+            pipes[label](imgs, K, anno, draws=draws)
+        finally:
+            torch.Tensor.masked_fill = orig_fill
+        want_fills = 0 if label.endswith(" on") else 2
+        log(f"[main] {label}: {len(fills)} masked_fill passes over the match logits "
+            f"(want {want_fills})")
+        if len(fills) != want_fills:
+            fail(f"the {label} matcher head ran {len(fills)} masked_fill passes")
 
     shapes = {"pose": (B, 4, 4), "keypoints": (B, KP, 2), "descriptors": (B, KP, 256),
               "matches0": (B, KP), "inliers": (B, KP), "num_inliers": (B,)}

@@ -22,7 +22,8 @@ Kernel flags (names as in the JAX package's counterparts):
   bf16 leaves go to the kernels as they are;
 - mixed_attention: with bf16, the linear-attention contractions take bf16
   operands with fp32 sums (unfused blocks only);
-- fused_match: the dual-softmax CUDA kernel (`ops.kernels.dual_softmax`).
+- fused_match: the dual-softmax CUDA kernel (`ops.kernels.dual_softmax`),
+  which reads the masks itself (no masked_fill pass over the logits).
   conf_matrix is then None (inference only) and ties follow the kernel:
   the largest index wins and matching scores are non-zero only for hits.
   With fused_match=False the head follows `match_from_conf` (first index).
@@ -38,15 +39,19 @@ import torch
 from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
-from onepose_tpu_torch.models.common import NEG_INF, AttentionalPropagation, Dense
+from onepose_tpu_torch.models.common import AttentionalPropagation, Dense
 from onepose_tpu_torch.models.gats import GraphAttentionLayer
 from onepose_tpu_torch.ops.kernels._layout import PackCache
-from onepose_tpu_torch.ops.kernels.dual_softmax import dual_softmax_match
+from onepose_tpu_torch.ops.kernels.dual_softmax import apply_masks, dual_softmax_match
 from onepose_tpu_torch.ops.kernels.gats_block import (
     fused_gats_block,
     kernel_weights,
     pack_block_params,
 )
+
+
+def _contiguous(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if mask is None else mask.contiguous()
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -155,13 +160,11 @@ class GATsSPG(nn.Module):
         m2 = _l2_normalize(self.final_proj(x2).float())
         m3 = _l2_normalize(self.final_proj(x3).float())
         scores = torch.einsum("bnc,bmc->bnm", m2, m3) / self.scale_factor
-        if mask2d is not None:
-            scores = scores.masked_fill(~mask2d[:, :, None], NEG_INF)
-        if mask3d is not None:
-            scores = scores.masked_fill(~mask3d[:, None, :], NEG_INF)
 
         if self.fused_match:
-            out = dual_softmax_match(scores.contiguous(), self.match_threshold)
+            # The kernel reads the masks itself: a masked slot loads as NEG_INF.
+            out = dual_softmax_match(scores.contiguous(), self.match_threshold,
+                                     _contiguous(mask2d), _contiguous(mask3d))
             if mask2d is not None:
                 out["matches0"] = torch.where(mask2d, out["matches0"], -1)
             if mask3d is not None:
@@ -169,6 +172,7 @@ class GATsSPG(nn.Module):
             out["conf_matrix"] = None
             return out
 
+        scores = apply_masks(scores, mask2d, mask3d)
         conf = torch.softmax(scores, dim=1) * torch.softmax(scores, dim=2)
         out = match_from_conf(conf, self.match_threshold, mask2d=mask2d, mask3d=mask3d)
         out["conf_matrix"] = conf

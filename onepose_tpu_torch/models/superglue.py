@@ -21,9 +21,14 @@ Sinkhorn routing (`log_sinkhorn`): sinkhorn_kernel False runs the plain
 scan on any device; None (the default) or True runs the resident kernel
 (`ops.kernels.sinkhorn`, K6) when the coupling fits the card's shared
 memory (`fits_smem`) and the streamed kernel (`ops.kernels.sinkhorn_stream`,
-K7) above it, with a bf16-stored coupling when `stream_bf16` is set. Each
-wrapper runs its plain version for CPU tensors. (The JAX package falls back
-to its scan above the TPU's VMEM budget unless asked for the stream.)
+K7) above it, with a bf16-stored coupling when `stream_bf16` is set, on
+the device's own SM count. Rows wider than K7's widest instantiation
+(`sinkhorn.max_columns`) take the plain scan on any device when neither a
+kernel (sinkhorn_kernel True) nor bf16 storage was asked for, as the JAX
+package takes its scan above its guard only in its default mode; asked
+for, they go to K7, which raises at that width on the card (the JAX
+package runs its streamed kernel there). Each wrapper runs its plain
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
 from onepose_tpu_torch.models.common import NEG_INF, AttentionalPropagation, Dense, PointMLP
-from onepose_tpu_torch.ops.kernels import sinkhorn, sinkhorn_stream
+from onepose_tpu_torch.ops.kernels import _build, sinkhorn, sinkhorn_stream
 
 
 def normalize_keypoints(kpts: torch.Tensor, image_hw) -> torch.Tensor:
@@ -100,9 +105,14 @@ def log_sinkhorn(
     """Masked log-space Sinkhorn with a dustbin row and column, in fp32:
     scores [B, M, N] -> the [B, M+1, N+1] log-assignment scaled by (m + n)."""
     couplings, log_mu, log_nu, norm = sinkhorn_problem(scores, bin_score, mask0, mask1)
-    if kernel is False:
+    m, n = couplings.shape[1:]
+    # Rows wider than K7's widest instantiation take the scan by default, as
+    # the JAX package's do above its guard; asked for a kernel (kernel True
+    # or stream_bf16), they go to K7, which raises there on the card.
+    too_wide = n > sinkhorn.max_columns(_build.variants("sinkhorn_stream"))
+    if kernel is False or (too_wide and kernel is None and not stream_bf16):
         u, v = sinkhorn.sinkhorn_potentials_plain(couplings, log_mu, log_nu, iters)
-    elif sinkhorn.fits_smem(*couplings.shape[1:]):
+    elif sinkhorn.fits_smem(m, n, sms=_build.device_sms(couplings.device)):
         u, v = sinkhorn.sinkhorn_potentials(couplings, log_mu, log_nu, iters)
     else:
         u, v = sinkhorn_stream.sinkhorn_potentials_streamed(

@@ -16,7 +16,10 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 
 `gats_block` counts one launch per call of its wrapper, which runs the
 block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
-each run all their iterations in one cooperative launch.
+each run all their iterations in one cooperative launch. `dual_softmax`
+counts one per call: a cooperative launch after a memset of its scratch.
+`score_path` counts one per call: one CUDA kernel up to radius 9, five
+above.
 """
 
 from __future__ import annotations

@@ -41,12 +41,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "score_path": {
         "nms_launch": ([_P, _P, _I, _I, _I, _I, _P], _I),
+        "nms_large_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     },
     "gats": {
         "gats_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
     },
     "dual_softmax": {
-        "dual_softmax_launch": ([_P, _I, _I, _I, _F] + [_P] * 10, _I),
+        "dual_softmax_launch": ([_P] * 3 + [_I] * 3 + [_F] + [_I] * 6 + [_P] * 11, _I),
     },
     "vgg_stage": {
         "vgg_stage_launch": ([_P] * 6 + [_I] * 7 + [_P], _I),
@@ -168,6 +169,19 @@ def resident_blocks(lib: ctypes.CDLL, fn: str, *args: int) -> int:
     if n < 0:
         check(lib, -n, fn)
     return n
+
+
+SMS = 132  # H100 SXM streaming multiprocessors: the plans' count for a CPU replay
+SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def device_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (what the kernels' plans
+    spread their blocks over); SMS for a CPU tensor, whose plans are only
+    replayed."""
+    if torch.device(device).type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

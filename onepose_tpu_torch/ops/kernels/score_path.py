@@ -1,12 +1,19 @@
-"""SuperPoint NMS: the CUDA kernel `csrc/score_path.cu` and its plain version.
+"""SuperPoint NMS: the CUDA kernels `csrc/score_path.cu` and their plain version.
 
 Replaces onepose_tpu/ops/pallas/score_path.py::simple_nms_pallas (public
 `nms`). Bound on the H100: bytes, one read and one write of the [B, H, W]
-map (8.4 MB each way at 8 x 512 x 512, about 5 us at 3.35 TB/s). The
-kernel runs all five window-max passes of an image tile in shared memory
-with a 5r halo, in one launch; see the source for the design.
+map (8.4 MB each way at 8 x 512 x 512, about 5 us at 3.35 TB/s).
 
-`nms` launches the kernel on a CUDA tensor and runs `simple_nms` only on a
+Two entries of one source, chosen by radius (a route by shape, as JAX's
+kernel widens its pad lanes for a large radius):
+- radius 0 .. FUSED_MAX_RADIUS: one launch; a block runs all five
+  window-max passes of a 64 x 64 tile in shared memory with its 5r halo,
+  by log-step window maxima and bit-packed masks;
+- any larger radius: the five passes one launch each through device
+  memory (`nms_large_launch`), with byte masks.
+See the source for both designs.
+
+`nms` launches a kernel on a CUDA tensor and runs `simple_nms` only on a
 CPU tensor. Forward-only: a CUDA input that requires grad raises.
 """
 
@@ -16,8 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from onepose_tpu_torch.ops.kernels import _build
+from onepose_tpu_torch.ops.kernels._build import SMEM_PER_BLOCK
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_launches)
+FUSED_MAX_RADIUS = 9  # the 64 x 64 tile and its 5r halo fit shared memory up to here
+LARGE_TILE = 32  # output tile side of the large-radius passes
 
 
 def _max_pool(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -45,20 +55,37 @@ def simple_nms(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
     return torch.where(max_mask, scores, zeros)
 
 
+def large_smem(h: int, w: int, radius: int) -> int:
+    """Shared memory of a large-radius pass block: the row maxima of its 32
+    columns over its rows and r above and below, clipped to the image (a
+    radius wider than the image acts as one as wide as it)."""
+    r = min(radius, max(h, w))
+    return min(LARGE_TILE + 2 * r, h) * LARGE_TILE * 4
+
+
 def nms(scores: torch.Tensor, nms_radius: int = 4) -> torch.Tensor:
-    """simple_nms of [B, H, W] fp32 scores: the kernel on CUDA."""
+    """simple_nms of [B, H, W] fp32 scores: a kernel on CUDA."""
     if scores.device.type == "cpu":
         return simple_nms(scores, nms_radius)
     _build.require_cuda_input(scores, "nms scores", 3)
-    if not 0 <= nms_radius <= 9:  # the tile + 5r halo must fit shared memory
-        raise ValueError(f"nms kernel supports radius 0..9, got {nms_radius}")
+    if nms_radius < 0:
+        raise ValueError("nms_radius must be >= 0")
     b, h, w = scores.shape
     out = torch.empty_like(scores)
     lib = _build.load("score_path")
-    err = lib.nms_launch(
-        _build.ptr(scores), _build.ptr(out), b, h, w, nms_radius,
-        _build.stream(scores.device),
-    )
+    stream = _build.stream(scores.device)
+    P = _build.ptr
+    if nms_radius <= FUSED_MAX_RADIUS:
+        err = lib.nms_launch(P(scores), P(out), b, h, w, nms_radius, stream)
+    else:
+        smem = large_smem(h, w, nms_radius)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"nms: radius {nms_radius} over {h} rows needs {smem} bytes of "
+                             f"shared memory a block, more than {SMEM_PER_BLOCK}")
+        maxm = torch.empty((b, h, w), dtype=torch.uint8, device=scores.device)
+        supp = torch.empty_like(maxm)
+        err = lib.nms_large_launch(P(scores), P(out), P(maxm), P(supp), b, h, w, nms_radius,
+                                   smem, stream)
     _build.check(lib, err, "nms kernel")
     global launches
     launches += 1

@@ -42,10 +42,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from onepose_tpu_torch.ops.kernels import _build
+from onepose_tpu_torch.ops.kernels._build import SMEM_PER_BLOCK, SMS
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_launches)
-SMS = 132  # H100 SXM streaming multiprocessors
-SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on Hopper
 RED_BYTES = 1024  # the blocks' cross-warp exchange (sinkhorn.cuh kRedBytes)
 WARPS = 16  # warps of a block (both kernels)
 
@@ -194,7 +193,7 @@ def sinkhorn_kernel(
     check_inputs("sinkhorn", couplings, log_mu, log_nu)
     b, m, n = couplings.shape
     lib = _build.load("sinkhorn")
-    p = plan(m, n)
+    p = plan(m, n, sms=_build.device_sms(couplings.device))
     max_blocks = _build.resident_blocks(lib, "sinkhorn_max_blocks", p.warps_per_group, p.chunks,
                                         p.smem)
     ppw = pairs_per_wave(b, p.blocks_per_pair, max_blocks)

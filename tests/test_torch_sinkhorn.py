@@ -25,7 +25,7 @@ from onepose_tpu.ops.pallas.sinkhorn import sinkhorn_potentials as jax_resident
 from onepose_tpu.ops.pallas.sinkhorn_stream import sinkhorn_potentials_streamed as jax_streamed
 from onepose_tpu_torch.models import superglue
 from onepose_tpu_torch.models.superglue import extract_matches, log_sinkhorn
-from onepose_tpu_torch.ops.kernels import sinkhorn, sinkhorn_stream
+from onepose_tpu_torch.ops.kernels import _build, sinkhorn, sinkhorn_stream
 
 torch.set_num_threads(2)
 
@@ -431,28 +431,72 @@ def _spy(monkeypatch, module, name, calls):
     monkeypatch.setattr(module, name, spy)
 
 
-@pytest.mark.parametrize("fits,stream_bf16,want", [
-    (True, False, [("sinkhorn_potentials", None)]),
-    (False, False, [("sinkhorn_potentials_streamed", None)]),
-    (False, True, [("sinkhorn_potentials_streamed", torch.bfloat16)]),
+@pytest.mark.parametrize("fits,stream_bf16,kernel,want", [
+    (True, False, None, [("sinkhorn_potentials", None)]),
+    (False, False, None, [("sinkhorn_potentials_streamed", None)]),
+    (False, True, None, [("sinkhorn_potentials_streamed", torch.bfloat16)]),
+    ("too_wide", False, None, []),
+    ("too_wide", True, None, [("sinkhorn_potentials_streamed", torch.bfloat16)]),
+    ("too_wide", False, True, [("sinkhorn_potentials_streamed", None)]),
 ])
-def test_log_sinkhorn_routing(monkeypatch, fits, stream_bf16, want):
+def test_log_sinkhorn_routing(monkeypatch, fits, stream_bf16, kernel, want):
     """K6 when the coupling fits shared memory, else K7 (bf16 storage only
-    when asked); kernel=False takes neither."""
+    when asked); kernel=False takes neither. A coupling wider than K7's
+    widest instantiation (here 31 columns, the widest shrunk to 30) takes
+    the plain scan by default, as JAX's does above its guard in its auto
+    mode; asked for a kernel or for bf16 storage it goes to K7, as JAX's
+    goes to its streamed kernel (on the card K7 raises at that width)."""
     scores, m0, m1 = _sinkhorn_inputs(4, 1, 24, 30)
     args = (torch.from_numpy(scores), torch.tensor(0.5), torch.from_numpy(m0),
             torch.from_numpy(m1), 25)
     calls = []
     _spy(monkeypatch, sinkhorn, "sinkhorn_potentials", calls)
     _spy(monkeypatch, sinkhorn_stream, "sinkhorn_potentials_streamed", calls)
-    if not fits:
-        monkeypatch.setattr(sinkhorn, "fits_smem", lambda m, n: False)
-    z = log_sinkhorn(*args, stream_bf16=stream_bf16)
+    if fits is False:
+        monkeypatch.setattr(sinkhorn, "fits_smem", lambda m, n, sms: False)
+    if fits == "too_wide":
+        monkeypatch.setattr(sinkhorn, "max_columns", lambda table: 30)
+    z = log_sinkhorn(*args, kernel=kernel, stream_bf16=stream_bf16)
     assert calls == want
     z_plain = log_sinkhorn(*args, kernel=False, stream_bf16=stream_bf16)
     assert calls == want  # the plain scan called no wrapper
-    _close_on(_valid(m0, m1), z, z_plain, atol=1e-4 if not stream_bf16 else 2e-2)
+    _close_on(_valid(m0, m1), z, z_plain,
+              atol=1e-4 if not stream_bf16 else 2e-2)
     assert superglue.sinkhorn is sinkhorn  # log_sinkhorn routes through the module
+
+
+def test_streamed_kernel_still_raises_above_its_widest():
+    """Only log_sinkhorn routes a too-wide coupling to the scan: K7's plan
+    itself raises there."""
+    widest = sinkhorn.max_columns(_build.variants("sinkhorn_stream"))
+    assert widest == 14848
+    with pytest.raises(ValueError, match="more than the kernel's"):
+        sinkhorn_stream.layout(widest + 1)
+    with pytest.raises(ValueError, match="more than the kernel's"):
+        sinkhorn_stream.plan(1, 100, widest + 1, 132)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_routing_takes_the_devices_sm_count(monkeypatch, sms):
+    """log_sinkhorn passes the device's SM count to fits_smem (spied: the
+    count as _build.device_sms gives it); fits_smem and plan spread over
+    that many SMs. Square couplings of 2408 to 2627 keypoints (2409 to 2628
+    rows with the dustbin) fit 132 SMs but not 114, so they go to K7 on a
+    114-SM card instead of failing in K6."""
+    seen = []
+    orig = sinkhorn.fits_smem
+    monkeypatch.setattr(superglue._build, "device_sms", lambda dev: sms)
+    monkeypatch.setattr(sinkhorn, "fits_smem",
+                        lambda m, n, sms: seen.append(sms) or orig(m, n, sms=sms))
+    scores, m0, m1 = _sinkhorn_inputs(4, 1, 24, 30)
+    log_sinkhorn(torch.from_numpy(scores), torch.tensor(0.5), torch.from_numpy(m0),
+                 torch.from_numpy(m1), 5)
+    assert seen == [sms]
+    for n in (2409, 2500, 2628):
+        assert orig(n, n, sms=132)
+        assert orig(n, n, sms=sms) == (sms == 132)
+    assert orig(2408, 2408, sms=114) and not orig(2629, 2629, sms=132)
+    assert sinkhorn.plan(2408, 2408, sms=114).blocks_per_pair <= 114
 
 
 @pytest.mark.parametrize("kernel", [None, False])
