@@ -18,7 +18,8 @@ Phases, each printing its lines before the last:
      iteration; K7's sweep rate, in fp32 and with bf16 storage); NMS also
      on plateau inputs and at radii 10 and 12 (its large-radius entry),
      the dual-softmax head also with planted ties, through its masked
-     entry and at two shapes too wide for shared memory;
+     entry and at two shapes too wide for shared memory; K7's wide entry
+     (rows wider than 14848 columns) at 16385 and 20481 columns;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
@@ -36,8 +37,17 @@ Phases, each printing its lines before the last:
      keypoints in chunks of 7 (the streamed one, also with its coupling
      stored in bf16); launches per chunk, kernels on against off, stage
      times, device time and Sinkhorn's share, ms per chunk, pairs/s and
-     peak memory, kernels on and off;
-  6. one JSON line {"kernels": [...]}, then the last line
+     peak memory, kernels on and off; then SuperGlue's log_sinkhorn at
+     16384 keypoints asked for a kernel (K7's wide entry, once in fp32
+     and once with bf16 storage) against the plain scan;
+  6. map's SfM core (sfm.mapping.run_mapping) at the full width of
+     configs/map.yaml on a planted scene of 160 frames x 4096 slots with
+     the NN pair matcher on the card: global BA off, on with the cameras
+     fixed, on refining them; each against the scene's oracle, with host
+     ms per stage, the device stages' launches and device ms, peak memory
+     and seconds; the full-width triangulation and a reduced scene's
+     run_mapping on the card against the CPU;
+  7. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -57,7 +67,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "ransac", "main", "pairs")
+PHASES = ("build", "kernels", "ransac", "main", "pairs", "map")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -104,6 +114,9 @@ MATCH_THRESHOLD = 0.0
 SINKHORN_SHAPES = ((16, 1025, 1025), (3, 301, 257), (2, 1201, 1201), (2, 301, 2401))
 STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049), (2, 700, 4401), (1, 1000, 9001),
                  (1, 1500, 13001))
+# K7's wide entry (rows wider than its widest instantiation, 14848
+# columns), taken on an explicit kernel request: 16384 and 20480 keypoints.
+WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481))
 SINKHORN_ITERS = 100
 STREAM_DRAWS = 6  # more draws of K7's production inputs, checked but not timed
 SINKHORN_ABS = 1e-3
@@ -118,6 +131,24 @@ PAIRS = (dict(label="a", frames=24, keypoints=1024, pairs=32, pair_chunk=16, chu
          dict(label="b", frames=12, keypoints=4096, pairs=14, pair_chunk=16, chunk=7,
               kernel="sinkhorn_stream"))
 PAIR_HW = (480, 640)
+# Phase map: run_mapping at the full width of configs/map.yaml (4096
+# keypoint slots, 256-d descriptors, num_covis 10, max_points3d 2500,
+# num_leaf 8) on a planted scene of 160 frames (one scan of about 800
+# frames at the reference's down_ratio 5) on two camera rings, with the
+# NN pair matcher on the card; and a reduced scene for the card against
+# the CPU.
+MAP = dict(frames=160, slots=4096, desc=256, points=12000, planted=3072, noise=0.5, img=512,
+           pair_chunk=16)
+MAP_SMALL = dict(frames=24, slots=1024, desc=256, points=3000, planted=768, noise=0.5, img=512)
+MAP_CONFIG = dict(num_covis=10, max_points3d=2500, num_leaf=8)
+# 0.5 px of noise at 500 px focal length and about 1 m is 1 mm a view,
+# averaged over the track's views: the median point lands well inside
+# 1 mm of its planted point and no point beyond 5 mm (the JAX test's
+# bound, tests/test_sfm.py:245).
+MAP_ORACLE = dict(median_m=1e-3, max_m=5e-3, min_points=2000)
+# Card against CPU: fp32 eigenvectors, solves and sums in another order;
+# the map's coordinates are tenths of a metre.
+MAP_CARD_CPU_ABS = 1e-4
 PAIR_RUNS = 2  # timed match_pairs calls per setting, in turns (on, off, off, on)
 
 
@@ -620,24 +651,31 @@ def _kernels_block(torch, timer, g):
     return row
 
 
-def _sinkhorn_input(torch, g, b, m, n):
-    """The transport problem of log_sinkhorn for a planted assignment (after
-    the JAX test's, test_pallas_kernels.py:506-513): scores of unit
-    descriptors and copies of them with noise of norm 0.2, at scale 8, 10%
-    of the keypoints masked, a dustbin score of 1. Returns (couplings
-    [b, m, n], log_mu, log_nu, norm, mask0, mask1)."""
-    from onepose_tpu_torch.models.superglue import sinkhorn_problem
+def _planted_scores(torch, g, b, k0, k1):
+    """Scores [b, k0, k1] of a planted assignment (after the JAX test's,
+    test_pallas_kernels.py:506-513): unit descriptors and copies of them
+    with noise of norm 0.2, at scale 8; masks with 10% of the keypoints
+    out."""
 
     def unit(x):
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
-    k0, k1 = m - 1, n - 1
     d1 = unit(torch.randn((b, k1, 64), generator=g, device=DEV))
     pick = torch.randint(0, k1, (k0,), generator=g, device=DEV)
     d0 = unit(d1[:, pick] + 0.2 / 8 * torch.randn((b, k0, 64), generator=g, device=DEV))
     scores = torch.einsum("bmc,bnc->bmn", d0, d1) * 8.0
     m0 = torch.rand((b, k0), generator=g, device=DEV) >= 0.1
     m1 = torch.rand((b, k1), generator=g, device=DEV) >= 0.1
+    return scores, m0, m1
+
+
+def _sinkhorn_input(torch, g, b, m, n):
+    """The transport problem of log_sinkhorn for `_planted_scores` with a
+    dustbin score of 1. Returns (couplings [b, m, n], log_mu, log_nu, norm,
+    mask0, mask1)."""
+    from onepose_tpu_torch.models.superglue import sinkhorn_problem
+
+    scores, m0, m1 = _planted_scores(torch, g, b, m - 1, n - 1)
     c, mu, nu, norm = sinkhorn_problem(scores, torch.tensor(1.0, device=DEV), m0, m1)
     return c, mu, nu, norm, m0, m1
 
@@ -686,11 +724,13 @@ def _kernels_sinkhorn(torch, timer, g):
     each), where near ties turn up. Bounds count the exponentials at EXP_PER_S (2 per coupling entry
     per iteration) and each input byte once."""
     from onepose_tpu_torch.models.superglue import extract_matches
-    from onepose_tpu_torch.ops.kernels import sinkhorn, sinkhorn_stream
+    from onepose_tpu_torch.ops.kernels import launch_counts, sinkhorn, sinkhorn_stream
 
     plain = sinkhorn.sinkhorn_potentials_plain
     runs = [("sinkhorn", shape, None, g, "") for shape in SINKHORN_SHAPES]
     runs += [("sinkhorn_stream", shape, dt, g, "") for shape in STREAM_SHAPES
+             for dt in (None, torch.bfloat16)]
+    runs += [("sinkhorn_stream_wide", shape, dt, g, "") for shape in WIDE_SHAPES
              for dt in (None, torch.bfloat16)]
     for k in range(STREAM_DRAWS, 0, -1):
         gen = torch.Generator(device=DEV).manual_seed(6 + k)
@@ -707,8 +747,12 @@ def _kernels_sinkhorn(torch, timer, g):
 
         kern = lambda: call(SINKHORN_ITERS)  # noqa: E731
         ref = lambda: plain(c, mu, nu, SINKHORN_ITERS, coupling_dtype=cdt)  # noqa: E731
+        before = launch_counts()
         (u, v), (ur, vr) = kern(), ref()
         torch.cuda.synchronize()
+        moved = [k for k, x in launch_counts().items() if x != before[k]]
+        if moved != [name]:
+            fail(f"{name} {shape}: the call launched {moved}, not {name}")
         ones = torch.ones((shape[0], 1), dtype=torch.bool, device=DEV)
         vm0, vm1 = torch.cat([m0, ones], 1), torch.cat([m1, ones], 1)
         err = max(float((u - ur).abs()[vm0].max()), float((v - vr).abs()[vm1].max()))
@@ -731,7 +775,8 @@ def _kernels_sinkhorn(torch, timer, g):
             fail(f"the {name} kernel differs from its plain version")
         if draw:
             continue
-        prod = shape == (SINKHORN_SHAPES if name == "sinkhorn" else STREAM_SHAPES)[0]
+        prod = shape == {"sinkhorn": SINKHORN_SHAPES, "sinkhorn_stream": STREAM_SHAPES,
+                         "sinkhorn_stream_wide": WIDE_SHAPES}[name][0]
         if not prod:
             log(f"[kernels] {name} {shape} {store}: kernel {timer(kern, reps=3):.4f} ms at "
                 f"iters={SINKHORN_ITERS}")
@@ -741,24 +786,29 @@ def _kernels_sinkhorn(torch, timer, g):
         ms = timer(kern, reps=10)
         plain_ms = timer(ref, reps=3, warmup=1)
         per_iter = (ms - one) / (SINKHORN_ITERS - 1)
-        key = name if cdt is None else "sinkhorn_stream_bf16"
-        k = "K6" if name == "sinkhorn" else "K7"
+        key = name if cdt is None else f"{name}_bf16"
+        k = {"sinkhorn": "K6", "sinkhorn_stream": "K7"}.get(name, "K7 wide entry")
         line = (f"[kernels] {key} ({k}) {shape} {store}: kernel {ms:.4f} ms at iters="
                 f"{SINKHORN_ITERS}, {one:.4f} ms at iters=1: {per_iter * 1e3:.2f} us per "
                 f"iteration, {one - per_iter:.4f} ms fixed; plain {plain_ms:.4f} ms")
-        if name == "sinkhorn_stream":
+        if name != "sinkhorn":
+            # The design's floor: one sweep of the stored coupling per
+            # iteration (two for the wide entry, whose second pass may
+            # miss L2).
+            sweeps = 2 if name == "sinkhorn_stream_wide" else 1
             sweep = b * m * sinkhorn_stream.row_pitch(n) * (2 if cdt is not None else 4)
             line += (f"; sweeps of {sweep / 1e6:.1f} MB at {sweep / per_iter / 1e9:.3f} TB/s per "
-                     f"iteration, {sweep * SINKHORN_ITERS / ms / 1e9:.3f} TB/s over the call; one "
-                     f"sweep per iteration at {HBM_BYTES_PER_S / 1e12:.2f} TB/s would take "
-                     f"{sweep * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3:.3f} ms")
+                     f"iteration, {sweep * SINKHORN_ITERS / ms / 1e9:.3f} TB/s over the call; "
+                     f"{sweeps} sweep(s) per iteration at {HBM_BYTES_PER_S / 1e12:.2f} TB/s would "
+                     f"take {sweeps * sweep * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3:.3f} ms")
         log(line)
         n_bytes = 4 * (b * m * n + 2 * b * (m + n))
         bms, by = bound(n_bytes, 2 * b * m * n * SINKHORN_ITERS, EXP_PER_S)
         rows[key] = dict(
-            name=key, route="cuda", source=f"onepose_tpu_torch/csrc/{name}.cu",
+            name=key, route="cuda",
             replaces=("onepose_tpu/ops/pallas/sinkhorn.py:78" if name == "sinkhorn" else
                       "onepose_tpu/ops/pallas/sinkhorn_stream.py:105"),
+            source=f"onepose_tpu_torch/csrc/{name.replace('_wide', '')}.cu",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
             bound_by=by)
     return rows
@@ -1275,6 +1325,66 @@ def _pairs_bf16_storage(torch, sd, feats, pairs, cfg, chunk, n_chunks, res_off, 
         rows["sinkhorn_stream_bf16"]["launches"] = counts["sinkhorn_stream"]
 
 
+def _pairs_wide_request(torch, rows):
+    """(c) An explicit Sinkhorn kernel request above K7's widest row:
+    SuperGlue's log_sinkhorn at WIDE_SHAPES[0] (16384 keypoints a side, a
+    planted assignment) with sinkhorn_kernel=True and with bf16 storage
+    launches K7's wide entry once each; the default mode takes the plain
+    scan and launches nothing, as before. The kernel route's matches equal
+    the scan's but on near ties (`_near_tie_mismatches`, with the largest
+    difference of the log-assignment on valid slots as the error); bf16
+    storage is held to the scan of the bf16-rounded coupling through the
+    wrappers' plain version."""
+    from onepose_tpu_torch.models.superglue import extract_matches, log_sinkhorn
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    g = torch.Generator(device=DEV).manual_seed(11)
+    b, m, n = WIDE_SHAPES[0]
+    scores, m0, m1 = _planted_scores(torch, g, b, m - 1, n - 1)
+    bin_score = torch.tensor(1.0, device=DEV)
+    ones = torch.ones((b, 1), dtype=torch.bool, device=DEV)
+    valid = torch.cat([m0, ones], 1)[:, :, None] & torch.cat([m1, ones], 1)[:, None, :]
+    z = {}
+    for label, kw, key in (("default", {}, None),
+                           ("sinkhorn_kernel=True", dict(kernel=True), "sinkhorn_stream_wide"),
+                           ("stream_bf16=True", dict(stream_bf16=True),
+                            "sinkhorn_stream_wide_bf16")):
+        torch.cuda.synchronize()
+        reset_launches()  # this path's counts: 0 just before it, read just after
+        z[label] = log_sinkhorn(scores, bin_score, m0, m1, SINKHORN_ITERS, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if key:
+            want["sinkhorn_stream_wide"] = 1
+        log(f"[pairs] (c) log_sinkhorn {(b, m - 1, n - 1)} scores, {label}: launches {counts} "
+            f"(want {want})")
+        if counts != want:
+            fail(f"log_sinkhorn {label} above K7's widest row did not launch as expected")
+        if key in rows:
+            rows[key]["launches"] = counts["sinkhorn_stream_wide"]
+    with torch.inference_mode():
+        from onepose_tpu_torch.models.superglue import sinkhorn_problem
+        from onepose_tpu_torch.ops.kernels.sinkhorn import sinkhorn_potentials_plain
+
+        c, mu, nu, norm = sinkhorn_problem(scores, bin_score, m0, m1)
+        u, v = sinkhorn_potentials_plain(c, mu, nu, SINKHORN_ITERS, torch.bfloat16)
+        z["plain bf16"] = c + u[:, :, None] + v[:, None, :] - norm[:, None, None]
+        del c, u, v
+    for label, ref in (("sinkhorn_kernel=True", "default"), ("stream_bf16=True", "plain bf16")):
+        zk, zp = z[label], z[ref]
+        err = float((zk - zp).abs()[valid].max())
+        bad, leads, tol = _near_tie_mismatches(torch, zk, zp, m0, m1, err)
+        hits = int((extract_matches(zk, MATCH_THRESHOLD, m0, m1)["matches0"] >= 0).sum())
+        ok = all(lead <= tol for lead in leads) and hits > 0 and bool(torch.isfinite(zk).all())
+        log(f"[pairs] (c) {label} against the {ref} scan: log-assignment max abs err on valid "
+            f"slots {err:.3e}, {bad} match mismatches (only on near ties; leads "
+            f"{', '.join(f'{x:.3e}' for x in leads) or 'none'} against {tol:.3e}), {hits} "
+            f"matches")
+        if not ok or err > 10 * SINKHORN_ABS:
+            fail(f"log_sinkhorn {label} above K7's widest row disagrees with the scan")
+
+
 def phase_pairs(torch, rows):
     """make_superglue_pair_matcher at full width on shapes (a) and (b):
     launch counts per chunk, kernels on against off, stage times, device
@@ -1375,6 +1485,315 @@ def phase_pairs(torch, rows):
             log(f"[pairs] {tag}, kernels {label} (median of {len(v)} calls): {ms:.2f} ms per "
                 f"chunk, {len(pairs) / (ms * n_chunks) * 1e3:.1f} pairs/s; device "
                 f"{device_ms[label]:.2f} ms per chunk")
+    _pairs_wide_request(torch, rows)
+
+
+def _look_at(np, center):
+    """World->camera pose looking at the origin (tests/test_sfm.py:18)."""
+    z = -center / np.linalg.norm(center)
+    x = np.cross([0.0, 0.0, 1.0], z)
+    x /= np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z])
+    pose = np.eye(4)
+    pose[:3, :3], pose[:3, 3] = R, -R @ center
+    return pose
+
+
+def _map_scene(np, cfg, seed):
+    """The planted object scene of tests/test_sfm.py::make_scene (:35) at
+    map's width: `points` points in a 0.2 m cube, each with a unit
+    descriptor of `desc` dimensions; `frames` cameras on two rings of radius
+    1 m (heights 0.3 and 0.7 m, with make_scene's wobble), the two
+    sequences of seq_ids 0 and 1. Each point is seen from an azimuth window
+    of its own, a half-width of 3 + 32 u^2 degrees (u uniform), so that
+    track lengths spread below max_track_length and the track-length
+    threshold lands near max_points3d; each frame fills its `slots` with
+    its visible points (at most `planted`, a random subset), projected with
+    `noise` px of noise, and random distractors with random unit descriptors
+    in the rest."""
+    rng = np.random.default_rng(seed)
+    n_pts, F, S, C = cfg["points"], cfg["frames"], cfg["slots"], cfg["desc"]
+    pts = (rng.random((n_pts, 3)) - 0.5) * 0.2
+    desc_gt = rng.standard_normal((n_pts, C), dtype=np.float32)
+    desc_gt /= np.linalg.norm(desc_gt, axis=-1, keepdims=True)
+    az_p = rng.random(n_pts) * 2 * np.pi
+    half = np.radians(3.0 + 32.0 * rng.random(n_pts) ** 2)
+    img = cfg["img"]
+    K = np.array([[500.0, 0, img / 2], [0, 500.0, img / 2], [0, 0, 1]])
+    per = F // 2
+    seq = np.arange(F) // per
+    poses = np.zeros((F, 4, 4))
+    kpts = np.zeros((F, S, 2), np.float32)
+    descs = np.zeros((F, S, C), np.float32)
+    masks = np.ones((F, S), bool)
+    gt_ids = np.full((F, S), -1, np.int64)
+    for f in range(F):
+        ang = 2 * np.pi * (f % per + 0.5 * seq[f]) / per
+        center = np.array([np.cos(ang), np.sin(ang), 0.3 + 0.4 * seq[f] + 0.1 * np.sin(3 * ang)])
+        poses[f] = _look_at(np, center)
+        R, t = poses[f, :3, :3], poses[f, :3, 3]
+        pc = pts @ R.T + t
+        uv = pc @ K.T
+        uv = uv[:, :2] / uv[:, 2:3]
+        d_az = np.abs((az_p - ang + np.pi) % (2 * np.pi) - np.pi)
+        vis = ((d_az <= half) & (pc[:, 2] > 0.1) & (uv > 8).all(1) & (uv < img - 8).all(1))
+        ids = rng.permutation(np.nonzero(vis)[0])[:cfg["planted"]]
+        n = len(ids)
+        kpts[f, :n] = uv[ids] + rng.normal(size=(n, 2)) * cfg["noise"]
+        descs[f, :n] = desc_gt[ids]
+        gt_ids[f, :n] = ids
+        kpts[f, n:] = rng.uniform(8, img - 8, size=(S - n, 2))
+        noise = rng.standard_normal((S - n, C), dtype=np.float32)
+        descs[f, n:] = noise / np.linalg.norm(noise, axis=-1, keepdims=True)
+    return {"pts": pts, "K": np.broadcast_to(K, (F, 3, 3)).astype(np.float32),
+            "poses": poses.astype(np.float32), "keypoints": kpts, "descriptors": descs,
+            "scores": rng.random((F, S), dtype=np.float32), "mask": masks, "gt_ids": gt_ids,
+            "seq_ids": seq}
+
+
+class _StageClock:
+    """Host ms of run_mapping's stages, each call synchronized on both
+    sides, by wrapping the functions that `sfm.mapping` calls (and the
+    pair matcher); with `profile`, the device stages also run under
+    torch.profiler: (launches, device ms) each. `last` keeps each
+    stage's latest output (the tracks, for the card against the CPU)."""
+
+    STAGES = {
+        "covis": ("covis_pairs_from_poses",),
+        "verify": ("epipolar_verify_matches",),
+        "tracks": ("build_tracks",),
+        "triangulate": ("triangulate_and_filter_tracks",),
+        "filter and merge": ("track_length_for_max_points", "filter_points_by_box",
+                             "merge_close_points"),
+        "BA": ("_global_ba",),
+        "aggregate, leaves, assign": ("aggregate_point_features", "build_leaf_slots",
+                                      "assign_matrix_for_frame"),
+    }
+    DEVICE = ("matching", "verify", "triangulate", "BA")
+
+    def __init__(self, torch, device, profile=False):
+        self.torch, self.cuda, self.profile = torch, device != "cpu", profile
+        self.ms = {}
+        self.dev = {}
+        self.last = {}
+
+    def wrap(self, name, fn):
+        torch = self.torch
+
+        def sync():
+            if self.cuda:
+                torch.cuda.synchronize()
+
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            if self.profile and self.cuda and name in self.DEVICE:
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = fn(*a, **k)
+                    sync()
+                kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                n, ms = self.dev.get(name, (0, 0.0))
+                self.dev[name] = (n + len(kern),
+                                  ms + sum(e.time_range.elapsed_us() for e in kern) / 1e3)
+            else:
+                out = fn(*a, **k)
+                sync()
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            self.last[name] = out
+            return out
+
+        return timed
+
+    def run(self, mapping, *args, match, **kw):
+        """mapping.run_mapping(*args, match, **kw) with every stage timed;
+        the module's functions are restored afterwards."""
+        saved = {fn: getattr(mapping, fn) for fns in self.STAGES.values() for fn in fns}
+        try:
+            for stage, fns in self.STAGES.items():
+                for fn in fns:
+                    setattr(mapping, fn, self.wrap(stage, saved[fn]))
+            return mapping.run_mapping(*args, self.wrap("matching", match), **kw)
+        finally:
+            for fn, orig in saved.items():
+                setattr(mapping, fn, orig)
+
+
+def _map_run(torch, np, scene, cfg, label, device, matcher, profile=False):
+    """One run_mapping of `scene` on `device` (NN pairs from `matcher`),
+    timed by stage; returns (result, clock, seconds, peak GiB)."""
+    from onepose_tpu_torch.sfm import mapping
+
+    config = mapping.MappingConfig(num_covis=MAP_CONFIG["num_covis"],
+                                   max_points3d=MAP_CONFIG["max_points3d"],
+                                   num_leaf=MAP_CONFIG["num_leaf"], **cfg)
+    clock = _StageClock(torch, device, profile)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = clock.run(mapping, scene["keypoints"], scene["descriptors"], scene["scores"],
+                    scene["mask"], scene["K"], scene["poses"], match=matcher,
+                    seq_ids=scene["seq_ids"], config=config, device=device)
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
+    return res, clock, sec, peak
+
+
+def _map_oracle(np, scene, res, label, tag):
+    """The planted scene's oracle: map's point budget, each point near its
+    planted point, reprojection under a pixel, BA that does not raise the
+    RMSE, refined poses only when asked, the annotation's mask3d exactly
+    the real slots, one-to-one assign matrices."""
+    st = res.stats
+    P = st["num_points3d"]
+    d = np.sqrt(((res.points_xyz[:, None, :].astype(np.float64) - scene["pts"][None]) ** 2)
+                .sum(-1)).min(1)
+    med, worst = float(np.median(d)), float(d.max())
+    mask3d = res.annotation.mask3d.cpu().numpy()
+    one_to_one = all(len(np.unique(a[0])) == a.shape[1] == len(np.unique(a[1]))
+                     and (a.shape[1] == 0 or a[1].max() < P) for a in res.frame_assign.values())
+    ba = "global_ba_rmse_final_px" in st
+    log(f"[map] {tag} ({label}): {st['num_pairs']} pairs, {st['num_tracks']} tracks, {P} "
+        f"points (in ({MAP_ORACLE['min_points']}, {MAP_CONFIG['max_points3d']}]), track length "
+        f"threshold {st['track_length_threshold']}, "
+        f"{st['num_observations']} observations; distance to the planted point median "
+        f"{med * 1e3:.4f} mm (< {MAP_ORACLE['median_m'] * 1e3} mm), max {worst * 1e3:.4f} mm "
+        f"(< {MAP_ORACLE['max_m'] * 1e3} mm); mean reprojection error "
+        f"{st['mean_reproj_error_px']:.4f} px (< 1)"
+        + (f"; BA RMSE {st['global_ba_rmse_initial_px']:.6f} -> "
+           f"{st['global_ba_rmse_final_px']:.6f} px" if ba else "")
+        + f"; refined poses {'present' if res.refined_poses is not None else 'absent'}; "
+        f"mask3d real slots {int(mask3d.sum())}; assign matrices one-to-one {one_to_one}")
+    want_poses = label == "c"
+    good = (MAP_ORACLE["min_points"] < P <= MAP_CONFIG["max_points3d"]
+            and med < MAP_ORACLE["median_m"]
+            and worst < MAP_ORACLE["max_m"] and st["mean_reproj_error_px"] < 1.0
+            and (res.refined_poses is not None) == want_poses
+            and (not ba or st["global_ba_rmse_final_px"] <= st["global_ba_rmse_initial_px"])
+            and ba == (label != "a") and bool(mask3d[:P].all()) and not mask3d[P:].any()
+            and one_to_one)
+    if not good:
+        fail(f"phase map ({label}) fails the planted scene's oracle")
+
+
+def _map_card_vs_cpu(torch, np):
+    """run_mapping on MAP_SMALL on the card against the port's own CPU run
+    (the NN matcher on each device), global BA off and refining the
+    cameras: the same tracks and integer stats, points within
+    MAP_CARD_CPU_ABS."""
+    from onepose_tpu_torch.parallel.sfm_parallel import make_nn_pair_matcher
+
+    scene = _map_scene(np, MAP_SMALL, seed=1)
+    out = {}
+    for dev in (DEV, "cpu"):
+        match = make_nn_pair_matcher(scene["descriptors"], scene["mask"], distance_thresh=0.2,
+                                     device=dev)
+        for label, cfg in (("a", {}), ("c", dict(global_ba=True,
+                                                 global_ba_refine_cameras=True))):
+            res, clock, sec, _ = _map_run(torch, np, scene, cfg, label, dev, match)
+            out[dev, label] = (res, clock.last["tracks"], sec)
+    ints = ("num_frames", "num_pairs", "num_tracks", "num_points3d", "track_length_threshold",
+            "num_observations")
+    for label in ("a", "c"):
+        (rk, tk, sk), (rc, tc, sc) = out[DEV, label], out["cpu", label]
+        same_tracks = all(np.array_equal(getattr(tk, k), getattr(tc, k))
+                          for k in ("obs_frame", "obs_kpt", "obs_mask", "lengths"))
+        same_ints = all(rk.stats[k] == rc.stats[k] for k in ints)
+        same_shape = rk.points_xyz.shape == rc.points_xyz.shape
+        err = float(np.abs(rk.points_xyz - rc.points_xyz).max()) if same_shape else float("inf")
+        pose_err = (float(np.abs(rk.refined_poses - rc.refined_poses).max())
+                    if label == "c" else 0.0)
+        log(f"[map] card against CPU, {MAP_SMALL['frames']} frames x {MAP_SMALL['slots']} "
+            f"slots ({label}): tracks identical {same_tracks}, integer stats identical "
+            f"{same_ints} ({rk.stats['num_points3d']} points, {rk.stats['num_tracks']} tracks), "
+            f"points max abs diff {err:.3e} m, refined poses {pose_err:.3e} (<= "
+            f"{MAP_CARD_CPU_ABS}); {sk:.2f} s on the card, {sc:.2f} s on the CPU")
+        if not (same_tracks and same_ints and err <= MAP_CARD_CPU_ABS
+                and pose_err <= MAP_CARD_CPU_ABS):
+            fail(f"run_mapping ({label}) on the card disagrees with the CPU run")
+
+
+def _map_triangulation_card_vs_cpu(torch, np, scene, tracks):
+    """The full-width scene's tracks (about 1e4, 32 slots) through
+    triangulate_and_filter_tracks on the card and on the CPU: the batched
+    4x4 eigh of the DLT and the GN solves agree; ok and obs_inlier
+    identical, xyz within MAP_CARD_CPU_ABS where ok."""
+    from onepose_tpu_torch.sfm.triangulate import triangulate_and_filter_tracks
+
+    P = scene["poses"]
+    args = [np.ascontiguousarray(a) for a in (
+        tracks.obs_frame, tracks.obs_kpt, tracks.obs_mask, scene["keypoints"], scene["K"],
+        P[:, :3, :3], P[:, :3, 3])]
+    out = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        res = triangulate_and_filter_tracks(*(torch.from_numpy(a).to(dev) for a in args))
+        out[dev] = {k: v.cpu().numpy() for k, v in res.items()}
+        out[dev]["s"] = time.perf_counter() - t0
+    k, c = out[DEV], out["cpu"]
+    same = (np.array_equal(k["ok"], c["ok"]) and np.array_equal(k["obs_inlier"], c["obs_inlier"]))
+    ok = c["ok"]
+    err = float(np.abs(k["xyz"][ok] - c["xyz"][ok]).max()) if ok.any() else 0.0
+    log(f"[map] triangulation of the {len(ok)} full-width tracks ({tracks.max_len} slots), "
+        f"card against CPU: ok and obs_inlier identical {same} ({int(ok.sum())} ok), xyz max "
+        f"abs diff {err:.3e} m (<= {MAP_CARD_CPU_ABS}); {k['s']:.3f} s on the card, "
+        f"{c['s']:.3f} s on the CPU")
+    if not (same and err <= MAP_CARD_CPU_ABS):
+        fail("triangulation on the card disagrees with the CPU at full width")
+
+
+def phase_map(torch):
+    """run_mapping at the full width of configs/map.yaml on the planted
+    scene: (a) global_ba off (the shipped default), (b) on with the cameras
+    fixed, (c) on refining the cameras; each against the scene's oracle,
+    with host ms per stage, the device stages' launches and device ms
+    (torch.profiler, a second run), peak memory and seconds; then the card
+    against the CPU: the full-width triangulation, and run_mapping on a
+    reduced scene."""
+    import numpy as np
+
+    from onepose_tpu_torch import native
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from onepose_tpu_torch.parallel.sfm_parallel import make_nn_pair_matcher
+
+    t_phase = time.perf_counter()
+    log(f"[map] union-find core: {native.backend()}; TF32: cudnn "
+        f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32} "
+        "(the SfM device stages turn both off themselves)")
+    t0 = time.perf_counter()
+    scene = _map_scene(np, MAP, seed=0)
+    match = make_nn_pair_matcher(scene["descriptors"], scene["mask"], distance_thresh=0.2,
+                                 pair_chunk=MAP["pair_chunk"], device=DEV)
+    log(f"[map] scene: {MAP['frames']} frames x {MAP['slots']} slots x {MAP['desc']}-d, "
+        f"{MAP['points']} planted points, up to {MAP['planted']} a frame "
+        f"({float((scene['gt_ids'] >= 0).mean()) * 100:.1f}% of the slots), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = (("a", {}), ("b", dict(global_ba=True)),
+            ("c", dict(global_ba=True, global_ba_refine_cameras=True)))
+    for label, cfg in runs:
+        tag = f"{MAP['frames']} frames x {MAP['slots']} slots"
+        reset_launches()  # this path's counts: 0 just before it, read just after
+        res, clock, sec, peak = _map_run(torch, np, scene, cfg, label, DEV, match)
+        counts = launch_counts()
+        _map_oracle(np, scene, res, label, tag)
+        log(f"[map] {tag} ({label}): launches of the hand-written kernels {counts} (the NN "
+            f"pair matcher and the SfM core run none); host ms by stage, synchronized: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in clock.ms.items())
+            + f"; {sec:.2f} s in all, peak device memory {peak:.2f} GiB")
+        if any(counts.values()):
+            fail(f"phase map ({label}) launched a kernel it should not")
+        if label == "a":
+            _map_triangulation_card_vs_cpu(torch, np, scene, clock.last["tracks"])
+        _, prof, sec_p, _ = _map_run(torch, np, scene, cfg, label, DEV, match, profile=True)
+        log(f"[map] {tag} ({label}), a second run under torch.profiler: device stages' CUDA "
+            f"launches and device ms " + ", ".join(
+                f"{k} {n} {ms:.2f}" for k, (n, ms) in prof.dev.items())
+            + f"; {sec_p:.2f} s with the profiler on")
+    _map_card_vs_cpu(torch, np)
+    log(f"[map] phase map took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1411,6 +1830,8 @@ def main(argv=None) -> int:
         phase_main(torch, rows)
     if "pairs" in phases:
         phase_pairs(torch, rows)
+    if "map" in phases:
+        phase_map(torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s of command time, the build included")
     if set(phases) != set(PHASES):
         log(f"[partial] ran {phases} of {list(PHASES)}: no result line")

@@ -32,6 +32,14 @@
 // pitch `ldc` is a multiple of 8 elements, so that every row starts
 // 16-byte aligned and every stage is a whole number of 16-byte units;
 // columns past N are padding (NEG_INF) or masked.
+//
+// Rows wider than the widest instantiation (14848 columns) go to a second
+// entry, sinkhorn_stream_wide_launch (below): column tiles read straight
+// from device memory, column partials in device memory. Its bound by the
+// contract's count is the same exponential count, 2 * M * N * iters (8.4e10
+// at [1, 20481, 20481] x 100, about 20 ms); its own floor is two sweeps of
+// the coupling per iteration, 336 GB at that shape: 100 ms in fp32, 50 ms
+// with the coupling stored in bf16.
 
 #include "sinkhorn.cuh"
 
@@ -165,6 +173,161 @@ sinkhorn_stream(const T* __restrict__ c, const float* __restrict__ mu,
   }
 }
 
+// The wide entry: rows wider than the widest VARIANTS instantiation, where
+// a thread's column state no longer fits in registers. Same contract and
+// order as sinkhorn_stream: u of a row from the previous iteration's v,
+// the row's share of lse_col(C + u) folded into column accumulators at
+// once, v finalised once every row of the iteration is done.
+//
+// The blocks of a pair split its rows, as above. A block takes kWideRows
+// rows at a time and walks them in column tiles of 4 * kThreads columns,
+// straight from device memory (thread t reads the 4-column chunks t,
+// t + kThreads, ...; no shared-memory staging, so no width limit):
+//   pass 1: each thread's online (max, sum) of C + v_prev over its chunks,
+//           merged over the warp and then the block: u of the rows;
+//   pass 2: C + u folded into the block's column partial, which lives in
+//           device memory (scratch part [B, cpp, 2, N], one row of maxima
+//           and one of sums a block; each thread reads and writes only its
+//           own chunks, so the partial needs no barrier inside the block).
+// The pair's blocks then merge their partials with the arrival counters
+// and the split column reduce of sinkhorn.cuh. Pass 2 reads the rows again
+// (from L2 if they are still there): two sweeps of the coupling per
+// iteration at most, and one read-modify-write of the partial per
+// kWideRows rows.
+constexpr int kWideRows = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+sinkhorn_stream_wide(const T* __restrict__ c, const float* __restrict__ mu,
+                     const float* __restrict__ nu, float* __restrict__ u_out,
+                     float* __restrict__ v_out, float* part, float* vbuf, unsigned* ctr, int B,
+                     int M, int N, int ldc, int iters, int rows, int cpp, int ppw) {
+  constexpr int R = kWideRows;
+  __shared__ float2 red[2][kMaxWarps][R];  // the warps' (max, sum), by parity of the row group
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = blockIdx.x / cpp, k = blockIdx.x - slot * cpp;
+  const int r0 = k * rows, r1 = min(M, r0 + rows);
+  const int cols = (N + cpp - 1) / cpp, j0 = min(N, k * cols), j1 = min(N, j0 + cols);
+  const int chunks = (N + 3) / 4;
+  int parity = 0;
+  for (int b = slot; b < B; b += ppw) {  // the waves
+    if (iters <= 0) {
+      for (int i = r0 + threadIdx.x; i < r1; i += kThreads)
+        u_out[static_cast<size_t>(b) * M + i] = 0.f;
+      for (int j = j0 + threadIdx.x; j < j1; j += kThreads)
+        v_out[static_cast<size_t>(b) * N + j] = 0.f;
+      continue;
+    }
+    const T* cb = c + static_cast<size_t>(b) * M * ldc;
+    const float* mu_b = mu + static_cast<size_t>(b) * M;
+    float* part_b = part + static_cast<size_t>(b) * cpp * 2 * N;
+    float* pm = part_b + static_cast<size_t>(k) * 2 * N;  // this block's maxima, then sums
+    float* ps = pm + N;
+    float* vb = vbuf + static_cast<size_t>(b) * N;
+    const float* V = nullptr;  // v of the previous iteration, base 2 (nullptr: 0)
+    unsigned target = 0;
+    for (int it = 0; it < iters; ++it) {
+      const bool last = it == iters - 1;
+      for (int q = threadIdx.x; q < chunks; q += kThreads)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < N) pm[4 * q + e] = kEmpty, ps[4 * q + e] = 0.f;
+      for (int i0 = r0; i0 < r1; i0 += R, parity ^= 1) {
+        const T* rp[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)  // rows past r1 read row r1 - 1 and count for nothing
+          rp[r] = cb + static_cast<size_t>(min(i0 + r, r1 - 1)) * ldc;
+        // Pass 1: the rows' online (max, sum) of C + v over the thread's chunks.
+        float m[R], s[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) m[r] = kEmpty, s[r] = 0.f;
+        for (int q = threadIdx.x; q < chunks; q += kThreads) {
+          const int j = 4 * q;
+          float v4[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v4[e] = j + e < N ? (V ? __ldcg(V + j + e) : 0.f) : kEmpty;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float x[4];
+            load4(rp[r] + j, x);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[e] = fmaf(x[e], kLog2e, v4[e]);
+            const float cm = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+            if (cm == kEmpty) continue;
+            if (cm > m[r]) s[r] *= ex2(m[r] - cm), m[r] = cm;
+            s[r] += (ex2(x[0] - m[r]) + ex2(x[1] - m[r])) + (ex2(x[2] - m[r]) + ex2(x[3] - m[r]));
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float m2 = __shfl_xor_sync(0xffffffffu, m[r], off);
+            const float s2 = __shfl_xor_sync(0xffffffffu, s[r], off);
+            lse_merge(m[r], s[r], m2, s2);
+          }
+        if (lane == 0)
+#pragma unroll
+          for (int r = 0; r < R; ++r) red[parity][warp][r] = make_float2(m[r], s[r]);
+        __syncthreads();
+        float U[R];  // u of the rows, base 2
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float M2 = kEmpty, S2 = 0.f;
+#pragma unroll
+          for (int w = 0; w < kMaxWarps; ++w) lse_merge(M2, S2, red[parity][w][r].x,
+                                                        red[parity][w][r].y);
+          const int i = min(i0 + r, r1 - 1);
+          U[r] = mu_b[i] * kLog2e - (M2 + lg2(S2));
+        }
+        if (last && threadIdx.x < R && i0 + threadIdx.x < r1) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r == threadIdx.x) u_out[static_cast<size_t>(b) * M + i0 + r] = U[r] * kLn2;
+        }
+        // Pass 2: C + u of the valid rows folded into the block's partial.
+        for (int q = threadIdx.x; q < chunks; q += kThreads) {
+          const int j = 4 * q;
+          float y[R][4];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float x[4];
+            load4(rp[r] + j, x);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) y[r][e] = i0 + r < r1 ? fmaf(x[e], kLog2e, U[r]) : kEmpty;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (j + e >= N) continue;
+            float col[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) col[r] = y[r][e];
+            float mj = pm[j + e], sj = ps[j + e];
+            fold(mj, sj, col);  // row i0 is valid: at least one entry is finite
+            pm[j + e] = mj, ps[j + e] = sj;
+          }
+        }
+      }
+      pair_barrier(ctr + b, target += cpp);
+      reduce_slice(part_b, cpp, N, j0, j1, nu + static_cast<size_t>(b) * N, vb,
+                   last ? v_out + static_cast<size_t>(b) * N : nullptr);
+      if (!last) {
+        pair_barrier(ctr + b, target += cpp);
+        V = vb;
+      }
+    }
+  }
+}
+
+using WideKernel = void (*)(const void*, const float*, const float*, float*, float*, float*,
+                            float*, unsigned*, int, int, int, int, int, int, int, int);
+
+template <typename T>
+WideKernel wide_kernel() {
+  return reinterpret_cast<WideKernel>(sinkhorn_stream_wide<T>);
+}
+
 using Kernel = void (*)(const void*, const float*, const float*, float*, float*, float*, float*,
                         unsigned*, int, int, int, int, int, int, int, int, int, int);
 
@@ -236,6 +399,43 @@ extern "C" int sinkhorn_stream_launch(const void* c, int bf16, const float* mu, 
                   &N,   &ldc,  &iters,      &stage_rows, &stages, &rows, &cpp, &ppw};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn), dim3(cpp * ppw),
                                     dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Blocks of the wide entry resident on the card at once (the fewer of the
+// two storage types'); a negative CUDA error code on failure.
+extern "C" int sinkhorn_stream_wide_max_blocks() {
+  int blocks = -1, dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const WideKernel fns[] = {wide_kernel<float>(), wide_kernel<__nv_bfloat16>()};
+  for (const WideKernel fn : fns) {
+    int per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(fn), kThreads, 0);
+    if (err == cudaSuccess && (blocks < 0 || per_sm * sms < blocks)) blocks = per_sm * sms;
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The wide entry, for rows of any width: c [B, M, ldc] fp32 or bf16
+// (bf16 != 0), ldc a multiple of 8 and >= N; mu [B, M]; nu [B, N]; outputs
+// u [B, M], v [B, N]; scratch part [B, cpp, 2, N], vbuf [B, N], ctr [B]
+// (zero at launch). Grid cpp * ppw blocks of `rows` rows of a pair each.
+extern "C" int sinkhorn_stream_wide_launch(const void* c, int bf16, const float* mu,
+                                           const float* nu, float* u, float* v, float* part,
+                                           float* vbuf, unsigned* ctr, int B, int M, int N,
+                                           int ldc, int iters, int rows, int cpp, int ppw,
+                                           cudaStream_t stream) {
+  if (B == 0 || M == 0 || N == 0) return cudaSuccess;
+  if (ldc % 8 != 0 || ldc < N || rows < 1) return cudaErrorInvalidValue;
+  const WideKernel fn = bf16 ? wide_kernel<__nv_bfloat16>() : wide_kernel<float>();
+  void* args[] = {&c, &mu, &nu, &u, &v, &part, &vbuf, &ctr, &B, &M, &N, &ldc, &iters,
+                  &rows, &cpp, &ppw};
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                                dim3(cpp * ppw), dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

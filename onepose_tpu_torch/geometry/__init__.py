@@ -1,5 +1,6 @@
-"""Pose geometry of the port: rotations, projection, P3P, RANSAC-PnP and
-pose-error metrics (batched over leading axes)."""
+"""Pose geometry of the port: rotations, projection, P3P, RANSAC-PnP,
+pose-error metrics and (in `triangulation`) the SfM core's masked DLT and
+Gauss-Newton point refinement, batched over leading axes."""
 
 from onepose_tpu_torch.geometry.metrics import aggregate_metrics, query_pose_error
 from onepose_tpu_torch.geometry.projection import project_points, reprojection_errors

@@ -16,7 +16,9 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 
 `gats_block` counts one launch per call of its wrapper, which runs the
 block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
-each run all their iterations in one cooperative launch. `dual_softmax`
+each run all their iterations in one cooperative launch; the streamed
+kernel's wide entry (rows wider than 14848 columns) counts its own
+launches, as `sinkhorn_stream_wide`. `dual_softmax`
 counts one per call: a cooperative launch after a memset of its scratch.
 `score_path` counts one per call: one CUDA kernel up to radius 9, five
 above.
@@ -34,22 +36,24 @@ from onepose_tpu_torch.ops.kernels import (
     vgg_stage,
 )
 
-_MODULES = {
-    "nms": score_path,
-    "vgg_stage": vgg_stage,
-    "gats": gats,
-    "gats_block": gats_block,
-    "dual_softmax": dual_softmax,
-    "sinkhorn": sinkhorn,
-    "sinkhorn_stream": sinkhorn_stream,
+# kernel name -> (module, its counter)
+_COUNTERS = {
+    "nms": (score_path, "launches"),
+    "vgg_stage": (vgg_stage, "launches"),
+    "gats": (gats, "launches"),
+    "gats_block": (gats_block, "launches"),
+    "dual_softmax": (dual_softmax, "launches"),
+    "sinkhorn": (sinkhorn, "launches"),
+    "sinkhorn_stream": (sinkhorn_stream, "launches"),
+    "sinkhorn_stream_wide": (sinkhorn_stream, "wide_launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last `reset_launches()`."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launches() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -65,6 +65,8 @@ SIGNATURES = {
     "sinkhorn_stream": {
         "sinkhorn_stream_max_blocks": ([_I] * 3, _I),
         "sinkhorn_stream_launch": ([_P, _I] + [_P] * 7 + [_I] * 13 + [_P], _I),
+        "sinkhorn_stream_wide_max_blocks": ([], _I),
+        "sinkhorn_stream_wide_launch": ([_P, _I] + [_P] * 7 + [_I] * 8 + [_P], _I),
     },
 }
 

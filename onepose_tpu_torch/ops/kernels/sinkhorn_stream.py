@@ -32,6 +32,17 @@ around a column reduce split over them. The wrapper stores the coupling with its
 pitch padded to a multiple of 8 elements, so that every row starts
 16-byte aligned; the padding is NEG_INF.
 
+Wider rows take the source's second entry, `sinkhorn_stream_wide_launch`
+(`plan` returns a `WidePlan` for them): each block takes WIDE_ROWS rows at
+a time in column tiles read straight from device memory, one pass for the
+rows' u against the previous v and one that folds C + u into the block's
+column partial, which lives in the scratch `part` (device memory, so the
+width is unbounded); the pair's blocks then merge the partials as above.
+Bound: the same exponential count (about 20 ms at [1, 20481, 20481] x
+100); its own floor is two sweeps of the coupling per iteration, 100 ms
+in fp32 and 50 ms in bf16 at that shape. It counts its launches in
+`wide_launches`.
+
 `sinkhorn_potentials_streamed` launches the kernel on CUDA tensors and
 runs the plain version only on CPU tensors. Forward-only.
 """
@@ -49,10 +60,12 @@ from onepose_tpu_torch.ops.kernels.sinkhorn import (
     WARPS,
     check_inputs,
     group_layout,
+    max_columns,
     sinkhorn_potentials_plain,
 )
 
 launches = 0  # kernel launches since the last reset (ops.kernels.reset_launches)
+wide_launches = 0  # launches of the wide entry, likewise
 NEG_INF = -1e9
 PITCH = 8  # row pitch quantum of the stored coupling: 16 bytes of bf16
 
@@ -63,6 +76,13 @@ def row_pitch(n: int) -> int:
 
 STAGE_BYTES = 65536  # bytes a stage aims at (one bulk copy)
 MIN_STAGES = 3
+WIDE_ROWS = 8  # rows a block of the wide entry takes at a time (csrc kWideRows)
+
+
+def widest() -> int:
+    """The widest row of the source's VARIANTS instantiations (14848); wider
+    rows take the wide entry."""
+    return max_columns(_build.variants("sinkhorn_stream"))
 
 
 def layout(n: int) -> tuple[int, int, int]:
@@ -113,12 +133,23 @@ class Plan(NamedTuple):
     chunks: int  # KC: 4-column chunks a thread owns
 
 
+class WidePlan(NamedTuple):
+    blocks_per_pair: int  # blocks that split one pair's rows
+    rows: int  # rows of a pair per block (the last block may hold fewer)
+    pairs_per_wave: int  # pairs resident at once; the launch loops over waves
+
+
 def plan(b: int, m: int, n: int, max_blocks: int, elem_bytes: int = 4,
-         smem_per_block: int = SMEM_PER_BLOCK) -> Plan:
+         smem_per_block: int = SMEM_PER_BLOCK):
     """Split a [b, m, n] problem over `max_blocks` resident blocks: as many
-    blocks per pair as there are stages of rows, up to an equal share of
-    the card, and the pairs in waves when there are more pairs than blocks;
-    the groups as `layout` gives them."""
+    blocks per pair as there are stages of rows (WIDE_ROWS-row steps for
+    the wide entry), up to an equal share of the card, and the pairs in
+    waves when there are more pairs than blocks; the groups as `layout`
+    gives them. A `WidePlan` (the wide entry) for rows wider than
+    `widest()`, else a `Plan`."""
+    if n > widest():
+        per_pair = max(1, min(-(-m // WIDE_ROWS), max_blocks // b))
+        return WidePlan(per_pair, -(-m // per_pair), min(b, max_blocks // per_pair))
     rg = ring(n, elem_bytes, smem_per_block)
     w, kc, _ = layout(n)
     per_pair = max(1, min(-(-m // rg.stage_rows), max_blocks // b))
@@ -164,16 +195,21 @@ def sinkhorn_stream_kernel(
     iters: int = 100,
     coupling_dtype: Optional[torch.dtype] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the streamed kernel (one cooperative launch per call)."""
+    """Launch the streamed kernel (one cooperative launch per call): the
+    VARIANTS entry up to `widest()` columns, the wide entry above."""
     _build.require_cuda_input(couplings, "sinkhorn_stream couplings", 3)
     check_inputs("sinkhorn_stream", couplings, log_mu, log_nu)
     b, m, n = couplings.shape
     stored = stored_coupling(couplings, coupling_dtype)
     lib = _build.load("sinkhorn_stream")
     esize = stored.element_size()
-    w, kc, _ = layout(n)
-    max_blocks = _build.resident_blocks(lib, "sinkhorn_stream_max_blocks", w, kc,
-                                        ring(n, esize).smem)
+    wide = n > widest()
+    if wide:
+        max_blocks = _build.resident_blocks(lib, "sinkhorn_stream_wide_max_blocks")
+    else:
+        w, kc, _ = layout(n)
+        max_blocks = _build.resident_blocks(lib, "sinkhorn_stream_max_blocks", w, kc,
+                                            ring(n, esize).smem)
     p = plan(b, m, n, max_blocks, esize)
     f32 = dict(dtype=torch.float32, device=couplings.device)
     u, v = torch.empty(b, m, **f32), torch.empty(b, n, **f32)
@@ -181,12 +217,19 @@ def sinkhorn_stream_kernel(
     vbuf = torch.empty(b * n, **f32)
     ctr = torch.zeros(b, dtype=torch.int32, device=couplings.device)  # the pair barriers
     P = _build.ptr
-    err = lib.sinkhorn_stream_launch(
-        P(stored), int(stored.dtype == torch.bfloat16), P(log_mu), P(log_nu), P(u), P(v),
-        P(part), P(vbuf), P(ctr), b, m, n, stored.shape[2], int(iters), p.stage_rows, p.stages,
-        p.rows, p.blocks_per_pair, p.pairs_per_wave, p.warps_per_group, p.chunks, p.smem,
-        _build.stream(couplings.device))
+    head = (P(stored), int(stored.dtype == torch.bfloat16), P(log_mu), P(log_nu), P(u), P(v),
+            P(part), P(vbuf), P(ctr), b, m, n, stored.shape[2], int(iters))
+    if wide:
+        err = lib.sinkhorn_stream_wide_launch(*head, p.rows, p.blocks_per_pair,
+                                              p.pairs_per_wave, _build.stream(couplings.device))
+    else:
+        err = lib.sinkhorn_stream_launch(
+            *head, p.stage_rows, p.stages, p.rows, p.blocks_per_pair, p.pairs_per_wave,
+            p.warps_per_group, p.chunks, p.smem, _build.stream(couplings.device))
     _build.check(lib, err, "sinkhorn_stream kernel")
-    global launches
-    launches += 1
+    global launches, wide_launches
+    if wide:
+        wide_launches += 1
+    else:
+        launches += 1
     return u, v

@@ -20,7 +20,9 @@ def test_import_loads_no_jax():
         "import sys, onepose_tpu_torch, onepose_tpu_torch.runtime, "
         "onepose_tpu_torch.geometry, onepose_tpu_torch.models.bridge, "
         "onepose_tpu_torch.ops.kernels, onepose_tpu_torch.models.superglue, "
-        "onepose_tpu_torch.models.nn_matcher, onepose_tpu_torch.parallel.sfm_parallel\n"
+        "onepose_tpu_torch.models.nn_matcher, onepose_tpu_torch.parallel.sfm_parallel, "
+        "onepose_tpu_torch.sfm, onepose_tpu_torch.sfm.mapping, onepose_tpu_torch.ops.lm, "
+        "onepose_tpu_torch.geometry.triangulation, onepose_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'onepose_tpu', "
         "'triton')]\n"
         "print(bad)\n"

@@ -344,8 +344,10 @@ def test_fits_smem_and_plans():
     assert sinkhorn_stream.plan(1, 9000, 9000, 132)[-2:] == (16, 5)  # one row a step
     # One group of 16 warps has no merge buffer: 3 stages of one fp32 row.
     assert sinkhorn_stream.ring(14848) == (1, 3, 3 * (4 * 14848 + 16) + 1024)
+    # One more column takes the wide entry, which has no VARIANTS layout.
+    assert isinstance(sinkhorn_stream.plan(1, 9000, 14849, 132), sinkhorn_stream.WidePlan)
     with pytest.raises(ValueError, match="columns"):
-        sinkhorn_stream.plan(1, 9000, 14849, 132)
+        sinkhorn_stream.layout(14849)
     # Rows wider than K6's widest go to K7, even when few.
     assert sinkhorn.fits_smem(100, 8704) and not sinkhorn.fits_smem(100, 8705)
     with pytest.raises(ValueError, match="columns"):
@@ -358,7 +360,8 @@ def test_plans_take_only_compiled_variants(kernel, esize, widest):
     """Every width up to the kernel's widest gets a plan whose (warps a
     group, chunks a thread) is an instantiation the source compiles (its
     VARIANTS list, which pick() expands), in shared memory, and every
-    instantiation serves some width; one more column raises."""
+    instantiation serves some width; one more column has no instantiation
+    (K6's plan and K7's layout raise; K7's plan is its wide entry's)."""
     from onepose_tpu_torch.ops.kernels import _build
 
     table = _build.variants(kernel)
@@ -379,7 +382,10 @@ def test_plans_take_only_compiled_variants(kernel, esize, widest):
         if kernel == "sinkhorn":
             sinkhorn.plan(64, widest + 1)
         else:
-            sinkhorn_stream.plan(2, 300, widest + 1, 132, esize)
+            sinkhorn_stream.layout(widest + 1)
+    if kernel == "sinkhorn_stream":
+        assert isinstance(sinkhorn_stream.plan(2, 300, widest + 1, 132, esize),
+                          sinkhorn_stream.WidePlan)
 
 
 def test_stored_coupling_pads_rows_to_16_bytes():
@@ -445,7 +451,9 @@ def test_log_sinkhorn_routing(monkeypatch, fits, stream_bf16, kernel, want):
     widest instantiation (here 31 columns, the widest shrunk to 30) takes
     the plain scan by default, as JAX's does above its guard in its auto
     mode; asked for a kernel or for bf16 storage it goes to K7, as JAX's
-    goes to its streamed kernel (on the card K7 raises at that width)."""
+    goes to its streamed kernel, and K7 computes it: on the card through
+    its wide entry, whose plan the wrapper takes above the widest
+    (`test_streamed_plan_takes_the_wide_entry_above_its_widest`)."""
     scores, m0, m1 = _sinkhorn_inputs(4, 1, 24, 30)
     args = (torch.from_numpy(scores), torch.tensor(0.5), torch.from_numpy(m0),
             torch.from_numpy(m1), 25)
@@ -465,15 +473,116 @@ def test_log_sinkhorn_routing(monkeypatch, fits, stream_bf16, kernel, want):
     assert superglue.sinkhorn is sinkhorn  # log_sinkhorn routes through the module
 
 
-def test_streamed_kernel_still_raises_above_its_widest():
-    """Only log_sinkhorn routes a too-wide coupling to the scan: K7's plan
-    itself raises there."""
+def test_streamed_plan_takes_the_wide_entry_above_its_widest():
+    """Up to K7's widest instantiation (14848 columns) the plan is the
+    VARIANTS entry's; above it, at any width, the wide entry's (WidePlan):
+    WIDE_ROWS-row steps over as many blocks as the card holds, the pairs in
+    waves. No width raises."""
     widest = sinkhorn.max_columns(_build.variants("sinkhorn_stream"))
-    assert widest == 14848
-    with pytest.raises(ValueError, match="more than the kernel's"):
-        sinkhorn_stream.layout(widest + 1)
-    with pytest.raises(ValueError, match="more than the kernel's"):
-        sinkhorn_stream.plan(1, 100, widest + 1, 132)
+    assert widest == sinkhorn_stream.widest() == 14848
+    assert isinstance(sinkhorn_stream.plan(1, 100, widest, 132), sinkhorn_stream.Plan)
+    for n in (widest + 1, 16385, 18901, 20481, 65537):
+        for esize in (4, 2):
+            p = sinkhorn_stream.plan(1, n, n, 132, esize)
+            assert isinstance(p, sinkhorn_stream.WidePlan), n
+            assert p.blocks_per_pair == 132 and p.pairs_per_wave == 1
+            assert p.rows * p.blocks_per_pair >= n > (p.rows - 1) * p.blocks_per_pair
+    assert sinkhorn_stream.plan(1, 16385, 16385, 132) == (132, 125, 1)
+    assert sinkhorn_stream.plan(1, 20481, 20481, 132) == (132, 156, 1)
+    # Few rows: one block a WIDE_ROWS step; many pairs: waves.
+    assert sinkhorn_stream.plan(1, 20, 15000, 132) == (3, 7, 1)
+    assert sinkhorn_stream.plan(300, 20, 15000, 132) == (1, 20, 132)
+    assert sinkhorn_stream.plan(3, 1000, 15000, 132) == (44, 23, 3)
+
+
+def _emulate_wide(c, mu, nu, iters, rows, *, threads=8, lanes=4, wide_rows=3,
+                  reduce_threads=16):
+    """The wide entry's schedule in torch, at a small thread count
+    (`threads` a block, `lanes` a warp, `wide_rows` rows a step): blocks of
+    `rows` rows a pair; thread t owns the 4-column chunks t, t + threads,
+    ... of every row and walks them tile after tile. Pass 1: each thread's
+    online (max, sum) of C + v (rescaled when a chunk's max is larger, a
+    chunk with no finite entry skipped), the xor tree over the warp's
+    lanes, then the warps merged in order: u of the step's rows. Pass 2:
+    the step's rows (C + u) folded into the block's column partial (one
+    rescale a step). Then each block reduces its slice of columns from the
+    pair's partials. Base 2 throughout."""
+    b, m, n = c.shape
+    tiles = -(-n // (4 * threads))
+    npad = tiles * 4 * threads
+    cpp = -(-m // rows)
+    cols = -(-n // cpp)
+    u2, v2 = torch.zeros(b, m), torch.zeros(b, n)
+    mu2, nu2 = mu * L2E, nu * L2E
+    for p in range(b):
+        v_prev = torch.zeros(n)
+        for _ in range(iters):
+            pm, ps = [], []
+            vpad = torch.cat([v_prev, torch.full((npad - n,), EMPTY)])
+            for k in range(cpp):
+                r0, r1 = k * rows, min(m, (k + 1) * rows)
+                acc = [torch.full((n,), EMPTY), torch.zeros(n)]
+                for i0 in range(r0, r1, wide_rows):
+                    idx = list(range(i0, min(r1, i0 + wide_rows)))
+                    for i in idx:
+                        row = torch.cat([c[p, i], torch.zeros(npad - n)])
+                        x = (row * L2E + vpad).reshape(tiles, threads, 4)
+                        tm, ts = torch.full((threads,), EMPTY), torch.zeros(threads)
+                        for q in range(tiles):  # each thread's chunks in order
+                            cm = x[q].amax(1)
+                            live = cm != EMPTY
+                            up = live & (cm > tm)
+                            ts = torch.where(up, ts * torch.exp2(tm - cm), ts)
+                            tm = torch.where(up, cm, tm)
+                            add = torch.exp2(x[q] - tm[:, None]).sum(1)
+                            ts = torch.where(live, ts + add, ts)
+                        off = lanes // 2
+                        while off:  # the xor tree over a warp's lanes
+                            partner = torch.arange(threads) ^ off
+                            tm, ts = _merge(tm, ts, tm[partner], ts[partner])
+                            off //= 2
+                        M, S = torch.tensor(EMPTY), torch.tensor(0.0)
+                        for w in range(threads // lanes):  # the warps, in order
+                            M, S = _merge(M, S, tm[w * lanes], ts[w * lanes])
+                        u2[p, i] = mu2[p, i] - (M + torch.log2(S))
+                    acc = list(_fold(*acc, [c[p, i] * L2E + u2[p, i] for i in idx]))
+                pm.append(acc[0])
+                ps.append(acc[1])
+            pm, ps = torch.stack(pm), torch.stack(ps)
+            for k in range(cpp):
+                j0, j1 = min(n, k * cols), min(n, (k + 1) * cols)
+                if j1 > j0:
+                    M, S = _reduce_slice(pm, ps, j0, j1, reduce_threads)
+                    v2[p, j0:j1] = nu2[p, j0:j1] - (M + torch.log2(S))
+            v_prev = v2[p].clone()
+    return u2 * LN2, v2 * LN2
+
+
+@pytest.mark.parametrize("case", ["fp32", "bf16", "masked_side"])
+def test_wide_schedule_matches_plain(case):
+    """The wide entry's tile schedule against the plain version: 3 blocks
+    of 17, 17 and 11 rows, 3-row steps (the last of each block ragged), 61
+    columns in two tiles of 32 (the second ragged, its last chunk masked
+    but one column); fp32 and bf16 storage (the plain version rounds the
+    coupling the same way); and a fully masked side 0 (log_sinkhorn's
+    problem with dustbins: every output finite)."""
+    dtype = torch.bfloat16 if case == "bf16" else None
+    if case == "masked_side":
+        rng = np.random.default_rng(8)
+        scores = torch.from_numpy(rng.normal(size=(2, 44, 60)).astype(np.float32))
+        m0 = torch.zeros(2, 44, dtype=torch.bool)
+        m1 = torch.from_numpy(rng.random((2, 60)) < 0.8)
+        c, mu, nu, _ = superglue.sinkhorn_problem(scores, torch.tensor(1.0), m0, m1)
+        ones = torch.ones(2, 1, dtype=torch.bool)
+        m0, m1 = torch.cat([m0, ones], 1), torch.cat([m1, ones], 1)
+    else:
+        c, mu, nu, m0, m1 = map(torch.from_numpy, _problem(9, 2, 45, 61, scale=4.0))
+    want = sinkhorn.sinkhorn_potentials_plain(c, mu, nu, ITERS, coupling_dtype=dtype)
+    stored = c if dtype is None else c.to(dtype).float()
+    got = _emulate_wide(stored, mu, nu, ITERS, rows=17)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _close_on(m0.numpy(), got[0], want[0])
+    _close_on(m1.numpy(), got[1], want[1])
 
 
 @pytest.mark.parametrize("sms", [132, 114])
