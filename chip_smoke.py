@@ -47,7 +47,16 @@ Phases, each printing its lines before the last:
      ms per stage, the device stages' launches and device ms, peak memory
      and seconds; the full-width triangulation and a reduced scene's
      run_mapping on the card against the CPU;
-  7. one JSON line {"kernels": [...]}, then the last line
+  7. the `map` command (python -m onepose_tpu_torch map, through its main()
+     in the process) on a rendered 160-frame orbit sequence written as PNG
+     files, at configs/map.yaml's width with random weights from a seed
+     written as msgpack checkpoints: (a) matcher=nn on every frame (every
+     artifact on disk and consistent, K1 once per batch of 8 frames and no
+     other kernel), (b) matcher=superglue on the first 48 frames (K7 once
+     per chunk of 7 pairs), stage_s and peak memory of each; then the
+     card against the CPU on 12 frames (the extracted keypoints by overlap,
+     the map's counts), and the decoder that load_gray used;
+  8. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -67,7 +76,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "ransac", "main", "pairs", "map")
+PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -150,6 +159,37 @@ MAP_ORACLE = dict(median_m=1e-3, max_m=5e-3, min_points=2000)
 # the map's coordinates are tenths of a metre.
 MAP_CARD_CPU_ABS = 1e-4
 PAIR_RUNS = 2  # timed match_pairs calls per setting, in turns (on, off, off, on)
+# Phase cli: `python -m onepose_tpu_torch map` in the process (its main()),
+# on a rendered orbit sequence written as PNG files, with configs/map.yaml's
+# values but its weight files (the repo holds none): random weights from a
+# seed, written as msgpack checkpoints. (a) matcher=nn on every frame; (b)
+# matcher=superglue on the first CLI_SG_FRAMES frames (a depth cut: a chunk
+# of 7 pairs takes about 0.41 s at 4096 keypoints, PERF.md section 5);
+# per-image annotations as npz (the json writer costs about a second a
+# frame at 4096 x 256; the card-against-CPU runs write json).
+CLI_SCENE = dict(frames=160, img=512, points=2000, blob=11, focal=1800.0, cube=0.2,
+                 win=(10.0, 30.0), noise=(0.1, 0.05))
+CLI_MAP = dict(max_keypoints=4096, keypoint_threshold=0.005, num_covis=10, max_points3d=2500,
+               num_leaf=8, det_type="GT_box")
+CLI_SG_FRAMES = 48
+# Random weights: no SuperGlue score clears 0.7, so every mutual maximum
+# counts (as phase pairs does); epipolar verification keeps the consistent ones.
+CLI_SG_THRESHOLD = 0.0
+# A random SuperPoint is not shift-equivariant: its keypoints do not follow
+# the planted points, so the map's points are not the planted ones. The
+# bounds are the JAX package's own for random weights on a rendered
+# sequence (tests/test_cli.py:201-202), with every point inside the planted
+# box (the map's box filter).
+CLI_ORACLE = dict(min_points=10, max_reproj_px=4.0)
+CLI_SMALL = dict(frames=12, keypoints=1024)
+# Card against CPU, TF32 off on both: fp32 convolutions sum in another
+# order (about 1e-6); a keypoint moves only where NMS or the top-k cut
+# meets two scores that close.
+CLI_KPT_OVERLAP = 0.99
+# C15: cuSOLVER's batched eigh rejected one batch of 39441 4x4 systems.
+CLI_DLT_TRACKS = 40000
+CLI_DESC_ABS = 1e-4
+CLI_COUNT_REL = 0.1
 
 
 def log(msg: str) -> None:
@@ -1796,6 +1836,356 @@ def phase_map(torch):
     log(f"[map] phase map took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase cli: the `map` command ------------------------------------------
+
+
+def _png_gray(path, img) -> None:
+    """An 8-bit grayscale PNG (filter 0 on every row) written with zlib and
+    struct alone."""
+    import zlib
+
+    h, w = img.shape
+    raw = bytearray()
+    for row in img:
+        raw += b"\x00" + row.tobytes()
+
+    def chunk(tag, data):
+        return (len(data).to_bytes(4, "big") + tag + data
+                + zlib.crc32(tag + data).to_bytes(4, "big"))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 0, 0, 0, 0]))
+                + chunk(b"IDAT", zlib.compress(bytes(raw), 6)) + chunk(b"IEND", b""))
+
+
+def _cli_scene(np, root: Path, cfg, seed):
+    """A rendered orbit sequence in the layout of data/paths.py under
+    root/obj/seq (color/*.png, poses_ba/, intrin_ba/, intrinsics.txt) and
+    root/obj/box3d_corners.txt: `points` points in a `cube`-metre cube,
+    each a Gaussian blob of its own size and brightness splatted in a
+    `blob`-pixel window (tests/test_cli.py::build_sequence's texture, cheap
+    to render) on a background of fresh noise in every frame (no region is
+    exactly constant: a cell of all-zero features has no descriptor, its
+    normalisation divides 0 by 0 as in the JAX package), seen from an
+    azimuth window of its own
+    (half-width win[0] + win[1] u^2 degrees), from `frames` cameras on
+    _map_scene's two rings at 1 m with focal length `focal`. Returns the
+    sequence directory and the planted points."""
+    rng = np.random.default_rng(seed)
+    n, F, S, B = cfg["points"], cfg["frames"], cfg["img"], cfg["blob"]
+    pts = (rng.random((n, 3)) - 0.5) * cfg["cube"]
+    az_p = rng.random(n) * 2 * np.pi
+    half = np.radians(cfg["win"][0] + cfg["win"][1] * rng.random(n) ** 2)
+    oy, ox = np.mgrid[:B, :B] - B // 2
+    size = rng.uniform(2.0, 5.0, n)
+    amp = 0.4 + 0.6 * np.sin(rng.random(n) * 2 * np.pi) ** 2
+    blobs = (amp[:, None, None] * np.exp(-(ox ** 2 + oy ** 2)[None] / size[:, None, None]))
+    K = np.array([[cfg["focal"], 0, S / 2], [0, cfg["focal"], S / 2], [0, 0, 1]])
+    seq = root / "obj" / "seq"
+    for sub in ("color", "poses_ba", "intrin_ba"):
+        (seq / sub).mkdir(parents=True)
+    c = cfg["cube"] / 2 * 1.2  # the box: the cube and a margin
+    np.savetxt(root / "obj" / "box3d_corners.txt",
+               [[x, y, z] for z in (c, -c) for x, y in ((-c, -c), (-c, c), (c, c), (c, -c))])
+    (seq / "intrinsics.txt").write_text(f"fx: {K[0, 0]}\nfy: {K[1, 1]}\ncx: {K[0, 2]}\ncy: {K[1, 2]}")
+    per = F // 2
+    for f in range(F):
+        ring = f // per
+        ang = 2 * np.pi * (f % per + 0.5 * ring) / per
+        pose = _look_at(np, np.array([np.cos(ang), np.sin(ang),
+                                      0.3 + 0.4 * ring + 0.1 * np.sin(3 * ang)]))
+        pc = pts @ pose[:3, :3].T + pose[:3, 3]
+        uv = pc @ K.T
+        uv = uv[:, :2] / uv[:, 2:3]
+        d_az = np.abs((az_p - ang + np.pi) % (2 * np.pi) - np.pi)
+        ids = np.nonzero((d_az <= half) & (uv > B).all(1) & (uv < S - B).all(1))[0]
+        u = np.rint(uv[ids]).astype(np.int64)
+        flat = ((u[:, 1, None, None] + oy) * S + u[:, 0, None, None] + ox).reshape(-1)
+        img = cfg["noise"][0] + cfg["noise"][1] * rng.random(S * S)
+        np.add.at(img, flat, blobs[ids].reshape(-1))
+        _png_gray(seq / "color" / f"{f}.png",
+                  (np.clip(img, 0, 1) * 255).round().astype(np.uint8).reshape(S, S))
+        np.savetxt(seq / "poses_ba" / f"{f}.txt", pose)
+        np.savetxt(seq / "intrin_ba" / f"{f}.txt", K)
+    return seq, pts
+
+
+def _cli_subsequence(seq: Path, root: Path, frames: int) -> Path:
+    """The first `frames` frames of `seq` as a sequence of their own."""
+    import shutil
+
+    dst = root / "obj" / "seq"
+    for sub in ("color", "poses_ba", "intrin_ba"):
+        (dst / sub).mkdir(parents=True)
+        for f in range(frames):
+            name = f"{f}.png" if sub == "color" else f"{f}.txt"
+            shutil.copy(seq / sub / name, dst / sub / name)
+    shutil.copy(seq / "intrinsics.txt", dst)
+    shutil.copy(seq.parent / "box3d_corners.txt", root / "obj")
+    return dst
+
+
+def _seeded_checkpoint(np, model, ckpt_dir: Path, seed: int) -> str:
+    """Random weights for `model` from a seed, written as a msgpack
+    checkpoint in the JAX package's layout (utils.checkpoint): kernels drawn
+    as the JAX package's default init draws them (lecun normal: a normal
+    truncated at 2 sigma, scaled to std 1 / sqrt(fan_in)), biases zero, the
+    other parameters (batch-norm affines, the dustbin score) at their
+    constructor values."""
+    from onepose_tpu_torch.utils.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for name, value in model.state_dict().items():
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        v = value.detach().cpu().float().numpy()
+        if leaf == "weight":  # conv OIHW -> HWIO, dense [out, in] -> [in, out]
+            shape = v.transpose(2, 3, 1, 0).shape if v.ndim == 4 else v.T.shape
+            z = np.clip(rng.standard_normal(shape), -2.0, 2.0) / 0.87962566  # unit variance
+            node["kernel"] = (z / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+        elif leaf == "bias":
+            node["bias"] = np.zeros_like(v)
+        else:
+            node[leaf] = v
+    return save_checkpoint(str(ckpt_dir), {"params": tree}, 0)
+
+
+def _cli_map(torch, args, label):
+    """One `python -m onepose_tpu_torch map` in the process: (stats, the
+    kernels' launches in the run, peak device GiB, seconds)."""
+    from onepose_tpu_torch.__main__ import main as cli_main
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    out = Path(next(a.split("=", 1)[1] for a in args if a.startswith("out_dir=")))
+    dev = next(a.split("=", 1)[1] for a in args if a.startswith("device="))
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this path's counts: 0 just before it, read just after
+    t0 = time.perf_counter()
+    rc = cli_main(["map", *args])
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev != "cpu" else 0.0
+    if rc != 0:
+        fail(f"map ({label}) returned {rc}")
+    stats = json.loads((out / "stats.json").read_text())
+    return stats, counts, peak, sec
+
+
+def _cli_artifacts(np, out: Path, stats, box_half, label):
+    """Every artifact of `map` on disk and consistent with stats.json: the
+    3D files, one 2D annotation per index entry (assign matrices inside the
+    frame's keypoints and the map's points), points.ply, every point inside
+    the planted box."""
+    from onepose_tpu_torch.data.anno_io import load_anno2d, load_annotation_npz
+
+    names = ["anno/anno_3d_average.npz", "anno/anno_3d_collect.npz", "anno/idxs.npy",
+             "anno/anno_index.json", "points.ply", "stats.json"]
+    missing = [a for a in names if not (out / a).exists()]
+    anno = load_annotation_npz(str(out / "anno")) if not missing else None
+    P = stats["num_points3d"]
+    index = json.loads((out / "anno" / "anno_index.json").read_text()) if not missing else []
+    bad_2d = 0
+    for e in index:
+        if not Path(e["anno_file"]).exists():
+            missing.append(e["anno_file"])
+            continue
+        a = load_anno2d(e["anno_file"])
+        am = a["assign_matrix"]
+        bad_2d += int(am.size and (am[0].max() >= len(a["keypoints2d"]) or am[1].max() >= P))
+    ply_rows = int((out / "points.ply").read_text().split("element vertex ")[1].split()[0]) \
+        if not missing else -1
+    ok = (not missing and anno["keypoints3d"].shape == (P, 3) and len(anno["idxs"]) == P
+          and anno["desc_concat"].shape[0] == int(anno["idxs"].sum()) and ply_rows == P
+          and bad_2d == 0 and len(index) > 0
+          and bool((np.abs(anno["keypoints3d"]) <= box_half + 1e-6).all()))
+    log(f"[cli] ({label}) artifacts: {len(names)} files and {len(index)} per-image 2D "
+        f"annotations on disk (missing {missing[:3]}), {P} points in the 3D files, the PLY and "
+        f"idxs.npy, assign matrices out of range in {bad_2d} file(s), all points inside the "
+        f"planted box {ok}")
+    if not ok:
+        fail(f"map ({label}) wrote missing or inconsistent artifacts")
+
+
+def _cli_args() -> list:
+    return [f"{k}={v}" for k, v in CLI_MAP.items()]
+
+
+def _cli_stage_line(stats) -> str:
+    return ", ".join(f"{k} {v}" for k, v in stats["stage_s"].items())
+
+
+def _cli_dlt_at_scale(torch, np):
+    """C15: triangulate_tracks_dlt on CLI_DLT_TRACKS random tracks of 4
+    views (90% observed; normalized image coordinates, 3e-4 of noise,
+    camera centres within 1 m at 3 m) on the card, where the batched eigh
+    runs in chunks, against the CPU: ok identical, and xyz within 1e-3 on
+    the tracks of 3 or more views (fp32 holds those within 1e-4 of a
+    float64 solve; a 2-view track's system is too flat to compare)."""
+    from onepose_tpu_torch.geometry.triangulation import EIGH_BATCH, triangulate_tracks_dlt
+
+    rng = np.random.default_rng(5)
+    n, views = CLI_DLT_TRACKS, 4
+    xyz = rng.uniform(-0.5, 0.5, (n, 3))
+    P = np.zeros((n, views, 3, 4))
+    P[..., :3, :3] = np.eye(3)
+    P[..., :, 3] = rng.uniform(-1.0, 1.0, (n, views, 3)) + np.array([0.0, 0.0, 3.0])
+    pix = np.einsum("nvij,nj->nvi", P, np.concatenate([xyz, np.ones((n, 1))], axis=1))
+    uv = pix[..., :2] / pix[..., 2:] + rng.normal(0, 3e-4, (n, views, 2))
+    mask = rng.random((n, views)) < 0.9
+    args = [np.ascontiguousarray(uv, np.float32), np.ascontiguousarray(P, np.float32), mask]
+    out = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        x, ok = triangulate_tracks_dlt(*(torch.from_numpy(a).to(dev) for a in args))
+        out[dev] = (x.cpu().numpy(), ok.cpu().numpy(), time.perf_counter() - t0)
+    (xk, okk, sk), (xc, okc, sc) = out[DEV], out["cpu"]
+    same = bool(np.array_equal(okk, okc))
+    held = okc & (mask.sum(1) >= 3)
+    err = float(np.abs(xk[held] - xc[held]).max())
+    log(f"[cli] DLT of {n} tracks (eigh in chunks of {EIGH_BATCH}; C15), card against CPU: ok "
+        f"identical {same} ({int(okc.sum())} ok), xyz max abs diff {err:.3e} on the "
+        f"{int(held.sum())} tracks of 3 or 4 views (<= 1e-3); {sk:.3f} s on the card, "
+        f"{sc:.3f} s on the CPU")
+    if not (same and err <= 1e-3):
+        fail("triangulation of a large track set on the card disagrees with the CPU")
+
+
+def _cli_card_vs_cpu(torch, np, root, seq, sp_ckpt):
+    """CLI_SMALL on the card and on the CPU: the features that `map`
+    extracts (the same function, the same weights) by keypoint overlap and
+    descriptor error; then `map` itself on each device, its counts."""
+    from onepose_tpu_torch.cli.common import extract_sequence_features, load_superpoint_params
+    from onepose_tpu_torch.models.superpoint import SuperPoint
+
+    small = _cli_subsequence(seq, root / "small", CLI_SMALL["frames"])
+    feats = {}
+    for dev in (DEV, "cpu"):
+        sp = SuperPoint(nms_kernel=dev != "cpu", vgg_kernel=False)
+        feats[dev] = extract_sequence_features(str(small), load_superpoint_params(sp, sp_ckpt), sp,
+                                               max_keypoints=CLI_SMALL["keypoints"], device=dev)
+    a, c = feats[DEV], feats["cpu"]
+    overlap = _keypoint_overlap({"keypoints": a["keypoints"], "kpt_mask": a["mask"]},
+                                {"keypoints": c["keypoints"], "kpt_mask": c["mask"]})
+    same = (a["keypoints"] == c["keypoints"]).all(-1) & a["mask"] & c["mask"]
+    desc_err = float(np.abs(a["descriptors"] - c["descriptors"])[same].max())
+    log(f"[cli] card against CPU, {CLI_SMALL['frames']} frames x {CLI_SMALL['keypoints']} "
+        f"keypoints: valid keypoints {int(a['mask'].sum())} / {int(c['mask'].sum())}, overlap "
+        f"{overlap:.4f} (>= {CLI_KPT_OVERLAP}), descriptor max abs diff on shared slots "
+        f"{desc_err:.3e} (< {CLI_DESC_ABS})")
+    if not (overlap >= CLI_KPT_OVERLAP and desc_err < CLI_DESC_ABS):
+        fail("the card's features disagree with the CPU's")
+    stats = {}
+    for dev in (DEV, "cpu"):
+        args = [f"data_dir={small}", f"out_dir={root / 'small' / dev}", *_cli_args(),
+                f"max_keypoints={CLI_SMALL['keypoints']}", "matcher=nn",
+                f"weights.superpoint={sp_ckpt}", f"cache={str(_has_h5py()).lower()}",
+                f"device={dev}"]
+        stats[dev], counts, _, sec = _cli_map(torch, args, f"card against CPU, {dev}")
+        _cli_artifacts(np, root / "small" / dev, stats[dev], CLI_SCENE["cube"] / 2 * 1.2,
+                       f"card against CPU, {dev}")
+        log(f"[cli] card against CPU, map on {dev}: {sec:.2f} s, launches {counts}")
+    k, c = stats[DEV], stats["cpu"]
+    exact = ("num_frames", "num_pairs")
+    close = ("num_tracks", "num_points3d", "num_observations")
+    diffs = {x: (k[x], c[x]) for x in exact + close}
+    ok = (all(k[x] == c[x] for x in exact)
+          and all(abs(k[x] - c[x]) <= CLI_COUNT_REL * max(c[x], 1) for x in close))
+    log(f"[cli] card against CPU, map counts (card, CPU): {diffs}; frames and pairs identical, "
+        f"tracks, points and observations within {CLI_COUNT_REL:.0%} (a keypoint that moves "
+        "between the devices changes the tracks through it; identical "
+        f"{all(k[x] == c[x] for x in close)})")
+    if not ok:
+        fail("map on the card disagrees with map on the CPU beyond the stated margin")
+
+
+def _has_h5py() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def phase_cli(torch):
+    """`python -m onepose_tpu_torch map` on the card, in the process, on a
+    rendered sequence: (a) matcher=nn at configs/map.yaml's width, (b)
+    matcher=superglue on the first frames, then the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from onepose_tpu_torch.models.superglue import SuperGlue
+    from onepose_tpu_torch.models.superpoint import SuperPoint
+    from onepose_tpu_torch.native import frame_loader
+    from onepose_tpu_torch.parallel.sfm_parallel import superglue_chunk
+
+    t_phase = time.perf_counter()
+    log(f"[cli] TF32: cudnn {torch.backends.cudnn.allow_tf32}, matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32} (feature extraction turns both off itself)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        seq, _ = _cli_scene(np, root / "full", CLI_SCENE, seed=0)
+        decoder = "native" if frame_loader.native_available() else "cv2"
+        log(f"[cli] sequence: {CLI_SCENE['frames']} frames of {CLI_SCENE['img']}^2, "
+            f"{CLI_SCENE['points']} planted points, written as PNG (zlib) in "
+            f"{time.perf_counter() - t0:.1f} s; load_gray decodes with {decoder}; h5py "
+            f"{'present: cache=true' if _has_h5py() else 'absent: cache=false'}")
+        sp_ckpt = _seeded_checkpoint(np, SuperPoint(), root / "ckpt_superpoint", seed=1)
+        sg_ckpt = _seeded_checkpoint(np, SuperGlue(), root / "ckpt_superglue", seed=2)
+        cache = f"cache={str(_has_h5py()).lower()}"
+        box_half = CLI_SCENE["cube"] / 2 * 1.2
+        _cli_dlt_at_scale(torch, np)
+
+        # (a) matcher=nn, every frame.
+        out = root / "out_a"
+        stats, counts, peak, sec = _cli_map(torch, [
+            f"data_dir={seq}", f"out_dir={out}", *_cli_args(), "matcher=nn",
+            f"weights.superpoint={sp_ckpt}", cache, "anno_format=npz", f"device={DEV}"], "a")
+        _cli_artifacts(np, out, stats, box_half, "a")
+        batches = -(-CLI_SCENE["frames"] // 8)
+        want = {k: (batches if k == "nms" else 0) for k in counts}
+        log(f"[cli] (a) matcher=nn, {CLI_SCENE['frames']} frames: {stats['num_pairs']} pairs, "
+            f"{stats['num_tracks']} tracks, {stats['num_points3d']} points (> "
+            f"{CLI_ORACLE['min_points']}), mean reprojection error "
+            f"{stats['mean_reproj_error_px']:.4f} px (< {CLI_ORACLE['max_reproj_px']}); stage_s "
+            f"{_cli_stage_line(stats)}; {sec:.2f} s in all, peak device memory {peak:.2f} GiB; "
+            f"launches {counts} (want K1 once per batch of 8: {batches}, no other kernel)")
+        if not (stats["num_points3d"] > CLI_ORACLE["min_points"]
+                and stats["mean_reproj_error_px"] < CLI_ORACLE["max_reproj_px"]):
+            fail("map (a) is outside the planted scene's bounds")
+        if counts != want:
+            fail(f"map (a) launched {counts}, want {want}")
+
+        # (b) matcher=superglue on the first CLI_SG_FRAMES frames.
+        sub = _cli_subsequence(seq, root / "sub", CLI_SG_FRAMES)
+        out = root / "out_b"
+        stats, counts, peak, sec = _cli_map(torch, [
+            f"data_dir={sub}", f"out_dir={out}", *_cli_args(), "matcher=superglue",
+            f"match_threshold={CLI_SG_THRESHOLD}", f"weights.superpoint={sp_ckpt}",
+            f"weights.superglue={sg_ckpt}", cache, "anno_format=npz", f"device={DEV}"], "b")
+        _cli_artifacts(np, out, stats, box_half, "b")
+        chunk = superglue_chunk(CLI_MAP["max_keypoints"], 16)
+        chunks = -(-stats["num_pairs"] // chunk)
+        batches = -(-CLI_SG_FRAMES // 8)
+        log(f"[cli] (b) matcher=superglue, match_threshold {CLI_SG_THRESHOLD}, {CLI_SG_FRAMES} "
+            f"frames: {stats['num_pairs']} pairs in {chunks} chunks of {chunk}, "
+            f"{stats['num_points3d']} points, mean reprojection error "
+            f"{stats['mean_reproj_error_px']:.4f} px; stage_s {_cli_stage_line(stats)}; "
+            f"{sec:.2f} s in all, peak device memory {peak:.2f} GiB; launches {counts} (want K7 "
+            f"once per chunk: {chunks}, K1 once per batch: {batches})")
+        if not (counts["sinkhorn_stream"] == chunks and counts["nms"] == batches
+                and counts["sinkhorn"] == 0 and counts["vgg_stage"] == 0):
+            fail(f"map (b) launched {counts}")
+
+        _cli_card_vs_cpu(torch, np, root, seq, sp_ckpt)
+    log(f"[cli] phase cli took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -1832,6 +2222,8 @@ def main(argv=None) -> int:
         phase_pairs(torch, rows)
     if "map" in phases:
         phase_map(torch)
+    if "cli" in phases:
+        phase_cli(torch)
     log(f"[total] {time.perf_counter() - t_start:.1f} s of command time, the build included")
     if set(phases) != set(PHASES):
         log(f"[partial] ran {phases} of {list(PHASES)}: no result line")

@@ -2,10 +2,11 @@
 
 Port of onepose_tpu/geometry/triangulation.py: every track is padded to T
 observations with a validity mask, and thousands of tracks are solved in
-one batched 4x4 symmetric eigendecomposition (`torch.linalg.eigh`,
-ascending, as `jnp.linalg.eigh`), then refined by damped Gauss-Newton with
-one 3x3 solve per track. The JAX package takes the refinement's Jacobian
-from `jax.jacfwd`; here it is written out. Full fp32, TF32 off.
+batched 4x4 symmetric eigendecompositions (`torch.linalg.eigh`,
+ascending, as `jnp.linalg.eigh`; chunks of EIGH_BATCH systems), then
+refined by damped Gauss-Newton with one 3x3 solve per track. The JAX
+package takes the refinement's Jacobian from `jax.jacfwd`; here it is
+written out. Full fp32, TF32 off.
 """
 
 from __future__ import annotations
@@ -15,10 +16,22 @@ import torch
 from onepose_tpu_torch.utils.precision import fp32_matmuls
 
 
+# Systems per batched eigh call. On the card cuSOLVER's batched eigh
+# (cusolverDnXsyevBatched, torch 2.11 with CUDA 12.8) rejects a batch of
+# 39441 4x4 systems with CUSOLVER_STATUS_INVALID_VALUE and takes 12000, so
+# a large track set is solved in chunks (`map` at 4096 keypoints over 160
+# frames triangulates about 40000 tracks).
+EIGH_BATCH = 8192
+
+
 def _dlt_solve(A_sq: torch.Tensor) -> torch.Tensor:
     """Smallest eigenvector of symmetric [..., 4, 4] (null space of A)."""
-    _, vecs = torch.linalg.eigh(A_sq)  # ascending eigenvalues
-    return vecs[..., :, 0]
+    flat = A_sq.reshape(-1, 4, 4)
+    if flat.shape[0] == 0:
+        return flat.new_zeros(A_sq.shape[:-1])
+    # ascending eigenvalues; the first column is the smallest one's vector
+    vecs = torch.cat([torch.linalg.eigh(c)[1][:, :, 0] for c in flat.split(EIGH_BATCH)])
+    return vecs.reshape(A_sq.shape[:-1])
 
 
 @fp32_matmuls()

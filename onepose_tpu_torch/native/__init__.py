@@ -1,13 +1,17 @@
-"""The SfM host path's union-find core in C++, built by g++ at first use.
+"""The host cores in C++, built by g++ at first use: the SfM union-find and
+the image decoder.
 
-Port of onepose_tpu/native/__init__.py (its union-find half; the frame
-loader comes with `infer`). `union_find.cpp` is compiled into
+Port of onepose_tpu/native/__init__.py. `union_find.cpp` and
+`frame_loader.cpp` are compiled into one library under
 `build/torch_native/` at the repository root, never into the package
-directory; the file name carries a hash of the source and flags, so an
-edited source is rebuilt and a stale library never loaded. Without g++
-(or when the build fails) the same functions run in Python, with the same
-labels: union to the minimum root, path halving, a full flatten at the
-end. `backend()` says which one runs.
+directory, as the JAX package builds its own: the first attempt links
+libpng, libjpeg and zlib for the decoder; where that fails (no codec
+headers or libraries), the second builds the union-find core alone. The
+file name carries a hash of the sources and flags, so an edited source is
+rebuilt and a stale library never loaded. Without g++ (or when both builds
+fail) the union-find runs in Python, with the same labels: union to the
+minimum root, path halving, a full flatten at the end; image decoding then
+falls back to cv2 (`data.paths.load_gray`). `backend()` says which one runs.
 """
 
 from __future__ import annotations
@@ -22,65 +26,94 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().with_name("union_find.cpp")
+HERE = Path(__file__).resolve().parent
+SOURCE = HERE / "union_find.cpp"
+LOADER_SOURCE = HERE / "frame_loader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+CODEC_LIBS = ("-lpng", "-ljpeg", "-lz")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-_unavailable = False  # g++ missing or the build failed: the Python versions run
+_unavailable = False  # g++ missing or every build failed: the Python versions run
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libunion_find-{h.hexdigest()[:16]}.so"
+def _sources(codecs: bool) -> list[Path]:
+    return [SOURCE, LOADER_SOURCE] if codecs else [SOURCE]
 
 
-def _build(out: Path) -> bool:
+def library_path(codecs: bool = True) -> Path:
+    """The library with the decoder (codecs=True) or the union-find core alone."""
+    h = hashlib.sha256()
+    for src in _sources(codecs):
+        h.update(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS + (CODEC_LIBS if codecs else ())).encode())
+    name = "libonepose_native" if codecs else "libunion_find"
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path, codecs: bool) -> bool:
     gxx = shutil.which("g++")
     if gxx is None:
         return False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, *map(str, _sources(codecs)), *(CODEC_LIBS if codecs else ()),
+           "-o", str(tmp)]
     try:
-        subprocess.run([gxx, *GXX_FLAGS, str(SOURCE), "-o", str(tmp)], check=True,
-                       capture_output=True, timeout=120)
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (OSError, subprocess.SubprocessError):
         return False
     os.replace(tmp, out)  # atomic: a reader never sees half a library
     return True
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.uf_connected_components.argtypes = [ctypes.c_int64, i64, i64, ctypes.c_int64, i64]
+    lib.uf_connected_components.restype = None
+    lib.uf_merge_close.argtypes = [
+        ctypes.c_int64, np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), i64, i64,
+        ctypes.c_int64, ctypes.c_double, i64]
+    lib.uf_merge_close.restype = None
+    if hasattr(lib, "fl_probe"):
+        lib.fl_probe.restype = ctypes.c_int
+        lib.fl_probe.argtypes = [ctypes.c_char_p,
+                                 np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        lib.fl_read_gray.restype = ctypes.c_int
+        lib.fl_read_gray.argtypes = [ctypes.c_char_p,
+                                     np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+                                     ctypes.c_int64]
+
+
 def get_lib() -> ctypes.CDLL | None:
-    """The loaded library, built first if needed; None without g++."""
+    """The loaded library, built first if needed (with the decoder where the
+    codecs link); None without g++."""
     global _lib, _unavailable
     with _lock:
         if _lib is not None or _unavailable:
             return _lib
-        out = library_path()
-        if not out.exists() and not _build(out):
-            _unavailable = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(out))
-        except OSError:
-            _unavailable = True
-            return None
-        i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-        lib.uf_connected_components.argtypes = [ctypes.c_int64, i64, i64, ctypes.c_int64, i64]
-        lib.uf_connected_components.restype = None
-        lib.uf_merge_close.argtypes = [
-            ctypes.c_int64, np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), i64, i64,
-            ctypes.c_int64, ctypes.c_double, i64]
-        lib.uf_merge_close.restype = None
-        _lib = lib
-        return _lib
+        for codecs in (True, False):
+            out = library_path(codecs)
+            if out.exists() or _build(out, codecs):
+                try:
+                    lib = ctypes.CDLL(str(out))
+                except OSError:
+                    continue
+                _bind(lib)
+                _lib = lib
+                return _lib
+        _unavailable = True
+        return None
 
 
 def backend() -> str:
-    """"g++" when the C++ core runs, "python" for the fallback."""
-    return "g++" if get_lib() is not None else "python"
+    """"g++ with codecs" (union-find and decoder), "g++" (union-find only)
+    or "python" (the fallback)."""
+    lib = get_lib()
+    if lib is None:
+        return "python"
+    return "g++ with codecs" if hasattr(lib, "fl_probe") else "g++"
 
 
 def _find(parent: np.ndarray, x: int) -> int:

@@ -3,6 +3,7 @@
 from onepose_tpu_torch.parallel.sfm_parallel import (
     make_nn_pair_matcher,
     make_superglue_pair_matcher,
+    resolve_sfm_mesh,
 )
 
-__all__ = ["make_nn_pair_matcher", "make_superglue_pair_matcher"]
+__all__ = ["make_nn_pair_matcher", "make_superglue_pair_matcher", "resolve_sfm_mesh"]

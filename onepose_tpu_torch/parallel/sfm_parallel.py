@@ -9,7 +9,9 @@ is padded by repeating its first pair, and its extra rows are dropped.
 
 Both `make_*` functions return `match_pairs(pairs) -> np.ndarray [P, N]
 int64` (-1 unmatched), the callable that the SfM mapping consumes. `mesh` other than
-None raises: sharding the pair axis over several cards is a later item.
+None raises: sharding the pair axis over several cards is a later item, and
+`resolve_sfm_mesh` (the `data_parallel` config value) gives no mesh on one
+card and raises where it would span several.
 Entry points run on CUDA unless the caller passes device="cpu".
 """
 
@@ -32,6 +34,21 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("pair matching over a device mesh is not ported yet "
                                   "(ROADMAP A14): pass mesh=None")
+
+
+def resolve_sfm_mesh(data_parallel) -> None:
+    """The SfM front end's mesh for the `data_parallel` config value, as the
+    JAX package resolves it: False / None -> none; True -> every local
+    card; an int -> that many, at most the cards present. One card gives
+    no mesh; more raise until the multi-device work (ROADMAP A14)."""
+    if not data_parallel:
+        return None
+    cards = max(1, torch.cuda.device_count())
+    n = cards if data_parallel is True else int(data_parallel)
+    if max(1, min(n, cards)) == 1:
+        return None
+    raise NotImplementedError(f"data_parallel={data_parallel!r} over {cards} cards is not "
+                              "ported yet (ROADMAP A14): pass data_parallel=false")
 
 
 def _pad_frames(x: np.ndarray) -> np.ndarray:

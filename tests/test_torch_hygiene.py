@@ -15,22 +15,44 @@ PORT_FILES = sorted((ROOT / "onepose_tpu_torch").rglob("*.py")) + [ROOT / "chip_
 FORBIDDEN = re.compile(r"import jax|from jax|flax|onepose_tpu\.")
 
 
-def test_import_loads_no_jax():
+MODULES = (
+    "onepose_tpu_torch, onepose_tpu_torch.runtime, "
+    "onepose_tpu_torch.geometry, onepose_tpu_torch.models.bridge, "
+    "onepose_tpu_torch.ops.kernels, onepose_tpu_torch.models.superglue, "
+    "onepose_tpu_torch.models.nn_matcher, onepose_tpu_torch.parallel.sfm_parallel, "
+    "onepose_tpu_torch.sfm, onepose_tpu_torch.sfm.mapping, onepose_tpu_torch.ops.lm, "
+    "onepose_tpu_torch.geometry.triangulation, onepose_tpu_torch.native, "
+    "onepose_tpu_torch.native.frame_loader, onepose_tpu_torch.config, "
+    "onepose_tpu_torch.data, onepose_tpu_torch.data.paths, onepose_tpu_torch.data.padding, "
+    "onepose_tpu_torch.data.anno_io, onepose_tpu_torch.data.colmap_io, "
+    "onepose_tpu_torch.data.colmap_database, onepose_tpu_torch.utils.checkpoint, "
+    "onepose_tpu_torch.utils.profiling, onepose_tpu_torch.utils.precision, "
+    "onepose_tpu_torch.cli.common, onepose_tpu_torch.cli.map_object, "
+    "onepose_tpu_torch.__main__, onepose_tpu_torch.sfm.cache"
+)
+
+
+def _assert_import_loads_none_of(tops: tuple) -> None:
+    """Importing every port module loads no module under `tops`."""
     code = (
-        "import sys, onepose_tpu_torch, onepose_tpu_torch.runtime, "
-        "onepose_tpu_torch.geometry, onepose_tpu_torch.models.bridge, "
-        "onepose_tpu_torch.ops.kernels, onepose_tpu_torch.models.superglue, "
-        "onepose_tpu_torch.models.nn_matcher, onepose_tpu_torch.parallel.sfm_parallel, "
-        "onepose_tpu_torch.sfm, onepose_tpu_torch.sfm.mapping, onepose_tpu_torch.ops.lm, "
-        "onepose_tpu_torch.geometry.triangulation, onepose_tpu_torch.native\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'onepose_tpu', "
-        "'triton')]\n"
+        f"import sys, {MODULES}\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {tops!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_import_loads_no_jax():
+    _assert_import_loads_none_of(("jax", "flax", "onepose_tpu", "triton"))
+
+
+def test_import_loads_no_optional_io_package():
+    """The card's machine has no h5py (and may lack cv2, yaml, msgpack): the
+    port imports each only inside the function that needs it."""
+    _assert_import_loads_none_of(("h5py", "cv2", "yaml", "msgpack"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

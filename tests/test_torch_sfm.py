@@ -140,7 +140,7 @@ def test_native_builds_and_matches_python_and_jax():
     """The g++ build, its Python fallback and the JAX package's native core
     give identical labels: connected components of random edge graphs, and
     the distance-gated merge of clustered points."""
-    assert native.backend() == ("g++" if shutil.which("g++") else "python")
+    assert native.backend().split()[0] == ("g++" if shutil.which("g++") else "python")
     assert native.library_path().parent == native.BUILD_DIR
     assert native.BUILD_DIR.parts[-2:] == ("build", "torch_native")
     rng = np.random.default_rng(0)
@@ -347,6 +347,25 @@ def test_triangulation_matches_jax():
     np.testing.assert_allclose(gt[okj], gj[okj], atol=1e-5)
     err = lambda x: np.linalg.norm(x[okj] - pts[okj], axis=-1).mean()  # noqa: E731
     assert err(gt) < err(xt)
+
+
+def test_dlt_solves_in_chunks(monkeypatch):
+    """The batched eigh runs in chunks of EIGH_BATCH systems (cuSOLVER
+    rejects a batch of about 40000): chunks of 5 give the same vectors as
+    one call, and JAX's DLT; an empty track set gives an empty result."""
+    pts, uv, K, R, t, mask, P = _tri_inputs()
+    args = (torch.from_numpy(uv), torch.from_numpy(P), torch.from_numpy(mask))
+    whole, ok = triangulation.triangulate_tracks_dlt(*args)
+    monkeypatch.setattr(triangulation, "EIGH_BATCH", 5)
+    assert len(uv) > 10  # several chunks, the last one ragged
+    chunked, ok_c = triangulation.triangulate_tracks_dlt(*args)
+    np.testing.assert_array_equal(ok_c.numpy(), ok.numpy())
+    np.testing.assert_array_equal(chunked.numpy()[ok.numpy()], whole.numpy()[ok.numpy()])
+    xj, okj = map(np.asarray, jax_tri.triangulate_tracks_dlt(*map(jnp.asarray, (uv, P, mask))))
+    np.testing.assert_array_equal(ok_c.numpy(), okj)
+    np.testing.assert_allclose(chunked.numpy()[okj], xj[okj], atol=1e-4)
+    empty, ok_e = triangulation.triangulate_tracks_dlt(*(a[:0] for a in args))
+    assert empty.shape == (0, 3) and ok_e.shape == (0,)
 
 
 # --- 8. triangulate and filter ---------------------------------------------
