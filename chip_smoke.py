@@ -76,7 +76,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli")
+PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "detect", "infer")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -190,6 +190,43 @@ CLI_KPT_OVERLAP = 0.99
 CLI_DLT_TRACKS = 40000
 CLI_DESC_ABS = 1e-4
 CLI_COUNT_REL = 0.1
+# The serving paths' new kernel shapes, held in phase kernels with a
+# generator of their own (the earlier inputs keep their draws): K1 on one
+# full phone frame (detect's SuperPoint, batch 1), K6 on detect's SuperGlue
+# (15 reference views against one frame, 1000 keypoints each side).
+NMS_FULL_FRAME = (1, 1440, 1920)
+SINKHORN_DETECT = (15, 1001, 1001)
+# Phase detect: `python -m onepose_tpu_torch detect` in the process, the DB
+# from phase cli's 160-frame orbit (512 x 512 crops), the queries full
+# 1440 x 1920 frames of the same object from viewpoints a quarter step
+# round from the DB's; (a) detector_matcher=nn on DETECT_FRAMES frames,
+# (b) superglue on DETECT_SG_FRAMES (a depth cut: SuperGlue's GNN takes
+# about 0.1 s a frame), then the card against the CPU on DETECT_SMALL
+# (an 8-frame DB, a depth cut: the CPU extracts it). The query frames are
+# written at zlib level 1 (level 6 took 6 s for 24 frames).
+DETECT_FRAMES = 24
+DETECT_SG_FRAMES = 8
+DETECT = dict(n_ref_views=15, max_keypoints=1000, crop_size=512)
+DETECT_HW = (1440, 1920)
+QUERY_SUBS = ("color_full", "poses_ba")  # what a query sequence holds besides intrinsics.txt
+DETECT_SMALL = dict(db_frames=8, frames=2)
+DETECT_BOX_PX = 1.0  # card against CPU
+# The box K_crop implies against the detected box: the crop's first stage
+# truncates the box to whole pixels and centres it there, which moves each
+# side of the implied box by up to about a pixel.
+DETECT_IMPLIED_PX = 1.5
+# Phase infer: `python -m onepose_tpu_torch infer` in the process at the
+# shipped width (batch 8, 1000 keypoints, shape3d 2000, 8 leaves, 4 blocks
+# at d_model 256) on phase cli's 160 frames and map and on phase detect's
+# crops; the card against the CPU on INFER_SMALL frames; the planted
+# oracle (tests/test_cli.py:663) at production width through the feature
+# route: INFER_ORACLE frames of 512 x 512, 1000 points with a unit
+# descriptor each on a jittered 10^3 grid (spacing 1.8 cm, far above map's
+# 1 mm merge), mapped by run_mapping on the card.
+INFER_SMALL = 8
+INFER_POSE_ABS = 1e-3
+INFER_ORACLE = dict(frames=48, grid=10, cube=0.16, jitter=0.003, focal=500.0, img=512,
+                    radius=0.6)
 
 
 def log(msg: str) -> None:
@@ -447,6 +484,7 @@ def phase_kernels(torch, timer):
     rows["vgg_stage"] = _kernels_vgg(torch, timer, g)
     rows["gats_block"] = _kernels_block(torch, timer, g)
     rows.update(_kernels_sinkhorn(torch, timer, g))
+    rows.update(_kernels_serving(torch, timer))
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -851,6 +889,67 @@ def _kernels_sinkhorn(torch, timer, g):
             source=f"onepose_tpu_torch/csrc/{name.replace('_wide', '')}.cu",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
             bound_by=by)
+    return rows
+
+
+def _kernels_serving(torch, timer):
+    """K1 at NMS_FULL_FRAME (detect's full frame; bit-exact, smooth and
+    plateau inputs) and K6 at SINKHORN_DETECT (detect's SuperGlue: valid
+    slots within SINKHORN_ABS, matches identical but on near ties), each
+    beside its plain version and bound, timed as the rows above."""
+    from onepose_tpu_torch.ops.kernels import _build, score_path, sinkhorn
+
+    g = torch.Generator(device=DEV).manual_seed(41)
+    rows = {}
+    b, h, w = NMS_FULL_FRAME
+    smooth = _nms_input(torch, g, b, h, w)
+    for x, kind in ((smooth, "smooth"), (_nms_input(torch, g, b, h, w, plateau=True), "plateau")):
+        out, ref = score_path.nms(x, 4), score_path.simple_nms(x, 4)
+        torch.cuda.synchronize()
+        n_bad, n_max = int((out != ref).sum()), int((out > 0).sum())
+        log(f"[kernels] nms {NMS_FULL_FRAME} radius 4 ({kind} input, a full frame): {n_bad} "
+            f"differing pixels (bit-exact required), {n_max} maxima kept")
+        if n_bad or n_max == 0:
+            fail("nms kernel differs from simple_nms on a full frame")
+    row = dict(name="nms_full_frame", route="cuda", source="onepose_tpu_torch/csrc/score_path.cu",
+               replaces="onepose_tpu/ops/pallas/score_path.py:94", max_abs_err=0.0,
+               ms=timer(lambda: score_path.nms(smooth, 4)),
+               plain_ms=timer(lambda: score_path.simple_nms(smooth, 4), reps=5), library_ms=None)
+    row["bound_ms"], row["bound_by"] = bound(2 * smooth.numel() * 4, 5 * 2 * 9 * smooth.numel())
+    rows["nms_full_frame"] = row
+
+    b, m, n = SINKHORN_DETECT
+    c, mu, nu, norm, m0, m1 = _sinkhorn_input(torch, g, b, m, n)
+    sms = _build.device_sms(c.device)
+    p = sinkhorn.plan(m, n, sms=sms)
+    lib = _build.load("sinkhorn")
+    max_blocks = _build.resident_blocks(lib, "sinkhorn_max_blocks", p.warps_per_group, p.chunks,
+                                        p.smem)
+    ppw = sinkhorn.pairs_per_wave(b, p.blocks_per_pair, max_blocks)
+    kern = lambda: sinkhorn.sinkhorn_kernel(c, mu, nu, SINKHORN_ITERS)  # noqa: E731
+    ref = lambda: sinkhorn.sinkhorn_potentials_plain(c, mu, nu, SINKHORN_ITERS)  # noqa: E731
+    (u, v), (ur, vr) = kern(), ref()
+    torch.cuda.synchronize()
+    ones = torch.ones((b, 1), dtype=torch.bool, device=DEV)
+    vm0, vm1 = torch.cat([m0, ones], 1), torch.cat([m1, ones], 1)
+    err = max(float((u - ur).abs()[vm0].max()), float((v - vr).abs()[vm1].max()))
+    zk, zp = (c + a[:, :, None] + bb[:, None, :] - norm[:, None, None]
+              for a, bb in ((u, v), (ur, vr)))
+    bad, leads, tol = _near_tie_mismatches(torch, zk, zp, m0, m1, err)
+    ties = all(lead <= tol for lead in leads)
+    log(f"[kernels] sinkhorn {SINKHORN_DETECT} (detect's SuperGlue) x {SINKHORN_ITERS}: plan "
+        f"{p.blocks_per_pair} bands of {p.rows} rows a pair ({p.warps_per_group} warps a group, "
+        f"{p.chunks} chunks a thread), {max_blocks} resident blocks, {ppw} pairs a wave, "
+        f"{-(-b // ppw)} waves; max abs err on valid slots {err:.3e} (<= {SINKHORN_ABS}), {bad} "
+        f"match mismatches (only on near ties{': leads ' + ', '.join(f'{x:.3e}' for x in leads) if bad else ''})")
+    if not (err <= SINKHORN_ABS and ties and torch.isfinite(u).all() and torch.isfinite(v).all()):
+        fail("the sinkhorn kernel differs from its plain version at detect's shape")
+    bms, by = bound(4 * (b * m * n + 2 * b * (m + n)), 2 * b * m * n * SINKHORN_ITERS, EXP_PER_S)
+    rows["sinkhorn_detect"] = dict(
+        name="sinkhorn_detect", route="cuda", source="onepose_tpu_torch/csrc/sinkhorn.cu",
+        replaces="onepose_tpu/ops/pallas/sinkhorn.py:78", max_abs_err=err,
+        ms=timer(kern, reps=10), plain_ms=timer(ref, reps=3, warmup=1), library_ms=None,
+        bound_ms=bms, bound_by=by)
     return rows
 
 
@@ -1839,9 +1938,9 @@ def phase_map(torch):
 # --- phase cli: the `map` command ------------------------------------------
 
 
-def _png_gray(path, img) -> None:
-    """An 8-bit grayscale PNG (filter 0 on every row) written with zlib and
-    struct alone."""
+def _png_gray(path, img, level: int = 6) -> None:
+    """An 8-bit grayscale PNG (filter 0 on every row) written with zlib (at
+    compression `level`) and struct alone."""
     import zlib
 
     h, w = img.shape
@@ -1856,24 +1955,17 @@ def _png_gray(path, img) -> None:
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
                 + chunk(b"IHDR", w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 0, 0, 0, 0]))
-                + chunk(b"IDAT", zlib.compress(bytes(raw), 6)) + chunk(b"IEND", b""))
+                + chunk(b"IDAT", zlib.compress(bytes(raw), level)) + chunk(b"IEND", b""))
 
 
-def _cli_scene(np, root: Path, cfg, seed):
-    """A rendered orbit sequence in the layout of data/paths.py under
-    root/obj/seq (color/*.png, poses_ba/, intrin_ba/, intrinsics.txt) and
-    root/obj/box3d_corners.txt: `points` points in a `cube`-metre cube,
-    each a Gaussian blob of its own size and brightness splatted in a
-    `blob`-pixel window (tests/test_cli.py::build_sequence's texture, cheap
-    to render) on a background of fresh noise in every frame (no region is
-    exactly constant: a cell of all-zero features has no descriptor, its
-    normalisation divides 0 by 0 as in the JAX package), seen from an
-    azimuth window of its own
-    (half-width win[0] + win[1] u^2 degrees), from `frames` cameras on
-    _map_scene's two rings at 1 m with focal length `focal`. Returns the
-    sequence directory and the planted points."""
+def _cli_object(np, cfg, seed):
+    """The rendered object of `_cli_scene`: `points` points in a
+    `cube`-metre cube, each a Gaussian blob of its own size and brightness
+    in a `blob`-pixel window, seen from an azimuth window of its own
+    (half-width win[0] + win[1] u^2 degrees). Returns the object and the
+    generator, whose next draws are the frames' background noise."""
     rng = np.random.default_rng(seed)
-    n, F, S, B = cfg["points"], cfg["frames"], cfg["img"], cfg["blob"]
+    n, B = cfg["points"], cfg["blob"]
     pts = (rng.random((n, 3)) - 0.5) * cfg["cube"]
     az_p = rng.random(n) * 2 * np.pi
     half = np.radians(cfg["win"][0] + cfg["win"][1] * rng.random(n) ** 2)
@@ -1881,6 +1973,48 @@ def _cli_scene(np, root: Path, cfg, seed):
     size = rng.uniform(2.0, 5.0, n)
     amp = 0.4 + 0.6 * np.sin(rng.random(n) * 2 * np.pi) ** 2
     blobs = (amp[:, None, None] * np.exp(-(ox ** 2 + oy ** 2)[None] / size[:, None, None]))
+    return dict(pts=pts, az_p=az_p, half=half, oy=oy, ox=ox, blobs=blobs), rng
+
+
+def _cli_frame(np, obj, rng, cfg, pose, ang, K, hw):
+    """One 8-bit frame [h, w] of the object from `pose` (azimuth `ang`):
+    each visible point's blob splatted on a background of fresh noise."""
+    h, w = hw
+    B = cfg["blob"]
+    pc = obj["pts"] @ pose[:3, :3].T + pose[:3, 3]
+    uv = pc @ K.T
+    uv = uv[:, :2] / uv[:, 2:3]
+    d_az = np.abs((obj["az_p"] - ang + np.pi) % (2 * np.pi) - np.pi)
+    ids = np.nonzero((d_az <= obj["half"]) & (uv > B).all(1) & (uv[:, 0] < w - B)
+                     & (uv[:, 1] < h - B))[0]
+    u = np.rint(uv[ids]).astype(np.int64)
+    flat = ((u[:, 1, None, None] + obj["oy"]) * w + u[:, 0, None, None] + obj["ox"]).reshape(-1)
+    img = cfg["noise"][0] + cfg["noise"][1] * rng.random(h * w)
+    np.add.at(img, flat, obj["blobs"][ids].reshape(-1))
+    return (np.clip(img, 0, 1) * 255).round().astype(np.uint8).reshape(h, w)
+
+
+def _ring_pose(np, f, per, offset=0.0):
+    """Camera f of _map_scene's two rings at 1 m (`per` cameras a ring),
+    `offset` of a step further round: (pose, azimuth)."""
+    ring = f // per
+    ang = 2 * np.pi * (f % per + 0.5 * ring + offset) / per
+    return _look_at(np, np.array([np.cos(ang), np.sin(ang),
+                                  0.3 + 0.4 * ring + 0.1 * np.sin(3 * ang)])), ang
+
+
+def _cli_scene(np, root: Path, cfg, seed):
+    """A rendered orbit sequence in the layout of data/paths.py under
+    root/obj/seq (color/*.png, poses_ba/, intrin_ba/, intrinsics.txt) and
+    root/obj/box3d_corners.txt: `_cli_object` (tests/test_cli.py::
+    build_sequence's texture, cheap to render) on a background of fresh
+    noise in every frame (no region is exactly constant: a cell of all-zero
+    features has no descriptor, its normalisation divides 0 by 0 as in the
+    JAX package), from `frames` cameras on _map_scene's two rings at 1 m
+    with focal length `focal`. Returns the sequence directory and the
+    planted points."""
+    obj, rng = _cli_object(np, cfg, seed)
+    F, S = cfg["frames"], cfg["img"]
     K = np.array([[cfg["focal"], 0, S / 2], [0, cfg["focal"], S / 2], [0, 0, 1]])
     seq = root / "obj" / "seq"
     for sub in ("color", "poses_ba", "intrin_ba"):
@@ -1889,40 +2023,30 @@ def _cli_scene(np, root: Path, cfg, seed):
     np.savetxt(root / "obj" / "box3d_corners.txt",
                [[x, y, z] for z in (c, -c) for x, y in ((-c, -c), (-c, c), (c, c), (c, -c))])
     (seq / "intrinsics.txt").write_text(f"fx: {K[0, 0]}\nfy: {K[1, 1]}\ncx: {K[0, 2]}\ncy: {K[1, 2]}")
-    per = F // 2
     for f in range(F):
-        ring = f // per
-        ang = 2 * np.pi * (f % per + 0.5 * ring) / per
-        pose = _look_at(np, np.array([np.cos(ang), np.sin(ang),
-                                      0.3 + 0.4 * ring + 0.1 * np.sin(3 * ang)]))
-        pc = pts @ pose[:3, :3].T + pose[:3, 3]
-        uv = pc @ K.T
-        uv = uv[:, :2] / uv[:, 2:3]
-        d_az = np.abs((az_p - ang + np.pi) % (2 * np.pi) - np.pi)
-        ids = np.nonzero((d_az <= half) & (uv > B).all(1) & (uv < S - B).all(1))[0]
-        u = np.rint(uv[ids]).astype(np.int64)
-        flat = ((u[:, 1, None, None] + oy) * S + u[:, 0, None, None] + ox).reshape(-1)
-        img = cfg["noise"][0] + cfg["noise"][1] * rng.random(S * S)
-        np.add.at(img, flat, blobs[ids].reshape(-1))
-        _png_gray(seq / "color" / f"{f}.png",
-                  (np.clip(img, 0, 1) * 255).round().astype(np.uint8).reshape(S, S))
+        pose, ang = _ring_pose(np, f, F // 2)
+        _png_gray(seq / "color" / f"{f}.png", _cli_frame(np, obj, rng, cfg, pose, ang, K, (S, S)))
         np.savetxt(seq / "poses_ba" / f"{f}.txt", pose)
         np.savetxt(seq / "intrin_ba" / f"{f}.txt", K)
-    return seq, pts
+    return seq, obj["pts"]
 
 
-def _cli_subsequence(seq: Path, root: Path, frames: int) -> Path:
-    """The first `frames` frames of `seq` as a sequence of their own."""
+def _cli_subsequence(seq: Path, root: Path, frames: int,
+                     subs=("color", "poses_ba", "intrin_ba")) -> Path:
+    """The first `frames` frames of `seq` (its `subs` directories, its
+    intrinsics.txt and the object's box when there is one) as a sequence of
+    their own under root."""
     import shutil
 
     dst = root / "obj" / "seq"
-    for sub in ("color", "poses_ba", "intrin_ba"):
+    for sub in subs:
         (dst / sub).mkdir(parents=True)
         for f in range(frames):
-            name = f"{f}.png" if sub == "color" else f"{f}.txt"
+            name = f"{f}.png" if sub.startswith("color") else f"{f}.txt"
             shutil.copy(seq / sub / name, dst / sub / name)
     shutil.copy(seq / "intrinsics.txt", dst)
-    shutil.copy(seq.parent / "box3d_corners.txt", root / "obj")
+    if (seq.parent / "box3d_corners.txt").exists():
+        shutil.copy(seq.parent / "box3d_corners.txt", root / "obj")
     return dst
 
 
@@ -2110,80 +2234,563 @@ def _has_h5py() -> bool:
     return importlib.util.find_spec("h5py") is not None
 
 
+_WORLD: dict = {}  # phase cli's scene, weights and map, shared with phases detect and infer
+
+
+def _cache_arg() -> str:
+    return f"cache={str(_has_h5py()).lower()}"
+
+
+def _world(np) -> dict:
+    """Phase cli's rendered sequence (CLI_SCENE, seed 0) and the seeded
+    msgpack checkpoints of SuperPoint (seed 1), SuperGlue (seed 2) and
+    GATsSPG (seed 3), made at the first call under a temporary directory
+    that main removes; "map_a" is map (a)'s output once it ran."""
+    if "root" in _WORLD:
+        return _WORLD
+    import tempfile
+
+    import torch
+
+    from onepose_tpu_torch.models.gats_spg import GATsSPG
+    from onepose_tpu_torch.models.superglue import SuperGlue
+    from onepose_tpu_torch.models.superpoint import SuperPoint
+    from onepose_tpu_torch.native import frame_loader
+
+    root = _WORLD["root"] = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    t0 = time.perf_counter()
+    _WORLD["seq"], _WORLD["pts"] = _cli_scene(np, root / "full", CLI_SCENE, seed=0)
+    decoder = "native" if frame_loader.native_available() else "cv2"
+    log(f"[cli] sequence: {CLI_SCENE['frames']} frames of {CLI_SCENE['img']}^2, "
+        f"{CLI_SCENE['points']} planted points, written as PNG (zlib) in "
+        f"{time.perf_counter() - t0:.1f} s; load_gray decodes with {decoder}; h5py "
+        f"{'present: cache=true' if _has_h5py() else 'absent: cache=false'}")
+    _WORLD["sp_ckpt"] = _seeded_checkpoint(np, SuperPoint(), root / "ckpt_superpoint", seed=1)
+    _WORLD["sg_ckpt"] = _seeded_checkpoint(np, SuperGlue(), root / "ckpt_superglue", seed=2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)  # the GATs layers' W and a, drawn at construction
+        gats = GATsSPG()
+    _WORLD["gats_ckpt"] = _seeded_checkpoint(np, gats, root / "ckpt_gats", seed=3)
+    return _WORLD
+
+
+def _map_a_args(w) -> list:
+    return [f"data_dir={w['seq']}", f"out_dir={w['root'] / 'out_a'}", *_cli_args(), "matcher=nn",
+            f"weights.superpoint={w['sp_ckpt']}", _cache_arg(), "anno_format=npz",
+            f"device={DEV}"]
+
+
+def _world_map(torch, np) -> Path:
+    """map (a)'s output directory: phase cli's, or the same command run here
+    when phase cli did not run."""
+    w = _world(np)
+    if "map_a" not in w:
+        stats, _, _, sec = _cli_map(torch, _map_a_args(w), "a")
+        log(f"[world] map (a) for the later phases: {stats['num_points3d']} points in {sec:.2f} s")
+        w["map_a"] = w["root"] / "out_a"
+    return w["map_a"]
+
+
 def phase_cli(torch):
     """`python -m onepose_tpu_torch map` on the card, in the process, on a
     rendered sequence: (a) matcher=nn at configs/map.yaml's width, (b)
     matcher=superglue on the first frames, then the card against the CPU."""
-    import tempfile
-
     import numpy as np
 
-    from onepose_tpu_torch.models.superglue import SuperGlue
-    from onepose_tpu_torch.models.superpoint import SuperPoint
-    from onepose_tpu_torch.native import frame_loader
     from onepose_tpu_torch.parallel.sfm_parallel import superglue_chunk
 
     t_phase = time.perf_counter()
     log(f"[cli] TF32: cudnn {torch.backends.cudnn.allow_tf32}, matmul "
         f"{torch.backends.cuda.matmul.allow_tf32} (feature extraction turns both off itself)")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        seq, _ = _cli_scene(np, root / "full", CLI_SCENE, seed=0)
-        decoder = "native" if frame_loader.native_available() else "cv2"
-        log(f"[cli] sequence: {CLI_SCENE['frames']} frames of {CLI_SCENE['img']}^2, "
-            f"{CLI_SCENE['points']} planted points, written as PNG (zlib) in "
-            f"{time.perf_counter() - t0:.1f} s; load_gray decodes with {decoder}; h5py "
-            f"{'present: cache=true' if _has_h5py() else 'absent: cache=false'}")
-        sp_ckpt = _seeded_checkpoint(np, SuperPoint(), root / "ckpt_superpoint", seed=1)
-        sg_ckpt = _seeded_checkpoint(np, SuperGlue(), root / "ckpt_superglue", seed=2)
-        cache = f"cache={str(_has_h5py()).lower()}"
-        box_half = CLI_SCENE["cube"] / 2 * 1.2
-        _cli_dlt_at_scale(torch, np)
+    w = _world(np)
+    root, seq, sp_ckpt, sg_ckpt = w["root"], w["seq"], w["sp_ckpt"], w["sg_ckpt"]
+    cache = _cache_arg()
+    box_half = CLI_SCENE["cube"] / 2 * 1.2
+    _cli_dlt_at_scale(torch, np)
 
-        # (a) matcher=nn, every frame.
-        out = root / "out_a"
-        stats, counts, peak, sec = _cli_map(torch, [
-            f"data_dir={seq}", f"out_dir={out}", *_cli_args(), "matcher=nn",
-            f"weights.superpoint={sp_ckpt}", cache, "anno_format=npz", f"device={DEV}"], "a")
-        _cli_artifacts(np, out, stats, box_half, "a")
-        batches = -(-CLI_SCENE["frames"] // 8)
-        want = {k: (batches if k == "nms" else 0) for k in counts}
-        log(f"[cli] (a) matcher=nn, {CLI_SCENE['frames']} frames: {stats['num_pairs']} pairs, "
-            f"{stats['num_tracks']} tracks, {stats['num_points3d']} points (> "
-            f"{CLI_ORACLE['min_points']}), mean reprojection error "
-            f"{stats['mean_reproj_error_px']:.4f} px (< {CLI_ORACLE['max_reproj_px']}); stage_s "
-            f"{_cli_stage_line(stats)}; {sec:.2f} s in all, peak device memory {peak:.2f} GiB; "
-            f"launches {counts} (want K1 once per batch of 8: {batches}, no other kernel)")
-        if not (stats["num_points3d"] > CLI_ORACLE["min_points"]
-                and stats["mean_reproj_error_px"] < CLI_ORACLE["max_reproj_px"]):
-            fail("map (a) is outside the planted scene's bounds")
-        if counts != want:
-            fail(f"map (a) launched {counts}, want {want}")
+    # (a) matcher=nn, every frame.
+    out = w["map_a"] = root / "out_a"
+    stats, counts, peak, sec = _cli_map(torch, _map_a_args(w), "a")
+    _cli_artifacts(np, out, stats, box_half, "a")
+    batches = -(-CLI_SCENE["frames"] // 8)
+    want = {k: (batches if k == "nms" else 0) for k in counts}
+    log(f"[cli] (a) matcher=nn, {CLI_SCENE['frames']} frames: {stats['num_pairs']} pairs, "
+        f"{stats['num_tracks']} tracks, {stats['num_points3d']} points (> "
+        f"{CLI_ORACLE['min_points']}), mean reprojection error "
+        f"{stats['mean_reproj_error_px']:.4f} px (< {CLI_ORACLE['max_reproj_px']}); stage_s "
+        f"{_cli_stage_line(stats)}; {sec:.2f} s in all, peak device memory {peak:.2f} GiB; "
+        f"launches {counts} (want K1 once per batch of 8: {batches}, no other kernel)")
+    if not (stats["num_points3d"] > CLI_ORACLE["min_points"]
+            and stats["mean_reproj_error_px"] < CLI_ORACLE["max_reproj_px"]):
+        fail("map (a) is outside the planted scene's bounds")
+    if counts != want:
+        fail(f"map (a) launched {counts}, want {want}")
 
-        # (b) matcher=superglue on the first CLI_SG_FRAMES frames.
-        sub = _cli_subsequence(seq, root / "sub", CLI_SG_FRAMES)
-        out = root / "out_b"
-        stats, counts, peak, sec = _cli_map(torch, [
-            f"data_dir={sub}", f"out_dir={out}", *_cli_args(), "matcher=superglue",
-            f"match_threshold={CLI_SG_THRESHOLD}", f"weights.superpoint={sp_ckpt}",
-            f"weights.superglue={sg_ckpt}", cache, "anno_format=npz", f"device={DEV}"], "b")
-        _cli_artifacts(np, out, stats, box_half, "b")
-        chunk = superglue_chunk(CLI_MAP["max_keypoints"], 16)
-        chunks = -(-stats["num_pairs"] // chunk)
-        batches = -(-CLI_SG_FRAMES // 8)
-        log(f"[cli] (b) matcher=superglue, match_threshold {CLI_SG_THRESHOLD}, {CLI_SG_FRAMES} "
-            f"frames: {stats['num_pairs']} pairs in {chunks} chunks of {chunk}, "
-            f"{stats['num_points3d']} points, mean reprojection error "
-            f"{stats['mean_reproj_error_px']:.4f} px; stage_s {_cli_stage_line(stats)}; "
-            f"{sec:.2f} s in all, peak device memory {peak:.2f} GiB; launches {counts} (want K7 "
-            f"once per chunk: {chunks}, K1 once per batch: {batches})")
-        if not (counts["sinkhorn_stream"] == chunks and counts["nms"] == batches
-                and counts["sinkhorn"] == 0 and counts["vgg_stage"] == 0):
-            fail(f"map (b) launched {counts}")
+    # (b) matcher=superglue on the first CLI_SG_FRAMES frames.
+    sub = _cli_subsequence(seq, root / "sub", CLI_SG_FRAMES)
+    out = root / "out_b"
+    stats, counts, peak, sec = _cli_map(torch, [
+        f"data_dir={sub}", f"out_dir={out}", *_cli_args(), "matcher=superglue",
+        f"match_threshold={CLI_SG_THRESHOLD}", f"weights.superpoint={sp_ckpt}",
+        f"weights.superglue={sg_ckpt}", cache, "anno_format=npz", f"device={DEV}"], "b")
+    _cli_artifacts(np, out, stats, box_half, "b")
+    chunk = superglue_chunk(CLI_MAP["max_keypoints"], 16)
+    chunks = -(-stats["num_pairs"] // chunk)
+    batches = -(-CLI_SG_FRAMES // 8)
+    log(f"[cli] (b) matcher=superglue, match_threshold {CLI_SG_THRESHOLD}, {CLI_SG_FRAMES} "
+        f"frames: {stats['num_pairs']} pairs in {chunks} chunks of {chunk}, "
+        f"{stats['num_points3d']} points, mean reprojection error "
+        f"{stats['mean_reproj_error_px']:.4f} px; stage_s {_cli_stage_line(stats)}; "
+        f"{sec:.2f} s in all, peak device memory {peak:.2f} GiB; launches {counts} (want K7 "
+        f"once per chunk: {chunks}, K1 once per batch: {batches})")
+    if not (counts["sinkhorn_stream"] == chunks and counts["nms"] == batches
+            and counts["sinkhorn"] == 0 and counts["vgg_stage"] == 0):
+        fail(f"map (b) launched {counts}")
 
-        _cli_card_vs_cpu(torch, np, root, seq, sp_ckpt)
+    _cli_card_vs_cpu(torch, np, root, seq, sp_ckpt)
     log(f"[cli] phase cli took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase detect: the `detect` command ------------------------------------
+
+
+def _query_scene(np, root: Path, frames: int, seed=0):
+    """Full DETECT_HW frames of phase cli's object (CLI_SCENE, seed 0) in
+    root/obj/seq/color_full, with intrinsics.txt and poses_ba/: cameras on
+    the DB's two rings a quarter step round from its views, at the DB's
+    focal length, the object in the middle of a phone-sized frame."""
+    obj, rng = _cli_object(np, CLI_SCENE, seed)
+    h, w = DETECT_HW
+    f_len = CLI_SCENE["focal"]
+    K = np.array([[f_len, 0, w / 2], [0, f_len, h / 2], [0, 0, 1]])
+    seq = root / "obj" / "seq"
+    for sub in ("color_full", "poses_ba"):
+        (seq / sub).mkdir(parents=True)
+    (seq / "intrinsics.txt").write_text(f"fx: {K[0, 0]}\nfy: {K[1, 1]}\ncx: {K[0, 2]}\ncy: {K[1, 2]}")
+    for f in range(frames):
+        pose, ang = _ring_pose(np, f, max(frames // 2, 1), offset=0.25)
+        _png_gray(seq / "color_full" / f"{f}.png",
+                  _cli_frame(np, obj, rng, CLI_SCENE, pose, ang, K, (h, w)), level=1)
+        np.savetxt(seq / "poses_ba" / f"{f}.txt", pose)
+    return seq
+
+
+def _command(torch, argv, device, wraps=()):
+    """One `python -m onepose_tpu_torch ...` in the process, its stdout
+    captured and echoed: (its JSON last line, the kernels' launches in the
+    run, peak device GiB, seconds). `wraps` are (owner, attribute,
+    wrapper) patches applied for the run and restored after."""
+    import contextlib
+    import io
+
+    from onepose_tpu_torch.__main__ import main as cli_main
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    saved = [(o, a, getattr(o, a)) for o, a, _ in wraps]
+    for o, a, wrap in wraps:
+        setattr(o, a, wrap(getattr(o, a)))
+    buf = io.StringIO()
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # this path's counts: 0 just before it, read just after
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
+    finally:
+        for o, a, orig in saved:
+            setattr(o, a, orig)
+    out = buf.getvalue().strip().splitlines()
+    if rc != 0 or not out:
+        fail(f"{argv[0]} returned {rc} with output {out[-3:]}")
+    return json.loads(out[-1]), counts, peak, sec
+
+
+class _Clock:
+    """Synchronized host seconds of wrapped calls, by name."""
+
+    def __init__(self, torch, device):
+        self.torch, self.cuda = torch, device != "cpu"
+        self.s, self.each = {}, {}
+
+    def wrap(self, name, keep=None):
+        def outer(fn):
+            def timed(*a, **k):
+                if self.cuda:
+                    self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if self.cuda:
+                    self.torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                self.s[name] = self.s.get(name, 0.0) + dt
+                self.each.setdefault(name, []).append(dt)
+                if keep is not None:
+                    keep.append((a, out))
+                return out
+            return timed
+        return outer
+
+
+def _detect(torch, np, db: Path, query: Path, device, kind, sg_ckpt, sp_ckpt):
+    """detect in the process: (summary, launches, peak GiB, seconds, the
+    boxes each frame was cropped to, the clock: DB extraction, detect_bbox
+    and crop)."""
+    from onepose_tpu_torch.cli import common
+    from onepose_tpu_torch.detector import feature_detector as fd
+
+    clock, crops = _Clock(torch, device), []
+    args = ["detect", f"db_dir={db}", f"query_dir={query}", f"weights.superpoint={sp_ckpt}",
+            f"weights.superglue={sg_ckpt}", f"detector_matcher={kind}", f"device={device}",
+            *(f"{k}={v}" for k, v in DETECT.items())]
+    summary, counts, peak, sec = _command(torch, args, device, wraps=(
+        (common, "extract_sequence_features", clock.wrap("DB extraction")),
+        (fd.FeatureObjectDetector, "detect_bbox", clock.wrap("detect_bbox")),
+        (fd.FeatureObjectDetector, "crop", clock.wrap("crop", keep=crops))))
+    boxes = [np.asarray(a[2], np.float64) for a, _ in crops]  # (self, image, bbox, K)
+    return summary, counts, peak, sec, boxes, clock
+
+
+def _detect_outputs(np, query: Path, boxes, label):
+    """Every crop and K_crop on disk, finite; per frame, K_crop equals
+    get_affine_transform's two stages composed, and the box it implies (the
+    crop's centre mapped back, the crop's width over its scale) is the
+    detected box within DETECT_BOX_PX (stage 1 truncates the box to whole
+    pixels)."""
+    import cv2
+
+    from onepose_tpu_torch.cli.detect_cmd import read_full_intrinsics
+    from onepose_tpu_torch.geometry.transforms import get_affine_transform
+
+    K = read_full_intrinsics(str(query)).astype(np.float64)
+    size = DETECT["crop_size"]
+    worst_A, worst_box = 0.0, 0.0
+    for f, box in enumerate(boxes):
+        crop = cv2.imread(str(query / "color_det" / f"{f}.png"), cv2.IMREAD_GRAYSCALE)
+        Kc = np.loadtxt(query / "intrin_det" / f"{f}.txt")
+        if crop is None or crop.shape != (size, size) or not np.isfinite(Kc).all():
+            fail(f"detect ({label}): frame {f}'s crop or K_crop is missing or not finite")
+        bw, bh = box[2] - box[0], box[3] - box[1]
+        A1 = get_affine_transform(((box[0] + box[2]) / 2, (box[1] + box[3]) / 2), (bw, bh), 0,
+                                  (int(bw), int(bh)))
+        A2 = get_affine_transform((bw / 2, bh / 2), (bw, bh), 0, (size, size))
+        A = np.vstack([A2, [0, 0, 1]]) @ np.vstack([A1, [0, 0, 1]])
+        S = Kc @ np.linalg.inv(K)
+        worst_A = max(worst_A, float(np.abs(S[:2] - A[:2]).max() / np.abs(A[:2, :2]).max()))
+        s = S[0, 0]
+        cx, cy = np.linalg.solve(S[:2, :2], np.array([size / 2, size / 2]) - S[:2, 2])
+        implied = np.array([cx - size / s / 2, cy - size * bh / bw / s / 2,
+                            cx + size / s / 2, cy + size * bh / bw / s / 2])
+        worst_box = max(worst_box, float(np.abs(implied - box).max()))
+    log(f"[detect] ({label}) {len(boxes)} crops {size}^2 and K_crop files on disk, finite; "
+        f"K_crop against get_affine_transform's composed stages: max rel diff {worst_A:.3e} "
+        f"(<= 1e-4); the box K_crop implies against the detected one: max {worst_box:.3f} px "
+        f"(<= {DETECT_IMPLIED_PX})")
+    if not (worst_A <= 1e-4 and worst_box <= DETECT_IMPLIED_PX):
+        fail(f"detect ({label}): K_crop disagrees with the box it was cropped to")
+
+
+def _detect_line(label, summary, counts, peak, sec, clock, frames):
+    db = clock.s.get("DB extraction", 0.0)
+    per = (sec - db) / frames
+    log(f"[detect] ({label}) {frames} frames of {DETECT_HW[1]}x{DETECT_HW[0]}: summary "
+        f"{summary}; {sec:.2f} s in all, DB extraction {db:.2f} s, {per:.3f} s a frame after it "
+        f"(detect_bbox {clock.s.get('detect_bbox', 0.0) / frames * 1e3:.1f} ms, crop "
+        f"{clock.s.get('crop', 0.0) / frames * 1e3:.1f} ms a frame; the rest: decode, SuperPoint, "
+        f"keypoints, PNG write), peak device memory {peak:.2f} GiB; launches {counts}")
+    return per
+
+
+def phase_detect(torch, rows):
+    """`python -m onepose_tpu_torch detect` on the card: (a) nn, (b)
+    superglue, then the card against the CPU."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    w = _world(np)
+    root = w["root"]
+    t0 = time.perf_counter()
+    query = _query_scene(np, root / "query", DETECT_FRAMES)
+    log(f"[detect] query sequence: {DETECT_FRAMES} full frames of {DETECT_HW[1]}x{DETECT_HW[0]} "
+        f"written as PNG in {time.perf_counter() - t0:.1f} s; DB: phase cli's "
+        f"{CLI_SCENE['frames']} frames of {CLI_SCENE['img']}^2, {DETECT['n_ref_views']} views")
+    w["query"] = query
+    db_batches = -(-CLI_SCENE["frames"] // 8)
+    for label, kind, frames in (("a", "nn", DETECT_FRAMES), ("b", "superglue", DETECT_SG_FRAMES)):
+        q = query if kind == "nn" else _cli_subsequence(query, root / "query_sg", frames,
+                                                          QUERY_SUBS)
+        summary, counts, peak, sec, boxes, clock = _detect(torch, np, w["seq"], q, DEV, kind,
+                                                           w["sg_ckpt"], w["sp_ckpt"])
+        per = _detect_line(f"{label}: detector_matcher={kind}", summary, counts, peak, sec, clock,
+                           frames)
+        want = {k: 0 for k in counts}
+        want["nms"] = db_batches + frames
+        if kind == "superglue":
+            want["sinkhorn"] = frames
+        log(f"[detect] ({label}) want K1 once per DB batch of 8 ({db_batches}) and once per "
+            f"frame ({frames}){', K6 once per frame' if kind == 'superglue' else ''}, no other "
+            f"kernel: {want}; {frames / (sec - clock.s.get('DB extraction', 0.0)):.2f} frames/s "
+            f"after the DB ({1 / per:.2f})")
+        if counts != want or summary["num_frames"] != frames:
+            fail(f"detect ({label}) launched {counts}, want {want}")
+        _detect_outputs(np, q, boxes, label)
+        key = "nms_full_frame" if kind == "nn" else "sinkhorn_detect"
+        if key in rows:
+            rows[key]["launches"] = counts["nms" if kind == "nn" else "sinkhorn"]
+
+    # The card against the CPU: a DETECT_SMALL DB and frames.
+    db = _cli_subsequence(w["seq"], root / "det_small", DETECT_SMALL["db_frames"])
+    boxes = {}
+    for i, dev in enumerate((DEV, "cpu")):
+        q = _cli_subsequence(query, root / f"det_small_{i}", DETECT_SMALL["frames"], QUERY_SUBS)
+        summary, counts, _, sec, boxes[dev], _ = _detect(torch, np, db, q, dev, "nn",
+                                                         w["sg_ckpt"], w["sp_ckpt"])
+        log(f"[detect] card against CPU, detect on {dev} ({DETECT_SMALL['db_frames']}-frame DB, "
+            f"{DETECT_SMALL['frames']} frames): {sec:.2f} s, boxes "
+            f"{[b.round(2).tolist() for b in boxes[dev]]}, launches {counts}")
+    diff = float(np.abs(np.stack(boxes[DEV]) - np.stack(boxes["cpu"])).max())
+    log(f"[detect] card against CPU: boxes max abs diff {diff:.4f} px (<= {DETECT_BOX_PX})")
+    if not diff <= DETECT_BOX_PX:
+        fail("detect on the card disagrees with detect on the CPU")
+    log(f"[detect] phase detect took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase infer: the `infer` command ----------------------------------------
+
+
+def _infer(torch, args, device, label):
+    """infer in the process: (metrics, launches, peak GiB, seconds, the
+    clock of its batches)."""
+    from onepose_tpu_torch.cli import infer
+
+    clock = _Clock(torch, device)
+    metrics, counts, peak, sec = _command(torch, ["infer", *args, f"device={device}"], device,
+                                          wraps=((infer, "_serve", clock.wrap("batch")),))
+    keys = {"cmd1", "cmd3", "cmd5", "mean_rot_deg", "mean_trans_cm", "num_frames"}
+    if not keys <= set(metrics):
+        fail(f"infer ({label}) printed {metrics}, not the metrics line")
+    return metrics, counts, peak, sec, clock
+
+
+def _infer_card_vs_cpu(torch, np, w, anno_dir):
+    """INFER_SMALL frames of phase cli's sequence through the command's
+    pipeline (`infer.build_pipeline`, `infer._serve`) on the card and the
+    CPU. SuperPoint: the keypoints by overlap (slots follow score order,
+    which fp32 sums in another order may swap), descriptors on shared slots.
+    Then both devices match the CPU's features: matches0 identical, pnp_ok
+    identical, poses within INFER_POSE_ABS where solved; the gats matcher
+    at match_threshold MATCH_THRESHOLD on both (random weights clear no
+    0.2), nn as shipped."""
+    from onepose_tpu_torch.cli import infer
+    from onepose_tpu_torch.data import paths as path_utils
+    from onepose_tpu_torch.data.anno_io import annotation_from_npz_dir
+
+    paths = path_utils.list_color_images(str(w["seq"]))[:INFER_SMALL]
+    imgs = np.stack([path_utils.load_gray(p) for p in paths])
+    K = np.stack([np.loadtxt(path_utils.intrin_path_by_color(p)).astype(np.float32)
+                  for p in paths])
+    weights = {"superpoint": w["sp_ckpt"], "matcher": w["gats_ckpt"]}
+    keys = ("keypoints", "kpt_mask", "descriptors", "kpt_scores", "matches0", "pose", "pnp_ok",
+            "num_matches")
+
+    def run(dev, matcher, feats=None):
+        cfg = {**infer.DEFAULTS, "matcher": matcher, "weights": weights, "device": dev}
+        pipe = infer.build_pipeline(cfg, torch.device(dev))
+        if matcher == "gats":
+            pipe.matcher.match_threshold = MATCH_THRESHOLD
+        anno = annotation_from_npz_dir(str(anno_dir), num_leaf=8, shape3d=cfg["shape3d"],
+                                       device=dev)
+        if feats is None:
+            out = infer._serve(pipe, 0, K, anno, images=imgs)
+        else:
+            out = infer._serve(pipe, 0, K, anno,
+                               feats={k: torch.from_numpy(v) for k, v in feats.items()})
+        return {k: out[k].cpu().numpy() for k in keys}
+
+    a, c = run(DEV, "nn"), run("cpu", "nn")
+    overlap = _keypoint_overlap(a, c)
+    same = (a["keypoints"] == c["keypoints"]).all(-1) & a["kpt_mask"] & c["kpt_mask"]
+    desc_err = float(np.abs(a["descriptors"] - c["descriptors"])[same].max())
+    log(f"[infer] card against CPU, {INFER_SMALL} frames through SuperPoint: keypoint overlap "
+        f"{overlap:.4f} (>= {CLI_KPT_OVERLAP}), descriptor max abs diff on shared slots "
+        f"{desc_err:.3e} (< {CLI_DESC_ABS})")
+    if not (overlap >= CLI_KPT_OVERLAP and desc_err < CLI_DESC_ABS):
+        fail("infer's features on the card disagree with the CPU's")
+    feats = {"keypoints": c["keypoints"], "descriptors": c["descriptors"],
+             "scores": c["kpt_scores"], "mask": c["kpt_mask"]}
+    for matcher in ("gats", "nn"):
+        a, c = run(DEV, matcher, feats), run("cpu", matcher, feats)
+        same_m = int((a["matches0"] == c["matches0"]).all(-1).sum())
+        same_ok = bool((a["pnp_ok"] == c["pnp_ok"]).all())
+        solved = a["pnp_ok"] & c["pnp_ok"]
+        worst = float(np.abs(a["pose"] - c["pose"])[solved].max()) if solved.any() else 0.0
+        log(f"[infer] card against CPU, matcher={matcher}, the CPU's features: matches0 "
+            f"identical in {same_m} of {INFER_SMALL} frames ({int(a['num_matches'].sum())} "
+            f"matches on the card, {int(c['num_matches'].sum())} on the CPU), pnp_ok identical "
+            f"{same_ok} ({int(solved.sum())} solved), poses max abs diff {worst:.3e} (<= "
+            f"{INFER_POSE_ABS})")
+        if same_m != INFER_SMALL or not same_ok or not worst <= INFER_POSE_ABS:
+            fail(f"infer matcher={matcher} on the card disagrees with the CPU")
+
+
+def _oracle_world(np, root: Path):
+    """The planted oracle at production width: INFER_ORACLE frames on a ring
+    around a jittered grid of points, exact projections, one unit
+    descriptor a point; a sequence directory (blank color/ images, poses_ba,
+    intrin_ba) and the features [F, P, ...] in load_features_h5's layout."""
+    cfg = INFER_ORACLE
+    rng = np.random.default_rng(7)
+    n = cfg["grid"]
+    g = np.stack(np.meshgrid(*[np.linspace(-cfg["cube"] / 2, cfg["cube"] / 2, n)] * 3), -1)
+    pts = g.reshape(-1, 3) + rng.uniform(-cfg["jitter"], cfg["jitter"], (n ** 3, 3))
+    desc = rng.normal(size=(len(pts), 256)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    S, f_len = cfg["img"], cfg["focal"]
+    K = np.array([[f_len, 0, S / 2], [0, f_len, S / 2], [0, 0, 1]])
+    seq = root / "obj" / "seq"
+    for sub in ("color", "poses_ba", "intrin_ba"):
+        (seq / sub).mkdir(parents=True)
+    blank = np.zeros((8, 8), np.uint8)
+    kps, poses = [], []
+    for f in range(cfg["frames"]):
+        ang = 0.6 * f / cfg["frames"] * 2 * np.pi
+        pose = _look_at(np, np.array([np.cos(ang) * cfg["radius"], np.sin(ang) * cfg["radius"],
+                                      0.4]))
+        uvw = (pts @ pose[:3, :3].T + pose[:3, 3]) @ K.T
+        kps.append((uvw[:, :2] / uvw[:, 2:3]).astype(np.float32))
+        poses.append(pose)
+        _png_gray(seq / "color" / f"{f}.png", blank)
+        np.savetxt(seq / "poses_ba" / f"{f}.txt", pose)
+        np.savetxt(seq / "intrin_ba" / f"{f}.txt", K)
+    F, P = cfg["frames"], len(pts)
+    feats = {"keypoints": np.stack(kps), "descriptors": np.broadcast_to(desc, (F, P, 256)).copy(),
+             "scores": np.ones((F, P), np.float32), "mask": np.ones((F, P), bool)}
+    inside = bool(((feats["keypoints"] > 0) & (feats["keypoints"] < S)).all())
+    return seq, feats, np.stack(poses), np.broadcast_to(K, (F, 3, 3)).copy(), inside
+
+
+def _infer_oracle(torch, np, root: Path):
+    """(c) The planted oracle through eval_sequence's feature route (the
+    arrays load_features_h5 would give) and the NN matcher, the annotation
+    from run_mapping on the card over the same features: cmd1 == 1.0, then
+    again with the EPnP refit on (the same recalls; epnp_solve counted)."""
+    import functools
+
+    from onepose_tpu_torch.cli import infer
+    from onepose_tpu_torch.data.anno_io import annotation_from_npz_dir, save_annotation_npz
+    from onepose_tpu_torch.eval import Evaluator
+    from onepose_tpu_torch.geometry import ransac
+    from onepose_tpu_torch.parallel.sfm_parallel import make_nn_pair_matcher
+    from onepose_tpu_torch.runtime import pipeline
+    from onepose_tpu_torch.sfm.mapping import MappingConfig, run_mapping
+
+    t0 = time.perf_counter()
+    seq, feats, poses, K, inside = _oracle_world(np, root / "oracle")
+    P = feats["keypoints"].shape[1]
+    match = make_nn_pair_matcher(feats["descriptors"], feats["mask"], distance_thresh=0.7,
+                                 device=DEV)
+    res = run_mapping(feats["keypoints"], feats["descriptors"], feats["scores"], feats["mask"],
+                      K.astype(np.float32), poses.astype(np.float32), match,
+                      config=MappingConfig(num_covis=10, max_points3d=2000, num_leaf=8),
+                      device=DEV)
+    anno_dir = root / "oracle" / "anno"
+    save_annotation_npz(res, str(anno_dir))
+    st = res.stats
+    log(f"[infer] (c) oracle: {INFER_ORACLE['frames']} frames x {P} planted points (all inside "
+        f"the {INFER_ORACLE['img']}^2 frame: {inside}), run_mapping on the card: {st['num_points3d']} "
+        f"points, mean reprojection error {st['mean_reproj_error_px']:.2e} px, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if st["num_points3d"] != P or not inside:
+        fail("the oracle map is not the planted points")
+    cfg = {**infer.DEFAULTS, "matcher": "nn", "max_keypoints": P, "device": DEV}
+    pipe = infer.build_pipeline(cfg, torch.device(DEV))
+    anno = annotation_from_npz_dir(str(anno_dir), num_leaf=8, shape3d=cfg["shape3d"], device=DEV)
+    results = {}
+    calls = []  # seconds of each epnp_solve call, synchronized
+    for refit in (False, True):
+        saved_pnp, saved_epnp = pipeline.ransac_pnp, ransac.epnp_solve
+        if refit:
+            pipeline.ransac_pnp = functools.partial(saved_pnp, epnp_refit=True)
+
+            def counted(*a, **k):
+                if DEV != "cpu":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = saved_epnp(*a, **k)
+                if DEV != "cpu":
+                    torch.cuda.synchronize()
+                calls.append(time.perf_counter() - t)
+                return out
+
+            ransac.epnp_solve = counted
+        try:
+            t1 = time.perf_counter()
+            m = infer.eval_sequence(cfg, str(seq), anno, pipe, Evaluator(), features=feats)
+            if DEV != "cpu":
+                torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+        finally:
+            pipeline.ransac_pnp, ransac.epnp_solve = saved_pnp, saved_epnp
+        results[refit] = m
+        log(f"[infer] (c) oracle, epnp_refit={refit}: {m} in {sec:.2f} s"
+            + (f"; epnp_solve ran {len(calls)} times (once a batch of {cfg['batch']} frames x "
+               f"{P} correspondences): first {calls[0] * 1e3:.1f} ms, median of the rest "
+               f"{statistics.median(calls[1:] or calls) * 1e3:.2f} ms" if refit else ""))
+    want_calls = -(-INFER_ORACLE["frames"] // cfg["batch"])
+    if not (results[False]["cmd1"] == 1.0 and all(results[True][k] == results[False][k]
+                                                  for k in ("cmd1", "cmd3", "cmd5"))
+            and len(calls) == want_calls):
+        fail("the infer oracle missed cmd1 == 1.0, or the EPnP refit changed its recalls")
+
+
+def phase_infer(torch):
+    """`python -m onepose_tpu_torch infer` on the card: (a) gats on phase
+    cli's frames and on phase detect's crops, (b) nn; the card against the
+    CPU; (c) the planted oracle, with the EPnP refit off and on."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    w = _world(np)
+    anno_dir = _world_map(torch, np) / "anno"
+    F, B = CLI_SCENE["frames"], 8
+    batches = -(-F // B)
+    base = [f"anno_dir={anno_dir}", f"weights.superpoint={w['sp_ckpt']}",
+            f"weights.matcher={w['gats_ckpt']}"]
+    runs = [("a", "gats", f"data_dir={w['seq']}", F)]
+    if "query" in w and (w["query"] / "color_det").is_dir():
+        runs.append(("a, detect's crops", "gats", f"data_dir={w['query']}", DETECT_FRAMES))
+    runs.append(("b", "nn", f"data_dir={w['seq']}", F))
+    for label, matcher, data, frames in runs:
+        extra = ["det_type=feature_matching"] if "crops" in label else []
+        metrics, counts, peak, sec, clock = _infer(torch, [data, f"matcher={matcher}", *base,
+                                                           *extra], DEV, label)
+        nb = -(-frames // B)
+        per = clock.s["batch"] / nb
+        each = clock.each["batch"]
+        want = {k: 0 for k in counts}
+        want["nms"] = nb
+        if matcher == "gats":
+            want.update(gats=4 * nb, dual_softmax=nb)
+        side = DETECT["crop_size"] if "crops" in label else CLI_SCENE["img"]
+        log(f"[infer] ({label}) matcher={matcher}, {frames} frames of {side}^2 in "
+            f"{nb} batches of {B}: {metrics}; {sec:.2f} s in all, {per * 1e3:.1f} ms a batch "
+            f"through the pipeline (median {statistics.median(each) * 1e3:.1f}, first "
+            f"{each[0] * 1e3:.1f}; {frames / clock.s['batch']:.1f} frames/s; "
+            f"{frames / sec:.1f} with decode, annotation and evaluation), peak device memory "
+            f"{peak:.2f} GiB; launches {counts} (want per batch K1 1"
+            f"{', K2 4, K3 1' if matcher == 'gats' else ''}, no other: {want})")
+        if counts != want or metrics["num_frames"] != frames:
+            fail(f"infer ({label}) launched {counts}, want {want}")
+    _infer_card_vs_cpu(torch, np, w, anno_dir)
+    _infer_oracle(torch, np, w["root"])
+    log(f"[infer] phase infer took {time.perf_counter() - t_phase:.1f} s; random weights: the "
+        f"recalls of (a) and (b) say nothing of accuracy, (c) does")
 
 
 def main(argv=None) -> int:
@@ -2212,18 +2819,28 @@ def main(argv=None) -> int:
     log("[env] TF32 off (cudnn and matmul) for the parity phases")
     phase_build()  # every other phase needs the kernels
     rows = {}
-    if "kernels" in phases:
-        rows = phase_kernels(torch, Timer(torch))
-    if "ransac" in phases:
-        phase_ransac(torch)
-    if "main" in phases:
-        phase_main(torch, rows)
-    if "pairs" in phases:
-        phase_pairs(torch, rows)
-    if "map" in phases:
-        phase_map(torch)
-    if "cli" in phases:
-        phase_cli(torch)
+    try:
+        if "kernels" in phases:
+            rows = phase_kernels(torch, Timer(torch))
+        if "ransac" in phases:
+            phase_ransac(torch)
+        if "main" in phases:
+            phase_main(torch, rows)
+        if "pairs" in phases:
+            phase_pairs(torch, rows)
+        if "map" in phases:
+            phase_map(torch)
+        if "cli" in phases:
+            phase_cli(torch)
+        if "detect" in phases:
+            phase_detect(torch, rows)
+        if "infer" in phases:
+            phase_infer(torch)
+    finally:
+        if "root" in _WORLD:
+            import shutil
+
+            shutil.rmtree(_WORLD["root"], ignore_errors=True)
     log(f"[total] {time.perf_counter() - t_start:.1f} s of command time, the build included")
     if set(phases) != set(PHASES):
         log(f"[partial] ran {phases} of {list(PHASES)}: no result line")

@@ -1,8 +1,11 @@
 """CLI dispatcher: `python -m onepose_tpu_torch <command> [--config X] [K=V ...]`.
 
 Port of onepose_tpu/__main__.py: the same commands and the same `--config`
-/ K=V parsing (`config.load_config`). Ported so far:
-  map         build an object map (SfM); runs on the card unless device=cpu
+/ K=V parsing (`config.load_config`). Ported so far, each on the card
+unless device=cpu is given:
+  map         build an object map (SfM)
+  infer       evaluation inference (cm-degree recall) over a sequence or roster
+  detect      feature-matching 2D detection: color_det/ crops and intrin_det/
 The JAX package's other commands are listed and exit non-zero, naming the
 ROADMAP item that ports each.
 """
@@ -16,9 +19,7 @@ from onepose_tpu_torch.config import load_config
 
 # command -> (what it does, the ROADMAP item that ports it)
 PENDING = {
-    "infer": ("GT-box evaluation inference", "A10"),
     "train": ("train the GATsSPG matcher", "A11"),
-    "detect": ("2D object detection by feature matching", "A12"),
     "demo": ("detection + tracking video", "A13"),
     "merge-anno": ("merge annotation indices", "A15"),
     "parse-scan": ("parse an ARKit capture", "A15"),
@@ -31,9 +32,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="onepose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    from onepose_tpu_torch.cli import map_object
+    from onepose_tpu_torch.cli import detect_cmd, infer, map_object
 
     map_object.add_parser(sub)
+    infer.add_parser(sub)
+    detect_cmd.add_parser(sub)
     for name, (what, item) in PENDING.items():
         p = sub.add_parser(name, help=f"{what} (not ported yet: ROADMAP {item})")
         p.add_argument("args", nargs=argparse.REMAINDER)

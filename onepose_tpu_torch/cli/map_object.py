@@ -140,20 +140,13 @@ def run(cfg: dict) -> dict:
     `sfm()` loops over all configured objects in one invocation
     (run.py:96-137); here the compiled extractor/matcher programs are
     reused across objects."""
-    from glob import glob
+    from onepose_tpu_torch.cli.common import sequence_dirs
 
     resolve_device(cfg["device"])  # no CUDA and no device=cpu: raise before any work
 
     raw = cfg["data_dir"]
     assert raw, "map: data_dir is required"
-    seq_dirs = []
-    for d in str(raw).split(","):
-        d = d.strip()
-        if not d:
-            continue
-        hits = sorted(glob(d)) if any(c in d for c in "*?[") else [d]
-        seq_dirs.extend(hits or [d])
-    assert seq_dirs, f"map: no sequences match {raw!r}"
+    seq_dirs = sequence_dirs(raw, "map")
 
     if len(seq_dirs) == 1:
         return _run_object(cfg, seq_dirs[0], cfg["out_dir"])

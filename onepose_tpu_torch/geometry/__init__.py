@@ -1,6 +1,9 @@
 """Pose geometry of the port: rotations, projection, P3P, RANSAC-PnP,
-pose-error metrics and (in `triangulation`) the SfM core's masked DLT and
-Gauss-Newton point refinement, batched over leading axes."""
+pose-error metrics and, in their own modules, EPnP (`epnp`, RANSAC's
+refit), the crop affines and K_crop (`transforms`), the detector's 2D
+similarity RANSAC (`similarity`) and the SfM core's masked DLT and
+Gauss-Newton point refinement (`triangulation`), batched over leading
+axes."""
 
 from onepose_tpu_torch.geometry.metrics import aggregate_metrics, query_pose_error
 from onepose_tpu_torch.geometry.projection import project_points, reprojection_errors

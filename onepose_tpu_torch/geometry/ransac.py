@@ -4,6 +4,11 @@ Port of onepose_tpu/geometry/ransac.py, batched over a leading frame axis
 where JAX vmaps a per-frame function. P3P hypotheses from minimal samples,
 preemptive two-stage scoring, Gauss-Newton refinement on the inliers.
 
+With epnp_refit, EPnP on the consensus inliers (`geometry.epnp`) is a
+second initialization of the refinement, taken per frame where its
+inlier reprojection error is no larger than the best P3P pose's, as in the
+JAX package.
+
 Random draws: JAX draws `jax.random.uniform(key, (n_hyp, 3))` per frame.
 The port takes those uniforms as `draws [B, n_hyp, 3]` (the parity tests
 inject JAX's), or draws them from a `torch.Generator`.
@@ -19,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from onepose_tpu_torch.geometry.epnp import epnp_solve
 from onepose_tpu_torch.geometry.p3p import p3p_solve
 from onepose_tpu_torch.geometry.rotations import angle_axis_to_rotmat, rotmat_to_angle_axis
 from onepose_tpu_torch.utils.precision import fp32_matmuls
@@ -142,12 +148,9 @@ def ransac_pnp(
     matches. draws [B, n_hyp, 3] uniforms in [0, 1), or None to draw them
     with `generator`. Each 3-point sample yields up to 4 P3P poses, all
     scored. Returns dict(pose [B, 4, 4], R, t, inliers [B, N],
-    num_inliers [B], ok [B]); t in the input's units."""
-    if epnp_refit:
-        raise NotImplementedError(
-            "epnp_refit: the EPnP refit is not ported yet (ROADMAP.md, the "
-            "infer slice)"
-        )
+    num_inliers [B], ok [B]); t in the input's units. epnp_refit adds the
+    EPnP re-solve on the inliers as an initialization candidate of the
+    Gauss-Newton refinement."""
     dtype = torch.float32
     dev = pts2d.device
     B, n = pts2d.shape[:2]
@@ -198,7 +201,18 @@ def ransac_pnp(
     inliers = _take(inl, best[:, None])[:, 0]
     n_in = _take(counts, best[:, None])[:, 0]
 
-    R2, t2 = _gn_refine(R_best, t_best, K, pts3d_s, pts2d, inliers.to(dtype), iters=refine_iters)
+    # Refine on the inliers, from the best P3P pose or, with epnp_refit,
+    # from the EPnP re-solve where its inlier error is no larger (a point
+    # behind either camera makes both sums NaN or inf, as in JAX).
+    R1, t1 = R_best, t_best
+    if epnp_refit:
+        R_ref, t_ref, ok_ref = epnp_solve(pts3d_s, pts2d, K, inliers)
+        inl = inliers.to(dtype)
+        use_ref = ok_ref & ((_reproj_err(R_ref, t_ref, K, pts3d_s, pts2d) * inl).sum(-1)
+                            <= (_reproj_err(R_best, t_best, K, pts3d_s, pts2d) * inl).sum(-1))
+        R1 = torch.where(use_ref[:, None, None], R_ref, R_best)
+        t1 = torch.where(use_ref[:, None], t_ref, t_best)
+    R2, t2 = _gn_refine(R1, t1, K, pts3d_s, pts2d, inliers.to(dtype), iters=refine_iters)
 
     err_final = _reproj_err(R2, t2, K, pts3d_s, pts2d)
     inliers_final = (err_final < reproj_threshold) & mask

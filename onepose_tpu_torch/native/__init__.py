@@ -84,6 +84,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         lib.fl_read_gray.argtypes = [ctypes.c_char_p,
                                      np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
                                      ctypes.c_int64]
+        lib.fl_create.restype = ctypes.c_void_p
+        lib.fl_create.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.fl_next.restype = ctypes.c_int
+        lib.fl_next.argtypes = [ctypes.c_void_p,
+                                np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+                                ctypes.c_int64,
+                                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        lib.fl_destroy.restype = None
+        lib.fl_destroy.argtypes = [ctypes.c_void_p]
 
 
 def get_lib() -> ctypes.CDLL | None:

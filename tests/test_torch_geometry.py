@@ -183,9 +183,19 @@ def test_ransac_pnp_generator_draws_and_degenerate_frames():
 
 
 def test_ransac_epnp_refit_is_not_ported_yet():
+    """The EPnP refit is ported now (the name is kept from when it raised):
+    epnp_refit=True runs and gives JAX's pose with JAX's draws injected
+    (more cases in tests/test_torch_epnp.py)."""
     pts2d, pts3d, K, mask, _ = _ransac_batch(seed=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ransac_pnp(*(torch.from_numpy(x) for x in (pts2d, pts3d, K, mask)), epnp_refit=True)
+    keys = jax.random.split(jax.random.PRNGKey(4), pts2d.shape[0])
+    want = jax.vmap(lambda k, a, b, c, d: jax_ransac(k, a, b, c, d, n_hyp=64, epnp_refit=True))(
+        keys, *(jnp.asarray(x) for x in (pts2d, pts3d, K, mask)))
+    draws = np.stack([np.asarray(jax.random.uniform(k, (64, 3))) for k in keys])
+    got = ransac_pnp(*(torch.from_numpy(x) for x in (pts2d, pts3d, K, mask)),
+                     draws=torch.from_numpy(draws), n_hyp=64, epnp_refit=True)
+    assert got["ok"].all()
+    np.testing.assert_allclose(got["pose"].numpy(), np.asarray(want["pose"]), atol=1e-4)
+    np.testing.assert_array_equal(got["inliers"].numpy(), np.asarray(want["inliers"]))
 
 
 def test_gauss_newton_jacobian_matches_autodiff():

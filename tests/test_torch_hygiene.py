@@ -28,7 +28,12 @@ MODULES = (
     "onepose_tpu_torch.data.colmap_database, onepose_tpu_torch.utils.checkpoint, "
     "onepose_tpu_torch.utils.profiling, onepose_tpu_torch.utils.precision, "
     "onepose_tpu_torch.cli.common, onepose_tpu_torch.cli.map_object, "
-    "onepose_tpu_torch.__main__, onepose_tpu_torch.sfm.cache"
+    "onepose_tpu_torch.__main__, onepose_tpu_torch.sfm.cache, "
+    "onepose_tpu_torch.geometry.epnp, onepose_tpu_torch.geometry.transforms, "
+    "onepose_tpu_torch.geometry.similarity, onepose_tpu_torch.eval, "
+    "onepose_tpu_torch.eval.evaluator, onepose_tpu_torch.detector, "
+    "onepose_tpu_torch.detector.feature_detector, onepose_tpu_torch.utils.vis, "
+    "onepose_tpu_torch.cli.infer, onepose_tpu_torch.cli.detect_cmd"
 )
 
 
