@@ -56,7 +56,21 @@ Phases, each printing its lines before the last:
      per chunk of 7 pairs), stage_s and peak memory of each; then the
      card against the CPU on 12 frames (the extracted keypoints by overlap,
      the map's counts), and the decoder that load_gray used;
-  8. one JSON line {"kernels": [...]}, then the last line
+  8. the `train` command (python -m onepose_tpu_torch train, in the
+     process) on map (a)'s 160 frames at configs/train_gats_spg.yaml's
+     width (batch 8, accumulate 2, 1000 keypoint slots, 2000 x 8 points,
+     the shipped matcher), random init from a seed: (a) the GATs kernel
+     with its gradient (autograd.Function: kernel forward, plain
+     recompute) against the plain version at [8, 2000, 8, 256], 20% of the
+     leaves masked, and the backward's time beside the forward's; (b) 2
+     epochs (ms per micro-step, peak memory, K2 4 launches a micro-step
+     and no other kernel, every loss finite), a third epoch resumed from
+     ckpt_1, each checkpoint's train-state layout, the run's artifacts,
+     and infer serving a batch with the trained checkpoint; (c) 3
+     micro-steps on the card and the CPU from one checkpoint, the losses
+     within 1e-4 relative;
+  9. detect and infer as commands (phases detect, infer);
+ 10. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -76,7 +90,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "detect", "infer")
+PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", "detect",
+          "infer")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -227,6 +242,30 @@ INFER_SMALL = 8
 INFER_POSE_ABS = 1e-3
 INFER_ORACLE = dict(frames=48, grid=10, cube=0.16, jitter=0.003, focal=500.0, img=512,
                     radius=0.6)
+# Phase train: `python -m onepose_tpu_torch train` in the process at the
+# values of configs/train_gats_spg.yaml (batch 8, accumulate 2, shape2d
+# 1000, shape3d 2000, 8 leaves; the shipped matcher: 4 blocks at d_model
+# 256) on phase cli's map (a), 160 frames: 2 epochs (a depth cut from 10),
+# then a third resumed from ckpt_1; infer takes the trained checkpoint.
+# (a) K2's gradient at its training shape, 20% of the leaves masked; (c)
+# TRAIN_SMALL micro-steps on the card and the CPU from one checkpoint at
+# full width, at a batch the CPU takes in seconds.
+TRAIN = dict(batch_size=8, accumulate=2, shape2d=1000, shape3d=2000, num_leaf=8, epochs=2)
+TRAIN_GATS = (8, 2000, 8, 256)
+# The backward recomputes the plain version, so the gradients are autograd's
+# through it on the same inputs; cuBLAS may split a sum differently between
+# calls, so the check allows fp32 rounding of the largest entry.
+TRAIN_GRAD_REL = 1e-5
+TRAIN_SMALL = dict(batch=2, steps=3, accumulate=2)
+TRAIN_LOSS_REL = 1e-4  # card against CPU: ROADMAP A11's criterion for the loss history
+# Before the first optimizer update both devices hold the same parameters, so
+# each micro-step's loss and raw grad_norm differ by fp32 rounding only. The
+# first micro-step's whole gradient differs by rounding too, amplified through
+# four blocks of backward: 1.051e-4 norm-relative on an H100 (NVIDIA H100
+# 80GB HBM3, 700.00 W). A backward with a wrong sign or a missing term differs
+# by order 1, so the bound sits a decade above the rounding.
+TRAIN_STEP_REL = 1e-5
+TRAIN_STEP_GRAD_REL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -2351,6 +2390,336 @@ def phase_cli(torch):
     log(f"[cli] phase cli took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase train: the `train` command ---------------------------------------
+
+
+def _train_gats_grad(torch, timer, rows):
+    """K2 with a gradient at TRAIN_GATS, 20% of the leaves masked: the
+    Function's gradients (kernel forward, plain recompute) against autograd
+    through the plain version, all four inputs; the times of the forward
+    kernel, the backward and the plain forward plus backward as training
+    runs them (the leaves are data: gradients of d3, W and a)."""
+    from onepose_tpu_torch.ops.kernels import gats
+
+    b, n3, L, c = TRAIN_GATS
+    g = torch.Generator(device=DEV).manual_seed(5)
+    unit = lambda x: x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    leaves = unit(torch.randn((b, n3, L, c), generator=g, device=DEV))
+    d3 = unit(torch.randn((b, n3, c), generator=g, device=DEV))
+    W = torch.randn((c, c), generator=g, device=DEV) * (2.0 / (2 * c)) ** 0.5
+    a2 = torch.randn((2, c), generator=g, device=DEV) * (2.0 / (2 * c + 1)) ** 0.5
+    add = gats.additive_mask(torch.rand((b, n3, L), generator=g, device=DEV) < 0.8)
+    cot = torch.randn((b, n3, c), generator=g, device=DEV)
+
+    def grads(fn, want):
+        ins = [t.detach().requires_grad_(w) for t, w in zip((leaves, d3, W, a2), want)]
+        out = fn(ins[0], ins[1], add, gats.leaf_logit_vectors(ins[2], ins[3]))
+        return out, ins, [x for x, w in zip(ins, want) if w]
+
+    kern = lambda l, d, m, wa: gats.GatsLeafAttention.apply(l, d, m, wa, 0.2, gats.gats_kernel)
+    plain = lambda l, d, m, wa: gats.gats_leaf_attention_plain(l, d, m, wa, 0.2)
+    every = (True,) * 4
+    out_k, _, xs_k = grads(kern, every)
+    out_p, _, xs_p = grads(plain, every)
+    got = torch.autograd.grad(out_k, xs_k, cot)
+    ref = torch.autograd.grad(out_p, xs_p, cot)
+    torch.cuda.synchronize()
+    fwd_err = float((out_k - out_p).detach().abs().max())
+    errs = {name: (float((a - r).abs().max()), float(r.abs().max()))
+            for name, a, r in zip(("leaves", "desc3d", "W", "a"), got, ref)}
+    log(f"[train] K2 with a gradient at {TRAIN_GATS}, 20% masked: forward max abs err "
+        f"{fwd_err:.3e} (<= 1e-5); gradients against autograd through the plain version, max "
+        f"abs err / max abs: " + ", ".join(f"{k} {e:.3e} / {m:.3e}" for k, (e, m) in errs.items())
+        + f" (<= {TRAIN_GRAD_REL} x max)")
+    if not fwd_err <= 1e-5 or any(not e <= TRAIN_GRAD_REL * m for e, m in errs.values()):
+        fail("K2's gradients disagree with the plain version's")
+
+    train = (False, True, True, True)  # what training asks for
+    out_k, _, xs_k = grads(kern, train)
+    wa = gats.leaf_logit_vectors(W, a2)
+    fwd_ms = timer(lambda: gats.gats_kernel(leaves, d3, add, wa, 0.2))
+    bwd_ms = timer(lambda: torch.autograd.grad(out_k, xs_k, cot, retain_graph=True))
+    plain_ms = timer(lambda: (lambda o, _, xs: torch.autograd.grad(o, xs, cot))(
+        *grads(plain, train)), reps=5)
+    # The backward's least work: read the leaves, d3, the mask and the
+    # cotangent once, write d d3 and d wa; about twice the forward's flops.
+    n_bytes = (leaves.numel() + 3 * d3.numel() + add.numel() + 4 * c) * 4
+    bwd_bound, bwd_by = bound(n_bytes, 8 * b * n3 * (L + 1) * c)
+    # The backward is some 20 launches from the host: its device time (the
+    # kernels' sum under torch.profiler) beside the events' span.
+    dev_bwd = _kernel_breakdown(torch, lambda: torch.autograd.grad(out_k, xs_k, cot,
+                                                                   retain_graph=True))
+    dev_plain = _kernel_breakdown(torch, lambda: (lambda o, _, xs: torch.autograd.grad(
+        o, xs, cot))(*grads(plain, train)))
+    dev_ms = lambda d: sum(ms for _, ms in d.values())
+    dev_n = lambda d: sum(n for n, _ in d.values())
+    log(f"[train] K2 at {TRAIN_GATS}: forward kernel {fwd_ms:.4f} ms; backward (plain "
+        f"recompute under autograd) {bwd_ms:.4f} ms, of which {dev_ms(dev_bwd):.4f} ms device "
+        f"time in {dev_n(dev_bwd)} CUDA kernels, bound {bwd_bound:.4f} ms ({bwd_by}); plain "
+        f"forward plus backward {plain_ms:.4f} ms ({dev_ms(dev_plain):.4f} ms device time in "
+        f"{dev_n(dev_plain)} kernels)")
+    if "gats" in rows:
+        rows["gats"]["extra"] = dict(grad_max_abs_err=max(e for e, _ in errs.values()),
+                                     backward_ms=bwd_ms, backward_device_ms=dev_ms(dev_bwd),
+                                     backward_bound_ms=bwd_bound, plain_fwd_bwd_ms=plain_ms)
+
+
+def _train_checkpoint(np, path: Path, micro: int, every_k: int):
+    """A train checkpoint in the JAX package's layout: {step, params,
+    opt_state {mini_step, gradient_step, inner_opt_state {"0": {}, "1":
+    {"0": {count, mu, nu}, "1": {count}}}, acc_grads, skip_state}}, the
+    moments and the accumulated gradients shaped as the parameters, the
+    counts int32."""
+    from onepose_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t = load_checkpoint(str(path))
+    o = t["opt_state"]
+    inner = o["inner_opt_state"]
+    adam = inner["1"]["0"]
+    shapes = lambda tree: [(k, v.shape) for k, v in _flat(tree)]
+    updates = micro // every_k
+    counts = {"step": t["step"], "mini_step": o["mini_step"], "gradient_step": o["gradient_step"],
+              "count": adam["count"], "schedule": inner["1"]["1"]["count"]}
+    ok = (set(t) == {"step", "params", "opt_state"}
+          and set(o) == {"mini_step", "gradient_step", "inner_opt_state", "acc_grads", "skip_state"}
+          and inner["0"] == {} and o["skip_state"] == {}
+          and shapes(adam["mu"]) == shapes(adam["nu"]) == shapes(o["acc_grads"])
+          == shapes(t["params"])
+          and all(v.dtype == np.int32 for v in counts.values())
+          and {k: int(v) for k, v in counts.items()} == {
+              "step": micro, "mini_step": micro % every_k, "gradient_step": updates,
+              "count": updates, "schedule": updates})
+    log(f"[train] {path.name}: {len(shapes(t['params']))} parameter arrays, counts "
+        f"{ {k: int(v) for k, v in counts.items()} } (want step {micro}, {updates} updates)")
+    if not ok:
+        fail(f"{path.name} is not the JAX package's train-state layout")
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _train(torch, args):
+    """train in the process: (summary, launches, peak GiB, seconds, the
+    clock of its micro-steps, the loss of each)."""
+    from onepose_tpu_torch.train import loop
+
+    clock, losses = _Clock(torch, DEV), []
+
+    def timed_steps(make):
+        def make_timed(*a, **k):
+            step = clock.wrap("step")(make(*a, **k))
+
+            def run(state, batch):
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                return state, metrics
+            return run
+        return make_timed
+
+    summary, counts, peak, sec = _command(torch, ["train", *args], DEV,
+                                          wraps=((loop, "make_train_step", timed_steps),))
+    return summary, counts, peak, sec, clock, losses
+
+
+def _train_card_vs_cpu(torch, np, index: str):
+    """TRAIN_SMALL micro-steps at full width on the card and on the CPU, from
+    one checkpoint (the card's seeded init written as a train state and
+    read back on the CPU), on the same batches of the map's dataset. Before
+    the first optimizer update the losses, the raw grad_norms and the first
+    micro-step's gradients (MultiSteps' accumulator after it) are held to
+    fp32 rounding; after it the loss to ROADMAP A11's 1e-4."""
+    from onepose_tpu_torch.data.dataset import GATsSPGDataset, batch_iterator
+    from onepose_tpu_torch.models.gats_spg import GATsSPG
+    from onepose_tpu_torch.train import loop
+    from onepose_tpu_torch.train import train_step as ts
+
+    n = TRAIN_SMALL
+    ds = GATsSPGDataset(index, num_leaf=TRAIN["num_leaf"], shape2d=TRAIN["shape2d"],
+                        shape3d=TRAIN["shape3d"], seed=0)
+    it = batch_iterator(ds, n["batch"], seed=0)
+    batches = [loop.adapt_batch(next(it)) for _ in range(n["steps"])]
+    cfg = ts.TrainConfig(accumulate=n["accumulate"], steps_per_epoch=len(ds) // n["batch"])
+    histories, grads, t0 = {}, {}, time.perf_counter()
+    tree = None
+    for dev in (DEV, "cpu"):
+        state = ts.create_train_state(0, GATsSPG(gats_kernel=True, fused_match=False), cfg, dev)
+        if tree is None:
+            tree = state.state_dict()
+        else:
+            state.load_state_dict(tree)
+        step = ts.make_train_step(state.model, cfg)
+        hist = []
+        for i, b in enumerate(batches):
+            state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                grads[dev] = [a.detach().cpu().clone() for a in state.tx.acc]
+        histories[dev] = hist
+    pre = n["accumulate"]  # micro-steps before the first update
+
+    def rel(i, k):
+        a, c = histories[DEV][i][k], histories["cpu"][i][k]
+        return abs(a - c) / abs(c)
+
+    pre_rel = max(rel(i, k) for i in range(pre) for k in (0, 1))
+    post_rel = max(rel(i, 0) for i in range(pre, n["steps"]))
+    diff = ts.global_norm([a - c for a, c in zip(grads[DEV], grads["cpu"])])
+    grad_rel = float(diff / ts.global_norm(grads["cpu"]))
+    per = [float((a - c).norm() / c.norm().clamp(min=1e-30))
+           for a, c in zip(grads[DEV], grads["cpu"])]
+    worst = max(range(len(per)), key=per.__getitem__)
+    log(f"[train] card against CPU, {n['steps']} micro-steps of batch {n['batch']} at full "
+        f"width, accumulate {n['accumulate']}, from one checkpoint: (loss, grad_norm) card "
+        f"{histories[DEV]}, CPU {histories['cpu']}; before the first update: losses and "
+        f"grad_norms max rel diff {pre_rel:.3e} (<= {TRAIN_STEP_REL}), micro-step 0's "
+        f"gradients rel diff {grad_rel:.3e} (<= {TRAIN_STEP_GRAD_REL}; worst tensor "
+        f"{state.tx.names[worst]} {per[worst]:.3e}); after it: losses max rel diff "
+        f"{post_rel:.3e} (<= {TRAIN_LOSS_REL}); {time.perf_counter() - t0:.1f} s")
+    if not (pre_rel <= TRAIN_STEP_REL and grad_rel <= TRAIN_STEP_GRAD_REL
+            and post_rel <= TRAIN_LOSS_REL):
+        fail("train on the card disagrees with the CPU")
+
+
+def _train_step_breakdown(torch, index: str):
+    """One micro-step of the shipped matcher at TRAIN's width on one batch of
+    the map's dataset: synchronized host ms of its parts (forward and loss,
+    backward, optimizer; median of 5 steps), then torch.profiler over 3
+    steps: CUDA kernels, device ms, busy share and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from onepose_tpu_torch.data.dataset import GATsSPGDataset, batch_iterator
+    from onepose_tpu_torch.models.gats_spg import GATsSPG
+    from onepose_tpu_torch.train import loop
+    from onepose_tpu_torch.train import train_step as ts
+    from onepose_tpu_torch.utils.precision import fp32_matmuls
+
+    ds = GATsSPGDataset(index, num_leaf=TRAIN["num_leaf"], shape2d=TRAIN["shape2d"],
+                        shape3d=TRAIN["shape3d"], seed=0)
+    b = loop.adapt_batch(next(batch_iterator(ds, TRAIN["batch_size"], seed=0)))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+    cfg = ts.TrainConfig(accumulate=TRAIN["accumulate"], steps_per_epoch=20)
+    state = ts.create_train_state(0, GATsSPG(gats_kernel=True, fused_match=False), cfg, DEV)
+    step = ts.make_train_step(state.model, cfg)
+    parts = {"forward and loss": [], "backward": [], "optimizer": []}
+    with fp32_matmuls():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = ts.loss_fn(state.model, batch, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = list(torch.autograd.grad(loss, state.tx.params))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            state.apply_gradients(grads)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(dt * 1e3)
+    # After the first step (which accumulates), the optimizer's steps
+    # alternate: an update, then an accumulation.
+    opt = parts.pop("optimizer")
+    host = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    host.update({"optimizer update": statistics.median(opt[1::2]),
+                 "accumulation": statistics.median(opt[2::2])})
+    calls = 4  # two optimizer updates under accumulate 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    log(f"[train] one micro-step at batch {TRAIN['batch_size']}, host ms (synchronized, median "
+        f"of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+        + f"; profiler over "
+        f"{calls} micro-steps: {len(kernels) // calls} CUDA kernels, {busy:.2f} ms of device "
+        f"time in {wall:.2f} ms wall a micro-step: device busy {100 * busy / wall:.1f}%")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[train] profiler top kernel: {ms:.3f} ms a micro-step  {name[:100]}")
+
+
+def phase_train(torch, rows):
+    """`python -m onepose_tpu_torch train` on the card: K2's gradient (a),
+    the command on phase cli's map at configs/train_gats_spg.yaml's width,
+    its resume and its hand-off to infer (b), the card against the CPU
+    (c)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    _train_gats_grad(torch, Timer(torch), rows)
+
+    w = _world(np)
+    anno_dir = _world_map(torch, np) / "anno"
+    index = str(anno_dir / "anno_index.json")
+    frames = len(json.loads(Path(index).read_text()))
+    run = w["root"] / "train"
+    t = TRAIN
+    args = [f"anno_index={index}", f"run_dir={run}", f"batch_size={t['batch_size']}",
+            f"accumulate={t['accumulate']}", f"shape2d={t['shape2d']}",
+            f"shape3d={t['shape3d']}", f"num_leaf={t['num_leaf']}", f"device={DEV}"]
+    per_epoch = frames // t["batch_size"]
+    for epochs, label in ((t["epochs"], "b"), (t["epochs"] + 1, "b, resumed")):
+        summary, counts, peak, sec, clock, losses = _train(torch, [*args, f"max_epochs={epochs}"])
+        micro = per_epoch * (1 if "resumed" in label else epochs)
+        each = clock.each["step"]
+        want = {k: 0 for k in counts}
+        want["gats"] = 4 * micro
+        log(f"[train] ({label}) {frames} annotated frames, batch {t['batch_size']}, accumulate "
+            f"{t['accumulate']}, {epochs} epochs: {micro} micro-steps in {sec:.2f} s, "
+            f"{clock.s['step'] / micro * 1e3:.1f} ms a micro-step (median "
+            f"{statistics.median(each) * 1e3:.1f}, first {each[0] * 1e3:.1f}), peak device "
+            f"memory {peak:.2f} GiB; launches {counts} (want K2 4 a micro-step: {want}); summary "
+            f"{summary}; losses {[round(x, 5) for x in losses]}")
+        if counts != want or len(losses) != micro or not all(np.isfinite(losses)):
+            fail(f"train ({label}) launched {counts} for {len(losses)} steps, want {want}")
+        if label == "b":
+            per_micro = counts["gats"] / micro
+        if summary["epoch"] != epochs - 1 or not np.isfinite(summary["train_loss"]):
+            fail(f"train ({label}) printed {summary}")
+    for e in range(t["epochs"] + 1):
+        _train_checkpoint(np, run / "ckpt" / f"ckpt_{e}.msgpack", per_epoch * (e + 1),
+                          t["accumulate"])
+    records = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    epochs_run = [r["epoch"] for r in records if "train_loss" in r]
+    missing = [p for p in ("metrics.jsonl", "best_metrics.json", "code_snapshot.zip",
+                           "ckpt/best.msgpack", "ckpt/best.json") if not (run / p).is_file()]
+    tb = sorted(p.name for p in (run / "tb").glob("events.*")) if (run / "tb").is_dir() else []
+    log(f"[train] artifacts: epochs recorded {epochs_run} (the resumed run added epoch "
+        f"{t['epochs']} only), missing {missing}; TensorBoard event files {len(tb)} "
+        f"({'written' if tb else 'none: torch.utils.tensorboard cannot be imported here'})")
+    if missing or epochs_run != list(range(t["epochs"] + 1)):
+        fail("train's artifacts are incomplete")
+
+    _train_step_breakdown(torch, index)
+
+    # The hand-off: infer loads the trained checkpoint and serves a batch.
+    sub = _cli_subsequence(w["seq"], w["root"] / "train_sub", 8)
+    ckpt = run / "ckpt" / f"ckpt_{t['epochs']}.msgpack"
+    metrics, counts, _, sec, _ = _infer(torch, [
+        f"data_dir={sub}", "matcher=gats", f"anno_dir={anno_dir}",
+        f"weights.superpoint={w['sp_ckpt']}", f"weights.matcher={ckpt}"], DEV, "trained")
+    want = {**{k: 0 for k in counts}, "nms": 1, "gats": 4, "dual_softmax": 1}
+    log(f"[train] infer matcher=gats with {ckpt.name} on 8 frames: {metrics}, {sec:.2f} s; "
+        f"launches {counts} (want {want})")
+    if counts != want or metrics["num_frames"] != 8:
+        fail("infer did not serve with the trained checkpoint")
+    if "gats" in rows:
+        rows["gats"].setdefault("extra", {})["train_launches_per_micro_step"] = per_micro
+    _train_card_vs_cpu(torch, np, index)
+    log(f"[train] phase train took {time.perf_counter() - t_phase:.1f} s")
+
+
 # --- phase detect: the `detect` command ------------------------------------
 
 
@@ -2832,6 +3201,8 @@ def main(argv=None) -> int:
             phase_map(torch)
         if "cli" in phases:
             phase_cli(torch)
+        if "train" in phases:
+            phase_train(torch, rows)
         if "detect" in phases:
             phase_detect(torch, rows)
         if "infer" in phases:
@@ -2847,7 +3218,8 @@ def main(argv=None) -> int:
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **r.get("extra", {})}
+                                  for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

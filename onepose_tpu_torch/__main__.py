@@ -4,6 +4,7 @@ Port of onepose_tpu/__main__.py: the same commands and the same `--config`
 / K=V parsing (`config.load_config`). Ported so far, each on the card
 unless device=cpu is given:
   map         build an object map (SfM)
+  train       train the GATsSPG matcher
   infer       evaluation inference (cm-degree recall) over a sequence or roster
   detect      feature-matching 2D detection: color_det/ crops and intrin_det/
 The JAX package's other commands are listed and exit non-zero, naming the
@@ -19,7 +20,6 @@ from onepose_tpu_torch.config import load_config
 
 # command -> (what it does, the ROADMAP item that ports it)
 PENDING = {
-    "train": ("train the GATsSPG matcher", "A11"),
     "demo": ("detection + tracking video", "A13"),
     "merge-anno": ("merge annotation indices", "A15"),
     "parse-scan": ("parse an ARKit capture", "A15"),
@@ -32,10 +32,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="onepose_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    from onepose_tpu_torch.cli import detect_cmd, infer, map_object
+    from onepose_tpu_torch.cli import detect_cmd, infer, map_object, train_cmd
 
     map_object.add_parser(sub)
     infer.add_parser(sub)
+    train_cmd.add_parser(sub)
     detect_cmd.add_parser(sub)
     for name, (what, item) in PENDING.items():
         p = sub.add_parser(name, help=f"{what} (not ported yet: ROADMAP {item})")

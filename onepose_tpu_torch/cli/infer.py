@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from onepose_tpu_torch._device import resolve_device
+from onepose_tpu_torch._device import require_single_process, resolve_device
 
 DEFAULTS = {
     "data_dir": None,  # sequence root with color/, poses_ba/, intrin_ba/
@@ -87,11 +87,7 @@ def _check_single_process(cfg: dict) -> None:
         raise NotImplementedError(
             f"infer data_parallel={cfg['data_parallel']!r} is not ported yet (ROADMAP A14): "
             "pass data_parallel=false")
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"infer over {dist.get_world_size()} processes is not ported yet (ROADMAP A14): "
-            "run it from one process")
+    require_single_process("infer")
 
 
 def run(cfg: dict) -> dict:

@@ -1,6 +1,6 @@
 """Data layer: dataset directory schema, padding contracts, annotation and
-COLMAP I/O (port of onepose_tpu/data/; the training dataset and capture
-parsing come with `train` and `parse-scan`)."""
+COLMAP I/O, the training dataset (`dataset`) (port of onepose_tpu/data/;
+capture parsing comes with `parse-scan`)."""
 
 from onepose_tpu_torch.data import paths
 from onepose_tpu_torch.data.padding import (

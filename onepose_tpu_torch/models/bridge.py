@@ -1,4 +1,4 @@
-"""Weight bridge: JAX (linen) parameter trees -> the port's state_dicts.
+"""Weight bridge: JAX (linen) parameter trees <-> the port's state_dicts.
 
 Input is a nested mapping of numpy arrays, e.g.
 `jax.tree.map(np.asarray, params)` of the JAX SuperPoint, GATsSPG or
@@ -13,6 +13,11 @@ because the port's modules carry the JAX module names (`conv1a`,
   `bin_score` are copied as they are.
 Attention channels keep the head-major order c = h * D + d of the JAX
 package; no permutation is applied.
+
+`state_dict_to_jax` is the inverse (`gats_spg_params` for the matcher): a
+port state_dict becomes the JAX package's parameter layout, a nested dict
+of float32 numpy arrays under "params", which the JAX package's GATsSPG
+loads and the train loop's checkpoints hold.
 """
 
 from __future__ import annotations
@@ -50,6 +55,29 @@ def jax_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def state_dict_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """{"params": tree} in the JAX package's layout from a port state_dict:
+    a Linear `weight` [out, in] becomes a dense `kernel` [in, out], a conv
+    `weight` OIHW a `kernel` HWIO; every other entry is copied."""
+    tree: dict = {}
+    for name, t in sd.items():
+        *path, key = name.split(".")
+        arr = t.detach().cpu().numpy().astype(np.float32)  # a copy, whatever the source
+        if key == "weight":
+            key = "kernel"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"{name}: unexpected rank {arr.ndim}")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
 def superpoint_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """State dict for `models.superpoint.SuperPoint` from JAX SuperPoint params."""
     sd = jax_to_state_dict(params)
@@ -67,6 +95,16 @@ def gats_spg_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     if bad:
         raise ValueError(f"not GATsSPG parameters: {bad[:5]}")
     return sd
+
+
+def gats_spg_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The JAX package's GATsSPG parameter tree from a port GATsSPG
+    state_dict (the inverse of `gats_spg_state_dict`)."""
+    prefixes = ("gats_", "self_", "cross_", "final_proj.")
+    bad = [n for n in sd if not n.startswith(prefixes)]
+    if bad:
+        raise ValueError(f"not GATsSPG parameters: {bad[:5]}")
+    return state_dict_to_jax(sd)
 
 
 def superglue_state_dict(params: Mapping) -> dict[str, torch.Tensor]:

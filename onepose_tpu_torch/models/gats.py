@@ -7,8 +7,9 @@ leaves) and aggregate the RAW (or linearly transformed) descriptors.
 
 In the shipped configuration (include_self, not additional, no linear
 transform, concat/ELU, fp32) `gats_kernel=True` routes through the CUDA
-leaf-attention kernel (`ops.kernels.gats`); every other configuration, and
-gats_kernel=False, runs the plain path below. With dtype bf16, W and a are
+leaf-attention kernel (`ops.kernels.gats`), with a gradient when autograd
+records; every other configuration, and gats_kernel=False, runs the plain
+path below. With dtype bf16, W and a are
 cast to bf16 and the products run in bf16; the softmax runs in fp32 and
 its weights are cast back to bf16 (JAX's `dtype=` semantics).
 """

@@ -13,7 +13,8 @@ the layers compute in `dtype` (see models.common); final_proj runs in
 
 Kernel flags (names as in the JAX package's counterparts):
 - gats_kernel: the GATs leaf-attention CUDA kernel (`ops.kernels.gats`),
-  fp32 only;
+  fp32 only; trainable (when autograd records, the kernel runs inside
+  `GatsLeafAttention`, whose backward recomputes the plain version);
 - block_fused: each [GATs, self, cross] block through the fused block
   kernels (`ops.kernels.gats_block`), inference only; the modules keep
   their parameters, so state_dicts load alike. The packed block weights

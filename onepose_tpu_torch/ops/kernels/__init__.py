@@ -14,6 +14,10 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 | sinkhorn      | sinkhorn.py::sinkhorn_potentials          | csrc/sinkhorn.cu   |
 | sinkhorn_stream | sinkhorn_stream.py::sinkhorn_potentials_streamed | csrc/sinkhorn_stream.cu |
 
+`gats` also holds `GatsLeafAttention`, K2 with a gradient: the kernel's
+forward (one launch, counted) and a backward that recomputes the plain
+version under autograd (no kernel launch).
+
 `gats_block` counts one launch per call of its wrapper, which runs the
 block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
 each run all their iterations in one cooperative launch; the streamed

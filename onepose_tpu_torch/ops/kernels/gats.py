@@ -9,8 +9,15 @@ the kernel streams each point's 1 + L rows once (a warp per point) and runs
 no C x C product; see the source for the design.
 
 `gats_leaf_attention` launches the kernel on CUDA tensors and runs
-`gats_leaf_attention_plain` only on CPU tensors. Forward-only: a CUDA
-input that requires grad raises.
+`gats_leaf_attention_plain` only on CPU tensors. When autograd records, a
+CUDA call goes through `GatsLeafAttention`, the counterpart of the JAX
+package's custom VJP (`gats_leaf_attention` there, `_fwd` / `_bwd`): its
+forward launches the kernel on detached inputs, its backward recomputes
+the plain version under autograd (JAX recomputes through its XLA
+reference, not a Pallas kernel) and returns the gradients of the leaves,
+d3 and wa; none for the mask, as JAX's `_bwd` returns none for it. wa =
+`leaf_logit_vectors(W, a2)` stays outside the Function, so autograd
+carries d wa on to W and a2.
 """
 
 from __future__ import annotations
@@ -75,7 +82,36 @@ def gats_leaf_attention(
     mask_add = additive_mask(leaf_mask)
     if leaf_desc.device.type == "cpu":
         return gats_leaf_attention_plain(leaf_desc, desc3d, mask_add, wa, alpha)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (leaf_desc, desc3d, wa)):
+        return GatsLeafAttention.apply(leaf_desc, desc3d, mask_add, wa, alpha, gats_kernel)
     return gats_kernel(leaf_desc, desc3d, mask_add, wa, alpha)
+
+
+class GatsLeafAttention(torch.autograd.Function):
+    """Leaf attention with a gradient: `forward` (the CUDA kernel on the
+    card; the tests pass the plain version on the CPU) on detached inputs,
+    the backward by autograd through `gats_leaf_attention_plain`.
+
+    apply(leaf_desc, desc3d, mask_add, wa, alpha, forward) -> [B, N3, C]."""
+
+    @staticmethod
+    def forward(ctx, leaf_desc, desc3d, mask_add, wa, alpha, forward):
+        ctx.save_for_backward(leaf_desc, desc3d, mask_add, wa)
+        ctx.alpha = alpha
+        return forward(leaf_desc.detach(), desc3d.detach(), mask_add, wa.detach(), alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaf_desc, desc3d, mask_add, wa = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(want[i]) for i, t in ((0, leaf_desc), (1, desc3d),
+                                                                  (3, wa))]
+        with torch.enable_grad():
+            out = gats_leaf_attention_plain(inputs[0], inputs[1], mask_add, inputs[2], ctx.alpha)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        dl, dd, dwa = (next(grads) if t.requires_grad else None for t in inputs)
+        return dl, dd, None, dwa, None, None
 
 
 def gats_kernel(

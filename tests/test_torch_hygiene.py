@@ -33,7 +33,11 @@ MODULES = (
     "onepose_tpu_torch.geometry.similarity, onepose_tpu_torch.eval, "
     "onepose_tpu_torch.eval.evaluator, onepose_tpu_torch.detector, "
     "onepose_tpu_torch.detector.feature_detector, onepose_tpu_torch.utils.vis, "
-    "onepose_tpu_torch.cli.infer, onepose_tpu_torch.cli.detect_cmd"
+    "onepose_tpu_torch.cli.infer, onepose_tpu_torch.cli.detect_cmd, "
+    "onepose_tpu_torch.train, onepose_tpu_torch.train.losses, "
+    "onepose_tpu_torch.train.train_step, onepose_tpu_torch.train.loop, "
+    "onepose_tpu_torch.train.callbacks, onepose_tpu_torch.data.dataset, "
+    "onepose_tpu_torch.utils.seeding, onepose_tpu_torch.cli.train_cmd"
 )
 
 
@@ -55,9 +59,10 @@ def test_import_loads_no_jax():
 
 
 def test_import_loads_no_optional_io_package():
-    """The card's machine has no h5py (and may lack cv2, yaml, msgpack): the
-    port imports each only inside the function that needs it."""
-    _assert_import_loads_none_of(("h5py", "cv2", "yaml", "msgpack"))
+    """The card's machine has no h5py (and may lack cv2, yaml, msgpack,
+    tensorboard): the port imports each only inside the function that
+    needs it."""
+    _assert_import_loads_none_of(("h5py", "cv2", "yaml", "msgpack", "tensorboard"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -74,3 +79,54 @@ def test_pipeline_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PosePipeline(device="cuda")
+
+
+def _cpu_device_defaults(module) -> list:
+    """'module.qualname(param)' for each public function, method or class of
+    `module`, defined there, whose device parameter defaults to the CPU."""
+    import inspect
+
+    def is_cpu(v):
+        return (isinstance(v, str) and v.split(":")[0] == "cpu") or (
+            isinstance(v, torch.device) and v.type == "cpu")
+
+    found = []
+    for name, obj in vars(module).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != module.__name__:
+            continue
+        members = [(name, obj)]
+        if inspect.isclass(obj):
+            members += [(f"{name}.{m}", f) for m, f in vars(obj).items()
+                        if inspect.isfunction(f) and not (m.startswith("_") and m != "__init__")]
+        for qual, fn in members:
+            if not callable(fn):
+                continue
+            try:
+                params = inspect.signature(fn).parameters.values()
+            except (TypeError, ValueError):
+                continue
+            found += [f"{module.__name__}.{qual}({p.name})" for p in params
+                      if "device" in p.name and is_cpu(p.default)]
+    return found
+
+
+def test_no_public_factory_defaults_to_cpu():
+    """Every public function, method and class of the port that takes a
+    device defaults to the card: the CPU runs only when the caller names
+    it."""
+    import importlib
+
+    found = []
+    for name in MODULES.split(", "):
+        found += _cpu_device_defaults(importlib.import_module(name))
+    assert not found, found
+
+
+def test_create_train_state_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-CUDA error cannot be shown here")
+    from onepose_tpu_torch.models.gats_spg import GATsSPG
+    from onepose_tpu_torch.train.train_step import TrainConfig, create_train_state
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(0, GATsSPG(num_blocks=1), TrainConfig())
