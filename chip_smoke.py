@@ -55,7 +55,10 @@ Phases, each printing its lines before the last:
      other kernel), (b) matcher=superglue on the first 48 frames (K7 once
      per chunk of 7 pairs), stage_s and peak memory of each; then the
      card against the CPU on 12 frames (the extracted keypoints by overlap,
-     the map's counts), and the decoder that load_gray used;
+     the map's counts), and the decoder that load_gray used; then the host
+     commands: convert of seeded reference-layout weights, infer reading
+     those files against infer reading their conversion, parse-scan,
+     video2img and merge-anno;
   8. the `train` command (python -m onepose_tpu_torch train, in the
      process) on map (a)'s 160 frames at configs/train_gats_spg.yaml's
      width (batch 8, accumulate 2, 1000 keypoint slots, 2000 x 8 points,
@@ -70,7 +73,17 @@ Phases, each printing its lines before the last:
      micro-steps on the card and the CPU from one checkpoint, the losses
      within 1e-4 relative;
   9. detect and infer as commands (phases detect, infer);
- 10. one JSON line {"kernels": [...]}, then the last line
+ 10. the BA tracker (phase tracker) at demo's width (1000 keypoint slots,
+     window 10, capacity 4096, 128 hypotheses) on a planted 24-frame orbit
+     at 512 x 512: every pose within 5 cm / 5 degrees of the ground truth,
+     most within 1 degree, the blank-frame motion fallback, ms a tracked
+     frame, host syncs, CUDA kernels and busy share of a frame, peak
+     memory, and the card against the CPU on the same frames and draws;
+ 11. the demo command (phase demo) on phase detect's full frames against
+     phase cli's map: without tracking and with it (K1 / K2 / K3 launches
+     a matcher frame and a tracked frame, stage times, peak memory, the
+     video), and the route of the first frames on the card against the CPU;
+ 12. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -91,7 +104,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", "detect",
-          "infer")
+          "infer", "tracker", "demo")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -266,6 +279,36 @@ TRAIN_LOSS_REL = 1e-4  # card against CPU: ROADMAP A11's criterion for the loss 
 # by order 1, so the bound sits a decade above the rounding.
 TRAIN_STEP_REL = 1e-5
 TRAIN_STEP_GRAD_REL = 1e-3
+# Phase tracker: BATracker with TrackerConfig's defaults at demo's width
+# (n_kpts 1000: window 10, capacity 4096, 128 hypotheses, 5 BA iterations,
+# a keyframe every 5 frames) on tests/test_tracker.py's planted orbit at
+# 512 x 512 with 1000 points (256-d descriptors), 24 frames; the ground
+# truth's bounds are that test's. The card against the CPU on the same
+# frames and draws: flow_ok and used_motion identical; the counts of
+# tracked and new points identical up to the first keyframe commit. A new
+# point at the triangulation's 20 px or 0.5 m gate is decided by fp32
+# rounding (BA's block sums add in atomic order on the card), a committed
+# keyframe carries the difference on, and the counts part by up to 2% (7
+# of 615 tracked points, 7 of 385 new ones in a chip run; ROADMAP C watch
+# item 11); poses within TRACKER_CARD_CPU_ABS (rotation entries and
+# metres: 5 mm, about 0.3 degree, against the ground truth's 5 cm).
+TRACKER = dict(img=512, points=1000, frames=24, desc=256, focal=960.0, cube=0.25, radius=0.6)
+TRACKER_ORACLE = dict(max_cm=5.0, max_deg=5.0, fine_deg=1.0)
+TRACKER_CARD_CPU_ABS = 5e-3
+TRACKER_COUNT_REL = 0.03
+# Phase demo: `python -m onepose_tpu_torch demo` in the process at the
+# shipped width (1000 keypoints, 512 crops, shape3d 2000, 8 leaves, the
+# gats matcher with K1 / K2 / K3), the DB phase cli's 160 crops and map
+# (a), the frames phase detect's 24 full 1440 x 1920 ones (a depth cut).
+# (a) without tracking; (b) with tracking, a keyframe every 5 frames and
+# redetect_inliers 0: random weights give the matcher no inlier (no score
+# clears 0.2), so at the shipped 8 every frame would re-detect and none be
+# tracked; at 0 the route is the keyframe cadence. Then the route and
+# confidence of DEMO_SMALL's first frames on the card against the CPU (an
+# 8-crop DB, a depth cut: the CPU extracts it).
+DEMO = dict(max_keypoints=1000, crop_size=512, shape3d=2000, num_leaf=8)
+DEMO_RUNS = (("a", ()), ("b", ("use_tracking=true", "kf_interval=5", "redetect_inliers=0")))
+DEMO_SMALL = dict(db_frames=8, frames=6)
 
 
 def log(msg: str) -> None:
@@ -2387,6 +2430,7 @@ def phase_cli(torch):
         fail(f"map (b) launched {counts}")
 
     _cli_card_vs_cpu(torch, np, root, seq, sp_ckpt)
+    _cli_a15(torch, np, w)
     log(f"[cli] phase cli took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3162,6 +3206,568 @@ def phase_infer(torch):
         f"recalls of (a) and (b) say nothing of accuracy, (c) does")
 
 
+# --- phase tracker: the BA tracker -------------------------------------------
+
+
+def _tracker_scene(np):
+    """TRACKER's planted orbit (tests/test_tracker.py:49-120 at full width):
+    points in a cube, each a Gaussian blob (sigma 2 px) of its own
+    brightness splatted at its exact sub-pixel projection, a unit random
+    descriptor a point; the camera on tests/test_tracker.py's orbit. Per
+    frame: (GT pose, image, keypoints, descriptors, mask, point ids); the
+    keypoints are the visible points' projections, with 0.2 px of noise
+    after frame 0."""
+    cfg = TRACKER
+    rng = np.random.default_rng(11)
+    n, S, N = cfg["points"], cfg["img"], cfg["points"]
+    pts = ((rng.random((n, 3)) - 0.5) * cfg["cube"]).astype(np.float32)
+    amp = 0.5 + 0.5 * np.sin(rng.random(n) * 2 * np.pi)
+    desc = rng.standard_normal((n, cfg["desc"])).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    K = np.array([[cfg["focal"], 0, S / 2], [0, cfg["focal"], S / 2], [0, 0, 1]], np.float32)
+    oy, ox = np.mgrid[-8:9, -8:9]
+    frames = []
+    for i in range(cfg["frames"]):
+        ang = 0.02 * i
+        pose = _look_at(np, np.array([np.cos(ang) * cfg["radius"], np.sin(ang) * cfg["radius"],
+                                      0.35 + 0.002 * i])).astype(np.float32)
+        pc = pts @ pose[:3, :3].T + pose[:3, 3]
+        uv = pc @ K.T
+        uv = uv[:, :2] / uv[:, 2:3]
+        vis = (pc[:, 2] > 0.05) & (uv > 10).all(1) & (uv < S - 10).all(1)
+        c = np.rint(uv[vis]).astype(np.int64)
+        ys, xs = c[:, 1, None, None] + oy, c[:, 0, None, None] + ox
+        d2 = (xs - uv[vis, 0, None, None]) ** 2 + (ys - uv[vis, 1, None, None]) ** 2
+        image = np.zeros(S * S)
+        np.add.at(image, (ys * S + xs).reshape(-1),
+                  (amp[vis, None, None] * np.exp(-d2 / 8.0)).reshape(-1))
+        image = np.clip(image, 0, 1).astype(np.float32).reshape(S, S)
+        ids = np.nonzero(vis)[0][:N]
+        kp = np.zeros((N, 2), np.float32)
+        kp[:len(ids)] = uv[ids] + (rng.normal(size=(len(ids), 2)) * 0.2 if i else 0.0)
+        ds = np.zeros((N, cfg["desc"]), np.float32)
+        ds[:len(ids)] = desc[ids]
+        m = np.zeros(N, bool)
+        m[:len(ids)] = True
+        frames.append((pose, image, kp, ds, m, ids))
+    return pts, K, frames
+
+
+def _pose_err(np, pose, gt):
+    """(rotation error degrees, translation error cm), as query_pose_error."""
+    tr = np.clip(np.trace(pose[:3, :3] @ gt[:3, :3].T), -1.0, 3.0)
+    return float(np.degrees(np.arccos((tr - 1) / 2))), float(
+        np.linalg.norm(pose[:3, 3] - gt[:3, 3]) * 100)
+
+
+def _tracker_start(np, pts, K, frames, device):
+    from onepose_tpu_torch.tracker import BATracker, TrackerConfig
+
+    trk = BATracker(TrackerConfig(n_kpts=TRACKER["points"]), device=device)
+    pose0, image0, kp, ds, m, ids0 = frames[0]
+    p3d = np.full(TRACKER["points"], -1, np.int32)
+    p3d[:len(ids0)] = np.arange(len(ids0))
+    trk.initialize(image0, kp, ds, m, p3d, pts[ids0], pose0, K)
+    return trk
+
+
+def _tracker_run(torch, np, pts, K, frames, device):
+    """Frames 1.. tracked from frame 0 (GT pose, 3D ids): (outputs, host ms
+    of each track call, whether it was a keyframe-cadence frame)."""
+    trk = _tracker_start(np, pts, K, frames, device)
+    outs, ms, kf = [], [], []
+    for _, image, kp, ds, m, _ in frames[1:]:
+        kf.append(trk._frame_count % trk.cfg.kf_interval == 0)
+        t0 = time.perf_counter()
+        outs.append(trk.track(image, kp, ds, m, K))  # ends in its one host read
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return trk, outs, ms, kf
+
+
+def _tracker_syncs(torch, trk, frame, K) -> int:
+    """Host syncs of one tracked frame (torch.cuda's sync debug mode warns
+    at each), the tracker's state restored after."""
+    import warnings
+
+    saved = (trk.state, trk._frame_count, trk._use_motion_cnt)
+    _, image, kp, ds, m, _ = frame
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trk.track(image, kp, ds, m, K)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        trk.state, trk._frame_count, trk._use_motion_cnt = saved
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _tracker_profile(torch, trk, frame, K, calls=3) -> tuple:
+    """(CUDA kernels, device ms, wall ms) per tracked frame under
+    torch.profiler, each call from the same state, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = (trk.state, trk._frame_count, trk._use_motion_cnt)
+    _, image, kp, ds, m, _ = frame
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            trk.state, trk._frame_count, trk._use_motion_cnt = saved
+            trk.track(image, kp, ds, m, K)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    trk.state, trk._frame_count, trk._use_motion_cnt = saved
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return len(kernels) // calls, busy, wall, top
+
+
+def _tracker_blank(torch, np):
+    """tests/test_tracker.py:123 on the card, at its own shapes (60 blobs at
+    160 x 160; window 3, 64 slots): after the keyframe, a blank frame; the
+    flow must fail and the motion prediction keep the pose finite and
+    within 5 cm. (After a dense keyframe the blank frame's flow leaves most
+    points where they were: a window round one blob is symmetric, so the
+    LK step is near zero, and PnP keeps the last pose without the
+    fallback.)"""
+    from onepose_tpu_torch.tracker import BATracker, TrackerConfig
+
+    rng = np.random.default_rng(1)
+    img, n = 160, 60
+    pts = ((rng.random((n, 3)) - 0.5) * 0.2).astype(np.float32)
+    tex = rng.random(n) * 6.28
+    K = np.array([[300.0, 0, img / 2], [0, 300.0, img / 2], [0, 0, 1]], np.float32)
+    desc = rng.normal(size=(n, 16)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    pose0 = _look_at(np, np.array([0.6, 0.0, 0.35])).astype(np.float32)
+    pc = pts @ pose0[:3, :3].T + pose0[:3, 3]
+    uv = pc @ K.T
+    uv = uv[:, :2] / uv[:, 2:3]
+    vis = (pc[:, 2] > 0.05) & (uv > 10).all(1) & (uv < img - 10).all(1)
+    ys, xs = np.mgrid[0:img, 0:img]
+    image = np.zeros((img, img), np.float32)
+    for p, ph in zip(uv[vis], tex[vis]):
+        image += (0.5 + 0.5 * np.sin(ph)) * np.exp(-((xs - p[0]) ** 2 + (ys - p[1]) ** 2) / 8.0)
+    image = np.clip(image, 0, 1).astype(np.float32)
+    trk = BATracker(TrackerConfig(window_size=3, n_kpts=64, point_capacity=256, kf_interval=2,
+                                  ransac_hyp=32, ba_iters=2), device=DEV)
+    ids = np.nonzero(vis)[0][:64]
+    kp, ds, m = np.zeros((64, 2), np.float32), np.zeros((64, 16), np.float32), np.zeros(64, bool)
+    kp[:len(ids)], ds[:len(ids)], m[:len(ids)] = uv[ids], desc[ids], True
+    p3d = np.full(64, -1, np.int32)
+    p3d[:len(ids)] = np.arange(len(ids))
+    trk.initialize(image, kp, ds, m, p3d, pts[ids], pose0, K)
+    out = trk.track(np.zeros_like(image), np.zeros((64, 2), np.float32),
+                    np.zeros((64, 16), np.float32), np.zeros(64, bool), K)
+    _, t_blank = _pose_err(np, out["pose"], pose0)
+    log(f"[tracker] blank frame (tests/test_tracker.py:123's scene): used_motion "
+        f"{out['used_motion']}, pose finite {bool(np.isfinite(out['pose']).all())}, "
+        f"{t_blank:.4f} cm from the last pose (< 5)")
+    if not (out["used_motion"] and np.isfinite(out["pose"]).all() and t_blank < 5.0):
+        fail("the blank-frame motion fallback failed")
+
+
+def phase_tracker(torch):
+    """BATracker at demo's width on the planted orbit: poses against the
+    ground truth, the blank-frame fallback, ms per frame, kernels, busy
+    share, host syncs, peak memory; then the card against the CPU."""
+    import numpy as np
+
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    pts, K, frames = _tracker_scene(np)
+    n_vis = [len(f[5]) for f in frames]
+    log(f"[tracker] planted orbit: {TRACKER['frames']} frames of {TRACKER['img']}^2, "
+        f"{TRACKER['points']} points ({min(n_vis)} to {max(n_vis)} visible a frame), "
+        f"{TRACKER['desc']}-d descriptors, rendered in {time.perf_counter() - t0:.1f} s; "
+        f"TrackerConfig defaults with n_kpts={TRACKER['points']} (demo's)")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trk, outs, ms, kf = _tracker_run(torch, np, pts, K, frames, DEV)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    errs = [_pose_err(np, o["pose"], f[0]) for o, f in zip(outs, frames[1:])]
+    r, t = np.array(errs).T
+    c = trk.cfg
+    log(f"[tracker] config: window {c.window_size}, {c.n_kpts} keypoint slots, capacity "
+        f"{c.point_capacity}, {c.ransac_hyp} hypotheses, {c.ba_iters} BA iterations, keyframe "
+        f"every {c.kf_interval}")
+    log(f"[tracker] {len(outs)} tracked frames: flow_ok {sum(o['flow_ok'] for o in outs)}, "
+        f"n_tracked {min(o['n_tracked'] for o in outs)} to {max(o['n_tracked'] for o in outs)}, "
+        f"new points {sum(o['n_new_points'] for o in outs)}; against the ground truth: rotation "
+        f"max {r.max():.4f} deg, translation max {t.max():.4f} cm, {(r < 1).mean():.0%} within "
+        f"{TRACKER_ORACLE['fine_deg']} deg (want every frame within {TRACKER_ORACLE['max_cm']} "
+        f"cm / {TRACKER_ORACLE['max_deg']} deg, more than half within 1 deg)")
+    if not (r.max() < TRACKER_ORACLE["max_deg"] and t.max() < TRACKER_ORACLE["max_cm"]
+            and (r < TRACKER_ORACLE["fine_deg"]).mean() > 0.5):
+        fail("the tracker lost the planted orbit")
+    every = np.array(ms)
+    kfm, other = every[np.array(kf)], every[~np.array(kf)]
+    log(f"[tracker] ms a tracked frame (host clock, each ends in its one read): first "
+        f"{every[0]:.1f}, median of the rest {np.median(every[1:]):.1f} (keyframe-cadence "
+        f"frames: median {np.median(kfm):.1f} over {len(kfm)}; others {np.median(other[1:]):.1f}"
+        f" over {len(other) - 1}); peak device memory {peak:.3f} GiB ({resident:.3f} GiB "
+        f"resident at the reset); kernel launches {counts} (want none: the tracker runs no "
+        f"hand-written kernel)")
+    if any(counts.values()):
+        fail(f"the tracker launched {counts}")
+    pose, image, kp, ds, m, ids = frames[-1]
+    p3d = np.full(TRACKER["points"], -1, np.int32)
+    p3d[:len(ids)] = ids
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accepted = trk.update_kf(image, kp, ds, m, p3d, pose, K)
+    torch.cuda.synchronize()
+    log(f"[tracker] update_kf (a matcher-verified keyframe at the last frame's GT pose): "
+        f"accepted {accepted}, {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if not accepted:
+        fail("update_kf rejected a keyframe at the ground-truth pose")
+
+    mid = frames[len(frames) // 2]
+    syncs = _tracker_syncs(torch, trk, mid, K)
+    n_k, busy, wall, top = _tracker_profile(torch, trk, mid, K)
+    log(f"[tracker] one tracked frame: {syncs} host syncs (torch.cuda sync debug mode); "
+        f"profiler over 3 calls: {n_k} CUDA kernels, {busy:.2f} ms of device time in "
+        f"{wall:.2f} ms wall: busy {100 * busy / wall:.1f}%")
+    for name, kms in top:
+        log(f"[tracker] profiler top kernel: {kms:.3f} ms a frame  {name[:90]}")
+
+    _tracker_blank(torch, np)
+
+    # The card against the CPU: the same frames and draws.
+    t0 = time.perf_counter()
+    _, cpu_outs, cpu_ms, _ = _tracker_run(torch, np, pts, K, frames, "cpu")
+    same = all(a[k] == b[k] for a, b in zip(outs, cpu_outs) for k in ("flow_ok", "used_motion"))
+    first_kf = kf.index(True)  # frames before it track from the same keyframe on both
+    counts_diff = [(i + 1, k, a[k], b[k]) for i, (a, b) in enumerate(zip(outs, cpu_outs))
+                   for k in ("n_tracked", "n_new_points") if a[k] != b[k]]
+    counts_ok = all(i > first_kf + 1 and abs(a - b) <= TRACKER_COUNT_REL * b
+                    for i, _, a, b in counts_diff)
+    worst = max(float(np.abs(a["pose"] - b["pose"]).max()) for a, b in zip(outs, cpu_outs))
+    log(f"[tracker] card against CPU, {len(outs)} frames ({time.perf_counter() - t0:.1f} s on "
+        f"the CPU, median {np.median(cpu_ms[1:]):.1f} ms a frame): flow_ok and used_motion "
+        f"identical {same}; n_tracked and n_new_points differ on (frame, count, card, CPU) "
+        f"{counts_diff} (none up to frame {first_kf + 1}, the first keyframe commit, and "
+        f"within {TRACKER_COUNT_REL:.0%} after it: {counts_ok}); poses max abs diff "
+        f"{worst:.3e} (<= {TRACKER_CARD_CPU_ABS})")
+    if not (same and counts_ok and worst <= TRACKER_CARD_CPU_ABS):
+        fail("the tracker on the card disagrees with the CPU")
+    log(f"[tracker] phase tracker took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase demo: the `demo` command ------------------------------------------
+
+
+def _demo_sequence(np, w, root: Path, db_frames=None, frames=None) -> Path:
+    """A demo sequence under root: phase cli's crops as the detector's DB
+    (color/, poses_ba/, intrin_ba/), phase detect's full frames
+    (color_full/, intrinsics.txt) and the object's box; the first
+    `db_frames` / `frames` of each (copies), or all (links)."""
+    import os
+    import shutil
+
+    seq = root / "obj" / "seq"
+    seq.mkdir(parents=True)
+    for src, subs, n in ((w["seq"], ("color", "poses_ba", "intrin_ba"), db_frames),
+                         (w["query"], ("color_full",), frames)):
+        for sub in subs:
+            if n is None:
+                os.symlink(src / sub, seq / sub)
+                continue
+            (seq / sub).mkdir()
+            for f in range(n):
+                name = f"{f}.png" if sub.startswith("color") else f"{f}.txt"
+                shutil.copy(src / sub / name, seq / sub / name)
+    shutil.copy(w["query"] / "intrinsics.txt", seq)
+    shutil.copy(w["seq"].parent / "box3d_corners.txt", root / "obj")
+    return seq
+
+
+class _LaunchLog:
+    """Kernel launches of wrapped calls, by a key of each call."""
+
+    def __init__(self):
+        self.by = {}
+
+    def wrap(self, key):
+        from onepose_tpu_torch.ops.kernels import launch_counts
+
+        def outer(fn):
+            def inner(*a, **k):
+                before = launch_counts()
+                out = fn(*a, **k)
+                after = launch_counts()
+                d = self.by.setdefault(key(a), {"calls": 0})
+                d["calls"] += 1
+                for n in after:
+                    d[n] = d.get(n, 0) + after[n] - before[n]
+                return out
+            return inner
+        return outer
+
+    def per_call(self, key) -> dict:
+        d = self.by.get(key, {"calls": 0})
+        return {n: v / max(d["calls"], 1) for n, v in d.items() if n != "calls" and v}
+
+
+def _demo(torch, np, seq: Path, anno: Path, out: Path, device, extra=()):
+    """demo in the process: (summary, launches, peak GiB, seconds, the
+    per-frame route, the launch log)."""
+    from onepose_tpu_torch.cli import demo
+    from onepose_tpu_torch.detector import feature_detector as fd
+    from onepose_tpu_torch.runtime.pipeline import PosePipeline
+
+    w = _world(np)
+    route, log_ = [], _LaunchLog()
+
+    def tagged(tag):
+        def outer(fn):
+            def inner(*a, **k):
+                route.append(tag)
+                return fn(*a, **k)
+            return inner
+        return outer
+
+    size = DEMO["crop_size"]
+    args = ["demo", f"data_dir={seq}", f"anno_dir={anno}", f"out_dir={out}",
+            f"weights.superpoint={w['sp_ckpt']}", f"weights.matcher={w['gats_ckpt']}",
+            f"device={device}", *(f"{k}={v}" for k, v in DEMO.items()), *extra]
+    summary, counts, peak, sec = _command(torch, args, device, wraps=(
+        (fd.FeatureObjectDetector, "detect_bbox", tagged("D")),
+        (fd.FeatureObjectDetector, "previous_pose_detect", tagged("B")),
+        (PosePipeline, "__call__", log_.wrap(lambda a: "matcher")),
+        (demo, "_features", log_.wrap(lambda a: "crop" if a[1].shape[0] == size else "full"))))
+    frames = json.loads((out / "results.json").read_text())["frames"]
+    per_frame = [b + ("T" if f["tracked"] else "M") for b, f in zip(route, frames)]
+    return summary, counts, peak, sec, per_frame, [f["conf"] for f in frames], log_
+
+
+def phase_demo(torch, rows):
+    """`python -m onepose_tpu_torch demo` on the card: (a) without tracking,
+    (b) with tracking (keyframe every 5 frames), then the route of the first
+    frames on the card against the CPU."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    w = _world(np)
+    anno = _world_map(torch, np) / "anno"
+    root = w["root"] / "demo"
+    if "query" not in w:
+        w["query"] = _query_scene(np, w["root"] / "query", DETECT_FRAMES)
+    seq = _demo_sequence(np, w, root / "seq")
+    F = DETECT_FRAMES
+    db_batches = -(-CLI_SCENE["frames"] // 8)
+    results = {}
+    for label, extra in DEMO_RUNS:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
+        summary, counts, peak, sec, route, conf, launches = _demo(
+            torch, np, seq, anno, root / f"out_{label}", DEV, extra)
+        results[label] = (summary, route, launches)
+        video = summary["video"] and Path(summary["video"]).is_file() and \
+            Path(summary["video"]).stat().st_size > 0
+        per_m, per_t = launches.per_call("matcher"), launches.per_call("crop")
+        log(f"[demo] ({label}) {' '.join(extra)}: {F} frames of {DETECT_HW[1]}x{DETECT_HW[0]}, "
+            f"DB {CLI_SCENE['frames']} crops; {sec:.2f} s in all; summary {summary}; route "
+            f"{' '.join(route)} (D: full-frame detection, B: box from the previous pose; M: "
+            f"matcher, T: tracker); peak device memory {peak:.3f} GiB ({resident:.3f} GiB "
+            f"resident at the reset); video written {bool(video)}; launches {counts}; per "
+            f"matcher frame {per_m}, per tracked frame {per_t}")
+        s = summary
+        if not (s["num_frames"] == F and s["n_matcher"] + s["n_flow_track"] == F and video
+                and s["n_detect"] + s["n_box_track"] == F):
+            fail(f"demo ({label}) did not serve every frame")
+        want = {k: 0 for k in counts}
+        want.update(nms=db_batches + s["n_detect"] + s["n_matcher"] + s["n_flow_track"],
+                    gats=4 * s["n_matcher"], dual_softmax=s["n_matcher"])
+        if counts != want or (s["n_flow_track"] and per_t != {"nms": 1.0}) or per_m != {
+                "nms": 1.0, "gats": 4.0, "dual_softmax": 1.0}:
+            fail(f"demo ({label}) launched {counts}, want {want}")
+        if label == "b" and s["n_flow_track"] == 0:
+            fail("demo (b) tracked no frame")
+        for key, name in (("nms", "nms"), ("gats", "gats"), ("dual_softmax", "dual_softmax")):
+            if key in rows:
+                extra_ = rows[key].setdefault("extra", {})
+                extra_[f"demo_{label}_launches"] = counts[name]
+                extra_["demo_launches_per_matcher_frame"] = per_m.get(name, 0.0)
+                if s["n_flow_track"]:
+                    extra_["demo_launches_per_tracked_frame"] = per_t.get(name, 0.0)
+
+    # The card against the CPU: the route and confidence of the first frames.
+    for label, extra in DEMO_RUNS:
+        got = []
+        for i, dev in enumerate((DEV, "cpu")):
+            small = _demo_sequence(np, w, root / f"small_{label}_{i}",
+                                   db_frames=DEMO_SMALL["db_frames"], frames=DEMO_SMALL["frames"])
+            t0 = time.perf_counter()
+            _, _, _, _, route, conf, _ = _demo(torch, np, small, anno,
+                                               root / f"small_out_{label}_{i}", dev, extra)
+            got.append((route, conf))
+            log(f"[demo] card against CPU ({label}), demo on {dev}: {DEMO_SMALL['frames']} frames, "
+                f"{DEMO_SMALL['db_frames']}-frame DB, {time.perf_counter() - t0:.1f} s: route "
+                f"{' '.join(route)}, confidence {conf}")
+        if got[0] != got[1]:
+            fail(f"demo ({label}) took another route on the card than on the CPU")
+    log(f"[demo] phase demo took {time.perf_counter() - t_phase:.1f} s; random weights: the "
+        f"poses say nothing of accuracy (phase tracker and phase infer (c) do)")
+
+
+# --- phase cli, A15: convert, parse-scan, video2img, merge-anno ---------------
+
+
+def _reference_state_dicts(np, torch, seed):
+    """SuperPoint and GATsSPG (4 blocks) state_dicts with the reference's key
+    names and shapes (what models/convert.py reads), weights drawn from a
+    seed at 1 / sqrt(fan_in), biases zero."""
+    rng = np.random.default_rng(seed)
+    sp, gm = {}, {}
+
+    def conv(sd, name, out, inp, *k):
+        fan = inp * int(np.prod(k))
+        sd[f"{name}.weight"] = torch.from_numpy(
+            (rng.standard_normal((out, inp, *k)) / np.sqrt(fan)).astype(np.float32))
+        sd[f"{name}.bias"] = torch.zeros(out)
+
+    for name, out, inp in (("conv1a", 64, 1), ("conv1b", 64, 64), ("conv2a", 64, 64),
+                           ("conv2b", 64, 64), ("conv3a", 128, 64), ("conv3b", 128, 128),
+                           ("conv4a", 128, 128), ("conv4b", 128, 128), ("convPa", 256, 128),
+                           ("convDa", 256, 128)):
+        conv(sp, name, out, inp, 3, 3)
+    conv(sp, "convPb", 65, 256, 1, 1)
+    conv(sp, "convDb", 256, 256, 1, 1)
+    d = 256
+    for blk in range(4):
+        base = 3 * blk
+        gm[f"gnn.layers.{base}.W"] = torch.from_numpy(
+            (rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32))
+        gm[f"gnn.layers.{base}.a"] = torch.from_numpy(
+            (rng.standard_normal((2 * d, 1)) / np.sqrt(2 * d)).astype(np.float32))
+        for layer in (base + 1, base + 2):
+            for i in range(3):
+                conv(gm, f"gnn.layers.{layer}.attn.proj.{i}", d, d, 1)
+            conv(gm, f"gnn.layers.{layer}.attn.merge", d, d, 1)
+            conv(gm, f"gnn.layers.{layer}.mlp.0", 2 * d, 2 * d, 1)
+            conv(gm, f"gnn.layers.{layer}.mlp.3", d, 2 * d, 1)
+    conv(gm, "final_proj", d, d, 1)
+    return sp, {f"matcher.{k}": v for k, v in gm.items()}
+
+
+def _host_command(argv) -> str:
+    """One host command of the port in the process: its stdout's last line."""
+    import contextlib
+    import io
+
+    from onepose_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    out = buf.getvalue().strip().splitlines()
+    if rc != 0 or not out:
+        fail(f"{argv[0]} returned {rc} with output {out[-3:]}")
+    return out[-1]
+
+
+def _capture(np, root: Path, frames: int) -> Path:
+    """A synthetic ARKit capture (tests/test_data.py:257-288 at phone size):
+    intrinsics.txt, Box.txt (a 0.2 m box at the origin), ARposes.txt (the
+    camera 0.5 m in front, moving sideways), Frames.m4v (noise frames of
+    480 x 640 that cv2 writes)."""
+    import cv2
+
+    root.mkdir(parents=True)
+    (root / "intrinsics.txt").write_text("".join(
+        f"{i},{0.1 * i},600,600,320,240\n" for i in range(frames)))
+    (root / "Box.txt").write_text("header\n0,0,0,0.2,0.2,0.2,1,0,0,0\n")
+    (root / "ARposes.txt").write_text("".join(
+        f"{0.1 * i},{0.01 * i},0,0.5,1,0,0,0\n" for i in range(frames)))
+    writer = cv2.VideoWriter(str(root / "Frames.m4v"), cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                             (640, 480))
+    if not writer.isOpened():
+        fail("cv2 cannot write an .m4v here")
+    rng = np.random.default_rng(8)
+    for _ in range(frames):
+        writer.write((rng.random((480, 640, 3)) * 255).astype(np.uint8))
+    writer.release()
+    return root
+
+
+def _cli_a15(torch, np, w):
+    """The host commands once each: convert (reference-layout weights from a
+    seed at the shipped widths), infer reading the weight files against
+    infer reading their conversions, parse-scan, video2img, merge-anno."""
+    import argparse
+
+    root = w["root"] / "a15"
+    root.mkdir()
+    t0 = time.perf_counter()
+    sp_sd, gm_sd = _reference_state_dicts(np, torch, seed=4)
+    sp_pth, gm_ckpt = root / "superpoint_v1.pth", root / "gats_spg.ckpt"
+    torch.save(sp_sd, sp_pth)
+    torch.save({"state_dict": gm_sd, "epoch": 9,
+                "hyper_parameters": argparse.Namespace(lr=1e-3)}, gm_ckpt)
+    converted = {}
+    for model, src in (("superpoint", sp_pth), ("gats_spg", gm_ckpt)):
+        converted[model] = root / f"{model}.msgpack"
+        line = _host_command(["convert", f"model={model}", f"weights={src}",
+                              f"out={converted[model]}"])
+        log(f"[cli] convert {src.name}: {line}")
+        if not converted[model].is_file():
+            fail(f"convert wrote no {converted[model]}")
+
+    sub = _cli_subsequence(w["seq"], root / "infer_seq", 16)
+    anno = w["map_a"] / "anno"
+    runs = []
+    for label, sp_w, gm_w in (("weight files", sp_pth, gm_ckpt),
+                              ("converted", converted["superpoint"], converted["gats_spg"])):
+        vis = root / f"vis_{len(runs)}"
+        metrics, counts, _, sec, _ = _infer(torch, [
+            f"data_dir={sub}", f"anno_dir={anno}", "matcher=gats", f"weights.superpoint={sp_w}",
+            f"weights.matcher={gm_w}", f"dump_vis3d={vis}"], DEV, label)
+        runs.append((metrics, {p.parent.name: json.loads(p.read_text())
+                               for p in vis.glob("*/camera.json")}))
+        log(f"[cli] infer with the {label} ({Path(sp_w).name}, {Path(gm_w).name}), 16 frames: "
+            f"{metrics}, {sec:.2f} s, launches {counts}")
+    (m_a, v_a), (m_b, v_b) = runs
+    if not (m_a == m_b and v_a == v_b and len(v_a) == 16):
+        fail("infer reading the PyTorch weight files differs from infer reading their conversion")
+    log("[cli] infer reading the .pth / .ckpt equals infer reading the converted .msgpack: "
+        "metrics and every frame's dump_vis3d identical")
+
+    cap = _capture(np, root / "capture", 8)
+    line = _host_command(["parse-scan", f"data_dir={cap}", f"out_dir={root / 'parsed'}"])
+    parsed = json.loads(line)
+    crops = sorted((root / "parsed" / "color").glob("*.png"))
+    log(f"[cli] parse-scan of an 8-frame capture: {parsed}, {len(crops)} crops")
+    if parsed != {"num_frames": 8, "num_video_frames": 8} or len(crops) != 8:
+        fail("parse-scan did not parse every frame")
+    line = _host_command(["video2img", f"video_file={cap / 'Frames.m4v'}",
+                          f"out_dir={root / 'frames'}", "downsample_rate=2"])
+    log(f"[cli] video2img, every 2nd frame: {line}")
+    if json.loads(line) != {"num_frames": 4}:
+        fail("video2img did not extract every 2nd frame")
+    indices = [w["map_a"] / "anno" / "anno_index.json", w["root"] / "out_b" / "anno" /
+               "anno_index.json"]
+    n = sum(len(json.loads(p.read_text())) for p in indices)
+    line = _host_command(["merge-anno", f"indices={','.join(map(str, indices))}",
+                          f"out={root / 'merged.json'}", f"coco_out={root / 'coco.json'}"])
+    log(f"[cli] merge-anno of map (a)'s and (b)'s indices: {line} (want {n})")
+    if json.loads(line)["num_annotations"] != n or not (root / "coco.json").is_file():
+        fail("merge-anno lost annotations")
+    log(f"[cli] the host commands took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3207,6 +3813,10 @@ def main(argv=None) -> int:
             phase_detect(torch, rows)
         if "infer" in phases:
             phase_infer(torch)
+        if "tracker" in phases:
+            phase_tracker(torch)
+        if "demo" in phases:
+            phase_demo(torch, rows)
     finally:
         if "root" in _WORLD:
             import shutil

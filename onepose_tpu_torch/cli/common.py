@@ -15,8 +15,11 @@ compiled per call here). The port's "params" are a module's state_dict:
 - a msgpack checkpoint (the JAX package's format, `utils.checkpoint`) is
   read and turned into a state_dict by `models.bridge`; for the matcher
   either bare params or a train loop's `{step, params, opt_state}`;
-- PyTorch weight files (.pth, .tar, .pt, .ckpt) raise: converting them is
-  the `convert` command (ROADMAP A15).
+- a PyTorch weight file (.pth, .tar, .pt, .ckpt: the reference's released
+  weights, or a Lightning checkpoint's "state_dict") goes through
+  `models.convert` to the JAX package's tree, then the same bridge, as the
+  JAX loaders convert it. The `convert` command writes that tree as a
+  msgpack checkpoint once, ahead of time.
 """
 
 from __future__ import annotations
@@ -66,31 +69,33 @@ def _random_init(model: torch.nn.Module, seed: int) -> dict[str, torch.Tensor]:
     return fresh.state_dict()
 
 
-def _load(model: torch.nn.Module, weights: Optional[str], seed: int, to_state_dict):
+def _load(model: torch.nn.Module, weights: Optional[str], seed: int, to_state_dict,
+          kind: str):
     if weights is None:
         return _random_init(model, seed)
     if weights.endswith(TORCH_WEIGHTS):
-        raise NotImplementedError(
-            f"{weights}: PyTorch weight files need the `convert` command, not ported yet "
-            "(ROADMAP A15); pass a msgpack checkpoint")
+        from onepose_tpu_torch.models import convert
+
+        return to_state_dict(convert.CONVERTERS[kind](convert.load_torch_state_dict(weights)))
     return to_state_dict(load_checkpoint(weights))
 
 
 def load_superpoint_params(model, weights: Optional[str], seed: int = 0) -> dict:
-    """SuperPoint state_dict from a msgpack checkpoint, or the seeded random
-    init when weights is None."""
-    return _load(model, weights, seed, bridge.superpoint_state_dict)
+    """SuperPoint state_dict from a msgpack checkpoint or a PyTorch weight
+    file, or the seeded random init when weights is None."""
+    return _load(model, weights, seed, bridge.superpoint_state_dict, "superpoint")
 
 
 def load_superglue_params(model, weights: Optional[str], seed: int = 0) -> dict:
-    """SuperGlue state_dict from a msgpack checkpoint, or the seeded random
-    init when weights is None."""
-    return _load(model, weights, seed, bridge.superglue_state_dict)
+    """SuperGlue state_dict from a msgpack checkpoint or a PyTorch weight
+    file, or the seeded random init when weights is None."""
+    return _load(model, weights, seed, bridge.superglue_state_dict, "superglue")
 
 
 def load_matcher_params(model, weights: Optional[str], seed: int = 0) -> dict:
     """GATsSPG state_dict from a msgpack checkpoint (bare params, or a train
-    loop's TrainState {step, params, opt_state}), or the seeded random init
+    loop's TrainState {step, params, opt_state}) or a PyTorch weight file
+    (a Lightning checkpoint's prefixes stripped), or the seeded random init
     when weights is None."""
 
     def from_tree(raw):
@@ -98,7 +103,7 @@ def load_matcher_params(model, weights: Optional[str], seed: int = 0) -> dict:
             raw = raw["params"]
         return bridge.gats_spg_state_dict(raw)
 
-    return _load(model, weights, seed, from_tree)
+    return _load(model, weights, seed, from_tree, "gats_spg")
 
 
 def build_matcher(cfg: dict):

@@ -37,7 +37,12 @@ MODULES = (
     "onepose_tpu_torch.train, onepose_tpu_torch.train.losses, "
     "onepose_tpu_torch.train.train_step, onepose_tpu_torch.train.loop, "
     "onepose_tpu_torch.train.callbacks, onepose_tpu_torch.data.dataset, "
-    "onepose_tpu_torch.utils.seeding, onepose_tpu_torch.cli.train_cmd"
+    "onepose_tpu_torch.utils.seeding, onepose_tpu_torch.cli.train_cmd, "
+    "onepose_tpu_torch.ops.optical_flow, onepose_tpu_torch.tracker, "
+    "onepose_tpu_torch.tracker.ba_tracker, onepose_tpu_torch.cli.demo, "
+    "onepose_tpu_torch.models.convert, onepose_tpu_torch.cli.convert_cmd, "
+    "onepose_tpu_torch.data.scan_parser, onepose_tpu_torch.cli.parse_scan_cmd, "
+    "onepose_tpu_torch.cli.merge_anno_cmd"
 )
 
 

@@ -176,7 +176,11 @@ def test_frame_loader_matches_jax(frames, warp):
 def test_load_matcher_params_from_jax_checkpoints(tmp_path):
     """A bare GATsSPG checkpoint and a train loop's TrainState checkpoint,
     both written by the JAX package, give the bridge's state_dict exactly;
-    None the seeded init; .pth raises naming A15."""
+    None the seeded init; a Lightning .ckpt in the reference's layout (4
+    blocks, 'matcher.' prefixes) the state_dict of its conversion."""
+    from test_torch_convert import gats_spg_sd
+
+    from onepose_tpu.models.convert import gats_spg_from_torch
     from onepose_tpu.train.train_step import TrainConfig, create_train_state
 
     model = JaxGATsSPG(num_blocks=2)
@@ -196,8 +200,13 @@ def test_load_matcher_params_from_jax_checkpoints(tmp_path):
         port.load_state_dict(sd)
     a, b = common.load_matcher_params(port, None), common.load_matcher_params(port, None)
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="A15"):
-        common.load_matcher_params(port, str(tmp_path / "w.pth"))
+    ref = gats_spg_sd()
+    torch.save({"state_dict": ref, "epoch": 1}, tmp_path / "w.ckpt")
+    got = common.load_matcher_params(GATsSPG(), str(tmp_path / "w.ckpt"))
+    converted = bridge.gats_spg_state_dict(gats_spg_from_torch(ref))
+    assert got.keys() == converted.keys()
+    assert all(torch.equal(got[k], converted[k]) for k in converted)
+    GATsSPG().load_state_dict(got)
     m, p = common.build_matcher({"matcher": "gats", "weights": {"matcher": bare}})
     assert isinstance(m, GATsSPG) and m.fused_match and p.keys() == want.keys()
     m, p = common.build_matcher({"matcher": "nn", "nn_distance_thresh": 0.5})

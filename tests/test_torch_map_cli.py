@@ -14,7 +14,8 @@ and the PLY within 1e-5 (fp32 convolutions sum in another order; the
 features themselves agree within 3e-7 here); anno_index.json equal up
 to the output root; the stats.json counts identical. Then the command's
 behaviour (roster, box inside the sequence, resume, npz annotations,
-the unported commands, no CUDA, no h5py) on the port alone.
+every command of the JAX package registered, no CUDA, no h5py) on the
+port alone.
 """
 
 import glob
@@ -36,7 +37,7 @@ from onepose_tpu.cli.common import load_superglue_params as jax_load_superglue
 from onepose_tpu.models.superglue import SuperGlue as JaxSuperGlue
 from onepose_tpu.models.superpoint import SuperPoint as JaxSuperPoint
 from onepose_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
-from onepose_tpu_torch.__main__ import PENDING
+from onepose_tpu_torch.__main__ import build_parser
 from onepose_tpu_torch.__main__ import main as port_main
 from onepose_tpu_torch.cli import common
 from onepose_tpu_torch.data.anno_io import load_anno2d
@@ -190,7 +191,12 @@ def test_extract_sequence_features_matches_jax(tmp_path):
 def test_load_params(world, tmp_path):
     """A msgpack checkpoint gives the bridge's state_dict; weights=None the
     seeded random init (the same twice, another seed differs, the caller's
-    module untouched); PyTorch weight files raise naming A15."""
+    module untouched); a PyTorch weight file (any of the four suffixes) in
+    the reference's layout gives the state_dict of its conversion."""
+    from test_torch_convert import superglue_sd
+
+    from onepose_tpu.models.convert import superglue_from_torch
+
     model = SuperPoint()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     sd = common.load_superpoint_params(model, world["sp_ckpt"])
@@ -206,11 +212,19 @@ def test_load_params(world, tmp_path):
     sg = SuperGlue()
     sg.load_state_dict(common.load_superglue_params(sg, world["sg_ckpt"]))
     sg.load_state_dict(common.load_superglue_params(sg, None))
+    # The reference's SuperPoint names and layout are this module's own.
     for ext in (".pth", ".pt", ".tar", ".ckpt"):
-        with pytest.raises(NotImplementedError, match="A15"):
-            common.load_superpoint_params(model, str(tmp_path / f"w{ext}"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        common.load_superglue_params(sg, str(tmp_path / "w.pth"))
+        torch.save(want, tmp_path / f"w{ext}")
+        got = common.load_superpoint_params(model, str(tmp_path / f"w{ext}"))
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    ref = superglue_sd()
+    torch.save(ref, tmp_path / "sg.pth")
+    got = common.load_superglue_params(sg, str(tmp_path / "sg.pth"))
+    want = bridge.superglue_state_dict(superglue_from_torch(ref))
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    sg.load_state_dict(got)
 
 
 # --- the command's behaviour (tests/test_cli.py, on the port) -------------
@@ -303,7 +317,33 @@ def test_cache_without_h5py_raises(world, tmp_path, monkeypatch):
     assert (tmp_path / "b" / "stats.json").exists()
 
 
-@pytest.mark.parametrize("command", sorted(PENDING))
-def test_unported_commands_exit_nonzero(command, capsys):
-    assert port_main([command, "data_dir=x"]) != 0
-    assert f"ROADMAP {PENDING[command][1]}" in capsys.readouterr().err
+def _jax_commands() -> list:
+    """The JAX package's commands, from its parser's usage line."""
+    import contextlib
+    import io
+    import re
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+        jax_main(["--help"])
+    return re.search(r"\{([a-z0-9,-]+)\}", buf.getvalue()).group(1).split(",")
+
+
+JAX_COMMANDS = ("map", "infer", "train", "parse-scan", "video2img", "demo", "detect",
+                "merge-anno", "convert")
+
+
+def test_jax_package_has_nine_commands():
+    assert sorted(_jax_commands()) == sorted(JAX_COMMANDS)
+
+
+@pytest.mark.parametrize("command", JAX_COMMANDS)
+def test_every_command_is_registered(command, capsys):
+    """Each command of onepose_tpu/__main__.py is registered in the port and
+    answers --help with 0."""
+    sub = next(a for a in build_parser()._actions if a.dest == "command")
+    assert command in sub.choices
+    with pytest.raises(SystemExit) as exit_:
+        port_main([command, "--help"])
+    assert exit_.value.code == 0
+    assert "--config" in capsys.readouterr().out
