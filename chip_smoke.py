@@ -83,7 +83,19 @@ Phases, each printing its lines before the last:
      phase cli's map: without tracking and with it (K1 / K2 / K3 launches
      a matcher frame and a tracked frame, stage times, peak memory, the
      video), and the route of the first frames on the card against the CPU;
- 12. one JSON line {"kernels": [...]}, then the last line
+ 12. the multi-device work over torch.distributed (phase multi): (a) a
+     one-rank NCCL group on the card runs every meshed path at the main
+     path's width (PosePipeline.sharded in bf16 and fp32 with its kernels,
+     the points-sharded and the tensor-parallel matcher, StagePipeline,
+     distributed BA at run_mapping's width, SuperGlue pair matching over
+     the data axis with K6 and K7), each against the same call without a
+     mesh; (b) two ranks on the same card joined by gloo over CUDA tensors
+     (NCCL refuses two ranks on one device), each serving 4 of the 8 frames
+     and holding 1000 of the 2000 points, held against (a); each path's
+     launches of K1 to K7 and its ms (two ranks share one card: no scaling
+     claim); `--multi-cards N` runs (b) as one NCCL rank on each of N
+     cards instead;
+ 13. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -104,7 +116,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", "detect",
-          "infer", "tracker", "demo")
+          "infer", "tracker", "demo", "multi")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -3768,10 +3780,484 @@ def _cli_a15(torch, np, w):
     log(f"[cli] the host commands took {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase multi: the multi-device work over torch.distributed -------------
+
+MULTI_BA = dict(points=2441, cams=160, views=10, noise_pts=0.01, noise_cams=0.002, iters=10)
+MULTI_PAIRS = (dict(label="k1024", frames=12, keypoints=1024, pairs=16, kernel="sinkhorn"),
+               dict(label="k4096", frames=6, keypoints=4096, pairs=8, kernel="sinkhorn_stream"))
+MULTI_RANKS = 2
+# Tolerances of a meshed path against the same call without a mesh in (a),
+# and of (b)'s two ranks against (a)'s one rank:
+MULTI_CONF_ABS = 1e-5  # matcher conf, fp32: the sums over the shards add in another order
+MULTI_BA_REL = 1e-5  # BA costs, of the initial cost (the final cost is what a cancellation leaves)
+MULTI_BA_ABS = 1e-4  # BA points and cameras
+MULTI_MATCH_AGREE = 0.99  # matches0 / matches1 agreement: conf sums part on near ties
+# (b)'s ranks run SuperPoint at batch 4 against (a)'s 8, where cuDNN may take
+# other algorithms: the dense maps of a rank's frames are held to (a)'s by
+# BF16_SCORE_REL and BF16_DESC_ABS (phase main's bounds of bf16 against
+# fp32: loose for either dtype here, the measured gaps are printed), fp32
+# keypoints also by overlap. Matches are reported, not held: with random
+# weights conf is near flat, and descriptors one rounding apart flip
+# mutual-max ties.
+MULTI_KPT_OVERLAP = 0.99
+# Pair-matcher rows in (b): a rank's chunk holds half the pairs, so the
+# Sinkhorn kernels' plan (blocks a pair) and their sums' order differ.
+MULTI_PAIR_AGREE = 0.995
+MULTI_TIMEOUT = 600  # seconds for (b)'s ranks
+MULTI_WORKER = [sys.executable, str(ROOT / "chip_smoke.py")]  # + --multi-rank DIR: a rank of (b)
+
+
+def _multi_ba_problem(np, torch, cfg, seed=0):
+    """A BA window at run_mapping's width: points in a 0.2 cube, each seen by
+    `views` of `cams` cameras on a ring, exact projections, perturbed
+    starts; camera 0 fixed (the gauge), the others refined."""
+    from onepose_tpu_torch.geometry.rotations import rotmat_to_angle_axis
+
+    rng = np.random.default_rng(seed)
+    P, W, V = cfg["points"], cfg["cams"], cfg["views"]
+    pts = (rng.random((P, 3)) - 0.5) * 0.2
+    f, c = 500.0, 256.0
+    Rs, cams = [], []
+    for i in range(W):
+        ang = 2 * np.pi * i / W
+        center = np.array([np.cos(ang), np.sin(ang), 0.5]) * 1.2
+        pose = _look_at(np, center)
+        Rs.append(pose[:3, :3])
+        aa = rotmat_to_angle_axis(torch.from_numpy(pose[:3, :3].astype(np.float32))).numpy()
+        cams.append(np.concatenate([aa, pose[:3, 3]]))
+    Rs, cams = np.stack(Rs), np.stack(cams)
+    pt_idx = np.repeat(np.arange(P), V)
+    cam_idx = np.concatenate([rng.choice(W, V, replace=False) for _ in range(P)])
+    pc = np.einsum("mij,mj->mi", Rs[cam_idx], pts[pt_idx]) + cams[cam_idx, 3:]
+    feats = np.stack([f * pc[:, 0] / pc[:, 2] + c, f * pc[:, 1] / pc[:, 2] + c,
+                      np.full(len(pc), f), np.full(len(pc), c), np.full(len(pc), c)], 1)
+    fix = np.zeros(W, np.float32)
+    fix[0] = 1.0
+    cams0 = cams + rng.normal(size=cams.shape) * cfg["noise_cams"]
+    cams0[0] = cams[0]
+    return {"pts0": (pts + rng.normal(size=pts.shape) * cfg["noise_pts"]).astype(np.float32),
+            "cams0": cams0.astype(np.float32), "features": feats.astype(np.float32),
+            "pt_idx": pt_idx.astype(np.int32), "cam_idx": cam_idx.astype(np.int32), "fix": fix}
+
+
+def _multi_inputs(torch, np) -> dict:
+    """The main path's inputs at MAIN's width, a matcher batch against the
+    annotation, a BA window and pair-matcher features, on the host."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+    B, S, KP, HYP = MAIN["batch"], MAIN["size"], MAIN["keypoints"], MAIN["hypotheses"]
+    anno = _annotation(torch, g, MAIN["points"], MAIN["leaves"], 256, DEV)
+    d2 = torch.randn((B, KP, 256), generator=g, device=DEV)
+    d2[:, :KP // 2] = anno.desc3d[None, :KP // 2] + 0.3 * d2[:, :KP // 2]  # planted matches
+    d2 = d2 / torch.linalg.vector_norm(d2, dim=-1, keepdim=True)
+    return {
+        "imgs": _images(torch, g, B, S, DEV).cpu(),
+        "K": torch.tensor([[500.0, 0, S / 2], [0, 500.0, S / 2], [0, 0, 1]]).repeat(B, 1, 1),
+        "draws": torch.rand((B, HYP, 3), generator=g, device=DEV).cpu(),
+        "anno": {k: getattr(anno, k).cpu() for k in ("points3d", "desc3d", "leaf_desc",
+                                                       "mask3d", "leaf_mask")},
+        "d2": d2.cpu(), "m2": (torch.rand((B, KP), generator=g, device=DEV) < 0.95).cpu(),
+        "ba": _multi_ba_problem(np, torch, MULTI_BA),
+        "pairs": {cfg["label"]: _pair_feats(np, cfg, seed=21 + i)
+                  for i, cfg in enumerate(MULTI_PAIRS)},
+    }
+
+
+class _MultiWork:
+    """Every meshed path of the multi-device work at the main path's width,
+    over meshes of all the ranks: PosePipeline.sharded (bf16 and fp32,
+    kernels on) over an n x 1 data mesh; the points-sharded and the
+    tensor-parallel matcher (fp32, K2) over 1 x n; distributed BA over 1 x
+    n at run_mapping's width; SuperGlue pair matching (K6 at 1024
+    keypoints, K7 at 4096) over the data mesh; with `stages`, the
+    StagePipeline of each serving pipeline (one process). `paths()` gives
+    (name, meshed call, the same call without a mesh)."""
+
+    def __init__(self, torch, np, inp, n, stages):
+        from onepose_tpu_torch.models.gats_spg import GATsSPG
+        from onepose_tpu_torch.parallel.mesh import make_mesh
+        from onepose_tpu_torch.parallel.tensor_parallel import make_tp_mesh, shard_params
+        from onepose_tpu_torch.runtime.pipeline import ObjectAnnotation
+
+        self.torch, self.np, self.inp, self.n, self.stages = torch, np, inp, n, stages
+        dev = self.dev = torch.device(DEV)
+        self.data_mesh = make_mesh(n_data=n, n_points=1, device=DEV)
+        self.pts_mesh = make_mesh(n_data=1, n_points=n, device=DEV)
+        self.anno = ObjectAnnotation(**{k: v.to(dev) for k, v in inp["anno"].items()})
+        self.imgs, self.K, self.draws = (inp[k].to(dev) for k in ("imgs", "K", "draws"))
+        self.pipes = dict(zip(("bf16", "fp32"), _pipelines(
+            torch, MAIN["blocks"], [(torch.bfloat16, True, DEV), (torch.float32, True, DEV)],
+            max_keypoints=MAIN["keypoints"], ransac_hypotheses=MAIN["hypotheses"])))
+        B, a = MAIN["batch"], self.anno
+        self.margs = (inp["d2"].to(dev), a.desc3d[None].expand(B, -1, -1).contiguous(),
+                      a.leaf_desc[None].expand(B, -1, -1, -1).contiguous(), inp["m2"].to(dev),
+                      a.mask3d[None].expand(B, -1).contiguous(),
+                      a.leaf_mask[None].expand(B, -1, -1).contiguous())
+        m_sd = self.pipes["fp32"].matcher.state_dict()
+        models = {}
+        for name, mesh in (("dense", None), ("points", self.pts_mesh)):
+            m = GATsSPG(num_blocks=MAIN["blocks"], gats_kernel=True,
+                        match_threshold=MATCH_THRESHOLD, mesh=mesh)
+            m.load_state_dict(m_sd)
+            models[name] = m.to(dev).eval()
+        models["tp"] = shard_params(models["dense"], make_tp_mesh(n, device=DEV))
+        self.models = models
+        self.chunks = {}  # pair matcher label -> its chunk (all ranks' pairs)
+
+    def _matcher(self, name):
+        with self.torch.inference_mode():
+            return self.models[name](*self.margs)
+
+    def _serve(self, label):
+        p = self.pipes[label]
+        return p(self.imgs, self.K, self.anno, draws=self.draws)
+
+    def _stages(self, label, stages):
+        micro, d, K = [self.imgs[:4], self.imgs[4:]], [self.draws[:4], self.draws[4:]], self.K[:4]
+        if stages is None:
+            return [self.pipes[label](m, K, self.anno, draws=x) for m, x in zip(micro, d)]
+        return stages.run(micro, [K, K], draws=d)
+
+    def _ba(self, meshed):
+        from onepose_tpu_torch.ops.lm import ba_solve
+        from onepose_tpu_torch.parallel.distributed_ba import (
+            distributed_ba_solve,
+            partition_obs_by_point,
+        )
+
+        np, torch, dev, ba = self.np, self.torch, self.dev, self.inp["ba"]
+        t = {k: torch.from_numpy(v).to(dev) for k, v in ba.items()}
+        if not meshed:
+            return ba_solve(t["pts0"], t["cams0"], t["features"], t["pt_idx"], t["cam_idx"],
+                            torch.ones(len(ba["pt_idx"]), dtype=torch.bool, device=dev),
+                            fix_cam_mask=t["fix"], n_iters=MULTI_BA["iters"])
+        P = ba["pts0"].shape[0]
+        P_pad = -(-P // self.n) * self.n  # padded to the shard count, as run_mapping pads
+        parts = partition_obs_by_point(P_pad, self.n, ba["features"], ba["pt_idx"],
+                                       ba["cam_idx"], np.ones(len(ba["pt_idx"]), bool))
+        out = distributed_ba_solve(
+            self.pts_mesh, torch.from_numpy(np.pad(ba["pts0"], ((0, P_pad - P), (0, 0)))).to(dev),
+            t["cams0"], *(torch.from_numpy(a).to(dev) for a in parts), fix_cam_mask=t["fix"],
+            n_iters=MULTI_BA["iters"])
+        return dict(out, points=out["points"][:P])
+
+    def _pair_matcher(self, cfg, mesh):
+        from onepose_tpu_torch.models.superglue import SuperGlue
+        from onepose_tpu_torch.parallel.sfm_parallel import make_superglue_pair_matcher
+
+        self.torch.manual_seed(5)
+        sg = SuperGlue(match_threshold=MATCH_THRESHOLD)
+        f = cfg["frames"] - 1
+        pairs = self.np.stack([self.np.arange(cfg["pairs"]) % f,
+                               self.np.arange(cfg["pairs"]) % f + 1], 1)
+        match = make_superglue_pair_matcher(sg, self.inp["pairs"][cfg["label"]], mesh=mesh,
+                                            pair_chunk=16, device=DEV)
+        if mesh is not None:
+            self.chunks[cfg["label"]] = match.chunk
+        return lambda: match(pairs)
+
+    def paths(self):
+        from onepose_tpu_torch.parallel.stage_pipeline import StagePipeline
+
+        out = []
+        for label in ("bf16", "fp32"):
+            run = self.pipes[label].sharded(self.data_mesh)
+            out.append((f"sharded_{label}",
+                        lambda run=run: run(self.imgs, self.K, self.anno, draws=self.draws),
+                        lambda label=label: self._serve(label)))
+        for name in ("points", "tp"):
+            out.append((f"{name}_matcher", lambda name=name: self._matcher(name),
+                        lambda: self._matcher("dense")))
+        out.append(("distributed_ba", lambda: self._ba(True), lambda: self._ba(False)))
+        for cfg in MULTI_PAIRS:
+            out.append((f"pairs_{cfg['label']}", self._pair_matcher(cfg, self.data_mesh),
+                        self._pair_matcher(cfg, None)))
+        if self.stages:
+            for label in ("bf16", "fp32"):
+                st = StagePipeline(self.pipes[label], self.anno)
+                out.append((f"stage_pipeline_{label}",
+                            lambda st=st, label=label: self._stages(label, st),
+                            lambda label=label: self._stages(label, None)))
+        return out
+
+    def want(self, path, counts) -> dict:
+        """The launches a path must make (on each rank), the rest 0."""
+        nb = MAIN["blocks"]
+        want = dict.fromkeys(counts, 0)
+        n_calls = 2 if path.startswith("stage_") else 1
+        if path.endswith("bf16"):
+            want.update(nms=n_calls, vgg_stage=4 * n_calls, gats_block=nb * n_calls,
+                        dual_softmax=n_calls)
+        elif path.endswith("fp32"):
+            want.update(nms=n_calls, gats=nb * n_calls, dual_softmax=n_calls)
+        elif path.endswith("_matcher"):
+            want.update(gats=nb)
+        elif path.startswith("pairs_"):
+            cfg = next(c for c in MULTI_PAIRS if path == f"pairs_{c['label']}")
+            want[cfg["kernel"]] = -(-cfg["pairs"] // self.chunks[cfg["label"]])  # one a chunk
+        return want
+
+
+def _multi_run(torch, work, path, call, rows, tag) -> tuple:
+    """One meshed path: a warm-up, the launches of one call (0 just before
+    it, read just after; the path's want, else a failure), and the median
+    host ms of 3 synchronized calls. Returns (output, launches, ms)."""
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    call()
+    torch.cuda.synchronize()
+    reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != work.want(path, counts):
+        fail(f"multi {tag} {path} launched {counts}, want {work.want(path, counts)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launched = {k: v for k, v in counts.items() if v}
+    for key, n in launched.items():
+        if key in rows:
+            rows[key].setdefault("extra", {})[f"multi_{tag}_{path}_launches"] = n
+    return out, launched, statistics.median(times)
+
+
+def _multi_check(torch, np, path, got, ref, raw=None) -> str:
+    """`got` against `ref` at the stated tolerances (fails otherwise);
+    returns what was compared. raw: for (b)'s serving, (this rank's dense
+    maps, (a)'s maps of the same frames)."""
+    if path.startswith("stage_"):
+        for g, w in zip(got, ref):
+            for k in ("pose", "num_inliers", "pnp_ok", "matches0"):
+                if not torch.equal(g[k], w[k]):
+                    fail(f"multi {path}: {k} differs from PosePipeline.__call__'s")
+        return "2 micro-batches of 4: pose, num_inliers, pnp_ok, matches0 equal __call__'s"
+    if path.startswith("sharded_"):
+        ok = ref["pnp_ok"] & got["pnp_ok"]
+        pose = float((got["pose"] - ref["pose"]).abs()[ok].max()) if bool(ok.any()) else 0.0
+        agree = float((got["matches0"] == ref["matches0"]).float().mean())
+        overlap = _keypoint_overlap(got, ref)
+        if not (bool((got["num_matches"] > 0).all()) and bool(torch.isfinite(got["pose"]).all())):
+            fail(f"multi {path}: a frame without a match or a pose that is not finite")
+        line = (f"keypoint overlap {overlap:.4f}, matches0 agreement {agree:.4f}, pose max abs "
+                f"diff {pose:.3e} where both solved")
+        if path == "sharded_fp32" and overlap < MULTI_KPT_OVERLAP:
+            fail(f"multi {path}: {line} (overlap >= {MULTI_KPT_OVERLAP})")
+        if raw is not None:
+            mine, theirs = raw
+            s_rel = float(((mine["score_map"] - theirs["score_map"]).abs()
+                           / theirs["score_map"].abs().clamp(min=1e-12)).max())
+            d_abs = float((mine["descriptor_map"] - theirs["descriptor_map"]).abs().max())
+            line += f"; this rank's dense maps: score max rel {s_rel:.3e}, desc max abs {d_abs:.3e}"
+            if s_rel > BF16_SCORE_REL or d_abs > BF16_DESC_ABS:
+                fail(f"multi {path}: {line} (<= {BF16_SCORE_REL}, {BF16_DESC_ABS})")
+        return line
+    if path.endswith("_matcher"):
+        err = float((got["conf_matrix"] - ref["conf_matrix"]).abs().max())
+        a0 = float((got["matches0"] == ref["matches0"]).float().mean())
+        a1 = float((got["matches1"] == ref["matches1"]).float().mean())
+        line = (f"conf max abs diff {err:.3e} (<= {MULTI_CONF_ABS}), matches0 / matches1 "
+                f"agreement {a0:.4f} / {a1:.4f}, {int((got['matches0'] >= 0).sum())} matches")
+        if err > MULTI_CONF_ABS or min(a0, a1) < MULTI_MATCH_AGREE:
+            fail(f"multi {path}: {line}")
+        return line
+    if path == "distributed_ba":
+        scale = float(ref["cost_initial"])
+        cost = max(abs(float(got[k]) - float(ref[k])) for k in ("cost_initial", "cost_final"))
+        pts = float((got["points"] - ref["points"]).abs().max())
+        cams = float((got["cam_poses"] - ref["cam_poses"]).abs().max())
+        line = (f"cost {scale:.4e} -> {float(got['cost_final']):.4e}, costs {cost:.3e} apart "
+                f"(<= {MULTI_BA_REL} x the initial), points {pts:.3e}, cameras {cams:.3e} "
+                f"(<= {MULTI_BA_ABS})")
+        if cost > MULTI_BA_REL * scale or max(pts, cams) > MULTI_BA_ABS:
+            fail(f"multi {path}: {line}")
+        return line
+    agree = float((np.asarray(got) == np.asarray(ref)).all(axis=1).mean())
+    line = (f"{agree:.4f} of the match rows equal (>= {MULTI_PAIR_AGREE}), "
+            f"{int((np.asarray(got) >= 0).sum())} matches")
+    if agree < MULTI_PAIR_AGREE:
+        fail(f"multi {path}: {line}")
+    return line
+
+
+def _host(tree):
+    """A path's output with its tensors on the host."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _multi_a(torch, np, rows, work_dir: Path) -> dict:
+    """(a): a one-rank NCCL group on cuda:0, every meshed path against the
+    same call without a mesh; writes the inputs and (a)'s outputs for (b)."""
+    import torch.distributed as dist
+
+    from onepose_tpu_torch.utils import comm
+
+    inp = _multi_inputs(torch, np)
+    torch.save(inp, work_dir / "inputs.pt")
+    if DEV == "cuda":
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1, timeout=comm.TIMEOUT,
+                                device_id=torch.device("cuda", 0))
+    else:  # a CPU rehearsal (DEV = "cpu")
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1, timeout=comm.TIMEOUT)
+    refs = {}
+    try:
+        log(f"[multi] (a) one rank, backend {dist.get_backend()}, world {dist.get_world_size()}, "
+            f"at batch {MAIN['batch']}, {MAIN['size']}^2, {MAIN['keypoints']} keypoints, "
+            f"{MAIN['points']} x {MAIN['leaves']} points, {MAIN['hypotheses']} hypotheses; BA "
+            f"{MULTI_BA['points']} points x {MULTI_BA['cams']} cameras x {MULTI_BA['views']} views")
+        work = _MultiWork(torch, np, inp, 1, stages=True)
+        for path, call, plain in work.paths():
+            got, launched, ms = _multi_run(torch, work, path, call, rows, "a")
+            line = _multi_check(torch, np, path, got, plain())
+            log(f"[multi] (a) {path}: launches {launched}, {ms:.2f} ms a call (median of 3); "
+                f"against no mesh: {line}")
+            refs[path] = _host(got)
+        for label, pipe in work.pipes.items():
+            refs[f"raw_{label}"] = _host({k: v.float() for k, v in _raw_maps(
+                torch, pipe, work.imgs).items() if k in ("score_map", "descriptor_map")})
+    finally:
+        dist.destroy_process_group()
+    torch.save(refs, work_dir / "refs.pt")
+    return refs
+
+
+def _multi_rank_main(torch, np, work_dir: Path, backend: str) -> int:
+    """One rank of (b) (chip_smoke.py --multi-rank DIR --multi-backend B,
+    started by phase multi with RANK / WORLD_SIZE / LOCAL_RANK / MASTER_* in
+    its environment): each path over all the ranks against (a)'s outputs;
+    writes rank<r>.json."""
+    from onepose_tpu_torch.utils import comm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(device=DEV, backend=backend)
+    rank, n = comm.get_rank(), comm.get_world_size()
+    inp = torch.load(work_dir / "inputs.pt", weights_only=False)
+    refs = torch.load(work_dir / "refs.pt", weights_only=False)
+    work = _MultiWork(torch, np, inp, n, stages=False)
+    rows, report = {}, {}
+    B = MAIN["batch"]
+    mine = slice(rank * B // n, (rank + 1) * B // n)
+    for path, call, _ in work.paths():
+        got, launched, ms = _multi_run(torch, work, path, call, rows, "b")
+        raw = None
+        if path.startswith("sharded_"):
+            label = path.split("_")[1]
+            maps = _raw_maps(torch, work.pipes[label], work.imgs[mine])
+            raw = ({k: maps[k].float().cpu() for k in ("score_map", "descriptor_map")},
+                   {k: v[mine] for k, v in refs[f"raw_{label}"].items()})
+        line = _multi_check(torch, np, path, _host(got), refs[path], raw)
+        report[path] = {"launches": launched, "ms": ms, "check": line}
+    (work_dir / f"rank{rank}.json").write_text(json.dumps(report))
+    comm.synchronize()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _multi_b(torch, rows, work_dir: Path, cards: int) -> None:
+    """(b): MULTI_RANKS processes on the one card (NCCL refuses two ranks on
+    one device), joined by gloo over CUDA tensors; or, with `cards`, one
+    NCCL rank on each of that many cards. Each rank runs every meshed path
+    on its share and is held to (a)'s outputs. The times of ranks sharing
+    one card show that the paths run, not how they scale."""
+    import os
+
+    n = cards or MULTI_RANKS
+    backend = "nccl" if cards else "gloo"
+    if cards > torch.cuda.device_count():
+        fail(f"multi (b): {cards} cards asked for, {torch.cuda.device_count()} present")
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r if cards else 0),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        out = open(work_dir / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen([*MULTI_WORKER, "--multi-rank", str(work_dir),
+                                        "--multi-backend", backend], env=env,
+                                       stdout=out, stderr=subprocess.STDOUT, cwd=ROOT), out))
+    deadline = time.perf_counter() + MULTI_TIMEOUT
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        fail(f"multi (b): the ranks passed {MULTI_TIMEOUT} s")
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            text = (work_dir / f"rank{r}.log").read_text()
+            fail(f"multi (b) rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    B, P = MAIN["batch"], MAIN["points"]
+    where = (f"{n} ranks on {n} cards, NCCL" if cards else
+             f"{n} ranks on one card, gloo over CUDA tensors (send and recv of CUDA tensors are "
+             "not among gloo's: the ring attention's shift is an all-gather)")
+    log(f"[multi] (b) {where}; each rank serves {B // n} of {B} frames and holds {P // n} of "
+        f"{P} points" + ("" if cards else "; times of ranks sharing one card (no scaling claim)"))
+    for r in range(n):
+        report = json.loads((work_dir / f"rank{r}.json").read_text())
+        for path, res in report.items():
+            log(f"[multi] (b) rank {r} {path}: launches {res['launches']}, {res['ms']:.2f} ms a "
+                f"call (median of 3); against (a): {res['check']}")
+            for key, n in res["launches"].items():
+                if key in rows:
+                    rows[key].setdefault("extra", {})[f"multi_b_rank{r}_{path}_launches"] = n
+        for key in ("nms", "gats", "vgg_stage", "sinkhorn"):
+            if not any(res["launches"].get(key) for res in report.values()):
+                fail(f"multi (b) rank {r} launched no {key}")
+
+
+def phase_multi(torch, rows, cards: int = 0):
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("[multi] TF32 off (cudnn and matmul), in (a) and in (b)'s ranks")
+    work_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_"))
+    try:
+        _multi_a(torch, np, rows, work_dir)
+        t1 = time.perf_counter()
+        _multi_b(torch, rows, work_dir, cards)
+    finally:
+        import shutil
+
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log(f"[multi] (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
+    parser.add_argument("--multi-cards", type=int, default=0,
+                        help="phase multi (b) over this many cards, one NCCL rank a card "
+                             "(default: two gloo ranks sharing the first card)")
+    parser.add_argument("--multi-rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--multi-backend", default="gloo", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     t_start = time.perf_counter()
@@ -3785,6 +4271,10 @@ def main(argv=None) -> int:
         print("chip_smoke: onepose_tpu_torch is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.multi_rank is not None:  # one rank of phase multi (b), started by the phase
+        import numpy as np
+
+        return _multi_rank_main(torch, np, Path(args.multi_rank), args.multi_backend)
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s): "
         f"{torch.cuda.get_device_name(0)}")
@@ -3817,6 +4307,8 @@ def main(argv=None) -> int:
             phase_tracker(torch)
         if "demo" in phases:
             phase_demo(torch, rows)
+        if "multi" in phases:
+            phase_multi(torch, rows, args.multi_cards)
     finally:
         if "root" in _WORLD:
             import shutil

@@ -23,16 +23,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def require_single_process(what: str) -> None:
-    """Raise if this process is one of several `torch.distributed` ranks: the
-    port's commands run in one process on one card (ROADMAP A14)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} over {dist.get_world_size()} processes is not ported yet (ROADMAP A14): "
-            "run it from one process")
-
-
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 

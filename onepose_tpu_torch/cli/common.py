@@ -217,11 +217,10 @@ def extract_sequence_features(
     to the device a batch at a time; the last batch is padded to `batch`
     by repeating its first frame, as in the JAX package, and the padded
     rows are dropped. The forward runs in full fp32 (TF32 off), as the JAX
-    package computes it. `mesh` (from `parallel.sfm_parallel.
-    resolve_sfm_mesh`) is None on one card; a mesh raises until ROADMAP A14."""
-    if mesh is not None:
-        raise NotImplementedError("feature extraction over a device mesh is not ported yet "
-                                  "(ROADMAP A14): pass mesh=None")
+    package computes it. With a `mesh` (`parallel.sfm_parallel.
+    resolve_sfm_mesh`), the batch is rounded up to divide its data axis,
+    each rank runs SuperPoint on its share of every batch, and the features
+    are all-gathered: every rank returns the whole sequence's."""
     dev = resolve_device(device)
     img_paths = path_utils.list_color_images(seq_root, det_type)
     if not img_paths:
@@ -236,6 +235,12 @@ def extract_sequence_features(
         Ks.append(K)
         poses.append(pose)
 
+    if mesh is not None:
+        from onepose_tpu_torch.parallel.mesh import DATA_AXIS, batch_sharding, gather, shard
+
+        n_data = mesh.axis_size(DATA_AXIS)
+        batch = -(-batch // n_data) * n_data
+
     h, w = imgs[0].shape
     outs = []
     with torch.inference_mode(), fp32_matmuls():
@@ -245,10 +250,14 @@ def extract_sequence_features(
             if n_real < batch:
                 chunk = chunk + [chunk[0]] * (batch - n_real)
             x = torch.from_numpy(np.stack(chunk)[..., None]).to(dev)
+            if mesh is not None:
+                x = shard(mesh, x, batch_sharding(mesh, x.dim()))
             dense = model(x)
             out = extract_keypoints(dense["score_map"], dense["descriptor_map"],
                                     max_keypoints=max_keypoints,
                                     keypoint_threshold=keypoint_threshold)
+            if mesh is not None:
+                out = {k: gather(mesh, v, batch_sharding(mesh, v.dim())) for k, v in out.items()}
             outs.append({k: v[:n_real].cpu().numpy() for k, v in out.items()})
     stacked = {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
     return {

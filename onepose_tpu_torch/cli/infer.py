@@ -21,11 +21,19 @@ go to the device, so the card and the CPU draw alike. The pipeline runs
 in full fp32 (TF32 off, `utils.precision.fp32_matmuls`), as JAX's fp32
 modules compute on the CPU and as `map` extracts features.
 
-Not ported yet (ROADMAP A14): `data_parallel` other than false, and a run
-over several `torch.distributed` processes; both raise. Copied from the
-reference (ROADMAP C watch item 5): with `batch_objects` the sequences are
-named by their directories whatever `seq_name` says, and `dump_vis3d` is
-not written.
+Over several ranks (`torchrun --nproc-per-node N -m onepose_tpu_torch
+infer ...`), as for `map`: with `data_parallel` off the roster is split
+over the ranks (the JAX package's multi-process behaviour), each rank
+records its own sequences to `eval_out`, and the recalls combine exactly
+(`utils.comm.all_gather_pytree` of `Evaluator.counts`, then
+`Evaluator.combine_counts`; rank 0 writes ALL). With `data_parallel` on,
+the mesh spans the ranks, every rank walks the whole roster, each image
+batch (rounded up to the data axis) is served by `PosePipeline.sharded`
+(each rank its frames), every rank holds every pose, and rank 0 alone
+writes `eval_out` and `dump_vis3d`. The feature-cache route stays on one
+rank's device, as in the JAX package. Copied from the reference (ROADMAP C
+watch item 5): with `batch_objects` the sequences are named by their
+directories whatever `seq_name` says, and `dump_vis3d` is not written.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from onepose_tpu_torch._device import require_single_process, resolve_device
+from onepose_tpu_torch._device import resolve_device
+from onepose_tpu_torch.utils import comm
 
 DEFAULTS = {
     "data_dir": None,  # sequence root with color/, poses_ba/, intrin_ba/
@@ -57,7 +66,9 @@ DEFAULTS = {
     "eval_out": None,
     "seq_name": "seq",
     "dump_vis3d": None,  # dir for per-frame 3D dumps (Wis3D-export parity)
-    # Frame batches over several cards: not ported yet (ROADMAP A14).
+    # Frame batches over the ranks (PosePipeline.sharded): False = each
+    # rank its own share of the roster; True (or the world size) = a mesh
+    # over every rank.
     "data_parallel": False,
     # Mixed-object batches: the whole roster as one frame stream, each
     # batch served against a per-frame gathered annotation.
@@ -82,12 +93,18 @@ def build_pipeline(cfg: dict, device):
                         device=device)
 
 
-def _check_single_process(cfg: dict) -> None:
-    if cfg["data_parallel"]:
-        raise NotImplementedError(
-            f"infer data_parallel={cfg['data_parallel']!r} is not ported yet (ROADMAP A14): "
-            "pass data_parallel=false")
-    require_single_process("infer")
+class _ShardedServing:
+    """A PosePipeline whose image batches go through its `sharded` call
+    over `mesh`; everything else is the pipeline's."""
+
+    def __init__(self, pipe, mesh):
+        self._pipe, self._run = pipe, pipe.sharded(mesh)
+
+    def __call__(self, *args, **kwargs) -> dict:
+        return self._run(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._pipe, name)
 
 
 def run(cfg: dict) -> dict:
@@ -96,24 +113,38 @@ def run(cfg: dict) -> dict:
     from onepose_tpu_torch.eval import Evaluator, record_eval_result
 
     dev = resolve_device(cfg["device"])  # no CUDA and no device=cpu: raise before any work
+    comm.init_distributed(device=dev)
     assert cfg["data_dir"], "infer: data_dir is required"
-    _check_single_process(cfg)
     seq_dirs = sequence_dirs(cfg["data_dir"], "infer")
     pipe = build_pipeline(cfg, dev)
+
+    from onepose_tpu_torch.parallel.sfm_parallel import resolve_sfm_mesh
+
+    mesh = resolve_sfm_mesh(cfg["data_parallel"], device=dev)
+    if mesh is not None:
+        n_data = mesh.axis_size("data")
+        cfg = dict(cfg, batch=-(-cfg["batch"] // n_data) * n_data)
+        pipe = _ShardedServing(pipe, mesh)
+    world, rank = comm.get_world_size(), comm.get_rank()
+    split = world > 1 and mesh is None  # each rank its share of the roster
+    my_seq_dirs = seq_dirs[rank::world] if split else seq_dirs
+    writer = mesh is None or rank == 0
+    if not writer:
+        cfg = dict(cfg, dump_vis3d=None)
 
     per_seq = {}
     overall = Evaluator()
     total_frames = 0
-    if cfg["batch_objects"]:
+    if cfg["batch_objects"] and my_seq_dirs:
         assert not cfg.get("features_h5"), (
             "batch_objects evaluates from images (the feature cache is per-sequence)")
-        per_seq = _eval_roster_batched(cfg, seq_dirs, pipe, overall)
+        per_seq = _eval_roster_batched(cfg, my_seq_dirs, pipe, overall)
         for seq_name, m in per_seq.items():
             total_frames += m["num_frames"]
-            if cfg["eval_out"]:
+            if cfg["eval_out"] and writer:
                 record_eval_result(cfg["eval_out"], seq_name, m)
-    else:
-        for seq_dir in seq_dirs:
+    elif not cfg["batch_objects"]:
+        for seq_dir in my_seq_dirs:
             anno_dir = cfg["anno_dir"] or osp.join(osp.dirname(seq_dir), "outputs", "anno")
             anno = annotation_from_npz_dir(anno_dir, num_leaf=cfg["num_leaf"],
                                            shape3d=cfg["shape3d"], device=dev)
@@ -122,16 +153,27 @@ def run(cfg: dict) -> dict:
             m = eval_sequence(cfg, seq_dir, anno, pipe, overall)
             per_seq[seq_name] = m
             total_frames += m["num_frames"]
-            if cfg["eval_out"]:
+            if cfg["eval_out"] and writer:
                 record_eval_result(cfg["eval_out"], seq_name, m)
 
-    if len(seq_dirs) == 1:
+    if split:
+        # Exact aggregation over the ranks: every rank returns the metrics
+        # of the whole roster; per_seq stays each rank's own.
+        counts = comm.all_gather_pytree(overall.counts())
+        frames = comm.all_gather_pytree(np.asarray(total_frames))
+        metrics = Evaluator.combine_counts(counts)
+        metrics["num_frames"] = int(sum(int(f) for f in frames))
+        metrics["per_seq"] = per_seq
+        if cfg["eval_out"] and rank == 0:
+            record_eval_result(cfg["eval_out"], "ALL",
+                               {k: v for k, v in metrics.items() if k != "per_seq"})
+    elif len(seq_dirs) == 1:
         metrics = next(iter(per_seq.values()))
     else:
         metrics = overall.summarize()
         metrics["num_frames"] = total_frames
         metrics["per_seq"] = per_seq
-        if cfg["eval_out"]:
+        if cfg["eval_out"] and writer:
             record_eval_result(cfg["eval_out"], "ALL",
                                {k: v for k, v in metrics.items() if k != "per_seq"})
     print(json.dumps(metrics))

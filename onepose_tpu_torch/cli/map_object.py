@@ -14,8 +14,20 @@ cache resumes across devices). On the card SuperPoint runs the NMS kernel
 (bit-exact with the plain NMS) and no VGG-stage kernel (it rounds taps to
 bf16 even in fp32, where the JAX `map` runs plain convolutions); SuperGlue
 routes its Sinkhorn as the port does by default (4096 keypoints: the
-streamed kernel). A roster mapped by several processes
-(torch.distributed with a world size above 1) raises until ROADMAP A14.
+streamed kernel).
+
+Over several ranks (`torchrun --nproc-per-node N -m onepose_tpu_torch map
+...`; each rank joins through `utils.comm.init_distributed`): the output
+names come from the full roster first. With `data_parallel` off the
+roster is split over the ranks (rank r maps objects r, r + N, ...; one
+sequence: rank 0 maps it), the JAX package's multi-process behaviour.
+With `data_parallel` on, the mesh spans the ranks and every rank walks the
+whole roster in lockstep: extraction and pair matching split their
+batches over the ranks, global BA its points; rank 0 alone writes the
+files (artifacts and caches), and the ranks meet at a barrier around each
+cache step so that they all read the same cache state. The roster is
+never split over a mesh that spans ranks (the JAX package does so, and
+its ranks then wait on each other's collectives).
 """
 
 from __future__ import annotations
@@ -26,9 +38,9 @@ import os
 import os.path as osp
 
 import numpy as np
-import torch
 
 from onepose_tpu_torch._device import resolve_device
+from onepose_tpu_torch.utils import comm
 
 DEFAULTS = {
     "data_dir": None,  # sequence root (color/, poses_ba/, intrin_ba/)
@@ -57,10 +69,11 @@ DEFAULTS = {
     # the match cache (indices would desync from the new keypoints).
     "cache": True,
     # Map-block parallelism (SURVEY §2.3): shard frame extraction, pair
-    # matching, and global BA over the local device mesh. False = single
-    # device; True = all local devices; an int = that many. Pure data
-    # parallelism over frames/pairs — results are identical to the serial
-    # path; BA uses the distributed Schur solver (points sharded).
+    # matching, and global BA over a mesh of the ranks. False = one rank's
+    # work; True = every rank; an int = that many (it must be 1 or every
+    # rank). Pure data parallelism over frames/pairs — results are
+    # identical to the serial path; BA uses the distributed Schur solver
+    # (points sharded).
     "data_parallel": False,
     # Pairs matched per compiled call (rounded up to the device count).
     "pair_chunk": 16,
@@ -141,15 +154,23 @@ def run(cfg: dict) -> dict:
     (run.py:96-137); here the compiled extractor/matcher programs are
     reused across objects."""
     from onepose_tpu_torch.cli.common import sequence_dirs
+    from onepose_tpu_torch.parallel.sfm_parallel import resolve_sfm_mesh
 
-    resolve_device(cfg["device"])  # no CUDA and no device=cpu: raise before any work
+    dev = resolve_device(cfg["device"])  # no CUDA and no device=cpu: raise before any work
+    comm.init_distributed(device=dev)
 
     raw = cfg["data_dir"]
     assert raw, "map: data_dir is required"
     seq_dirs = sequence_dirs(raw, "map")
+    mesh = resolve_sfm_mesh(cfg["data_parallel"], device=dev)
+    world, rank = comm.get_world_size(), comm.get_rank()
+    # Split the roster over the ranks only when no mesh spans them.
+    split = world > 1 and mesh is None
 
     if len(seq_dirs) == 1:
-        return _run_object(cfg, seq_dirs[0], cfg["out_dir"])
+        if split and rank != 0:
+            return {}
+        return _run_object(cfg, seq_dirs[0], cfg["out_dir"], mesh)
 
     # Output names must be derived from the FULL roster before any
     # process-sharding: disambiguation is stateful (it appends path
@@ -159,18 +180,13 @@ def run(cfg: dict) -> dict:
     names = _roster_names(seq_dirs)
     jobs = list(zip(seq_dirs, names))
 
-    # Multi-host: the JAX package gives each process its share of the
-    # roster; the port's processes do not share work yet.
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"a roster over {dist.get_world_size()} processes is not ported yet (ROADMAP "
-            "A14): map it from one process")
+    if split:
+        jobs = jobs[rank::world]
 
     all_stats = {}
     for d, name in jobs:
         out_dir = osp.join(cfg["out_dir"], name) if cfg["out_dir"] else None
-        all_stats[name] = _run_object(cfg, d, out_dir)
+        all_stats[name] = _run_object(cfg, d, out_dir, mesh)
     summary = {
         "num_objects": len(all_stats),
         "total_points3d": int(
@@ -182,7 +198,9 @@ def run(cfg: dict) -> dict:
     return summary
 
 
-def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
+def _run_object(cfg: dict, data_dir: str, out_dir, mesh) -> dict:
+    """Map one sequence into out_dir; `mesh` (`resolve_sfm_mesh`) splits
+    its batches over the ranks, or None."""
     import json as _json
 
     from onepose_tpu_torch.cli.common import (
@@ -203,7 +221,6 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
     from onepose_tpu_torch.parallel.sfm_parallel import (
         make_nn_pair_matcher,
         make_superglue_pair_matcher,
-        resolve_sfm_mesh,
     )
     from onepose_tpu_torch.sfm.mapping import MappingConfig, run_mapping
 
@@ -212,6 +229,13 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
     )
     out_dir = out_dir or osp.join(osp.dirname(data_dir), "outputs")
     dev = resolve_device(cfg["device"])
+    # With a mesh over several ranks, rank 0 alone writes; `sync` orders
+    # its cache steps against the other ranks' reads.
+    writer = mesh is None or comm.is_main_process()
+
+    def sync():
+        if mesh is not None:
+            comm.synchronize()
 
     # Resume semantics (reference run.py:154, redo flag): a completed map
     # (stats + annotation index on disk) is not rebuilt unless redo=True.
@@ -232,11 +256,12 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
     matches_cache = osp.join(out_dir, "matches.h5")
     feat_fp = _extraction_fingerprint(cfg)
 
-    if cfg["redo"]:
+    if cfg["redo"] and writer:
         # Clean rebuild: caches are part of the outputs being rebuilt.
         for p in (feats_cache, matches_cache):
             if osp.exists(p):
                 os.remove(p)
+    sync()
 
     feats = None
     if cfg["cache"] and osp.exists(feats_cache):
@@ -274,8 +299,7 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
                 }
             except KeyError:
                 feats = None  # stale cache (image set changed): re-extract
-
-    mesh = resolve_sfm_mesh(cfg["data_parallel"])
+    sync()  # every rank has read the feature cache before rank 0 rewrites it
 
     # Per-stage wall times (reference emits per-stage logs across
     # extract_features/match_features/triangulation; here one timer whose
@@ -297,9 +321,9 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
                 device=dev,
             )
         # Keypoints changed: cached match indices would desync.
-        if osp.exists(matches_cache):
+        if writer and osp.exists(matches_cache):
             os.remove(matches_cache)
-        if cfg["cache"]:
+        if cfg["cache"] and writer:
             from onepose_tpu_torch.sfm.cache import save_features_h5
 
             save_features_h5(
@@ -332,13 +356,16 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
     if cfg["cache"]:
         from onepose_tpu_torch.sfm.cache import CachedPairMatcher
 
+        sync()
         match_pairs = CachedPairMatcher(
             match_pairs,
             matches_cache,
             [osp.basename(p) for p in feats["image_paths"]],
             feats["keypoints"].shape[1],
             fingerprint=_matcher_fingerprint(cfg, feat_fp),
+            writer=writer,
         )
+        sync()
 
     # Accumulate pair-matching time separately from the rest of the SfM
     # core (it is called lazily from inside run_mapping).
@@ -375,6 +402,8 @@ def _run_object(cfg: dict, data_dir: str, out_dir) -> dict:
         )
 
     anno_dir = osp.join(out_dir, "anno")
+    if not writer:
+        return result.stats
     with timer.stage("write_anno"):
         save_annotation_npz(result, anno_dir)
         export_ply(

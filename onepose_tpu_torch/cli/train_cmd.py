@@ -5,9 +5,10 @@ Port of onepose_tpu/cli/train_cmd.py (the reference's `python train.py
 same defaults and the same summary line (the last epoch's record as JSON).
 It runs on the card unless device=cpu is given; without CUDA and without
 device=cpu it raises before any work. As in the JAX package,
-`val_anno_index` is accepted and not read (ROADMAP C, watch item 5). One
-process: a run over several `torch.distributed` processes raises (ROADMAP
-A14).
+`val_anno_index` is accepted and not read (ROADMAP C, watch item 5). Over
+several ranks (`torchrun --nproc-per-node N -m onepose_tpu_torch train
+...`) it trains data-parallel (`train.loop`); batch_size must divide over
+the ranks.
 """
 
 from __future__ import annotations
@@ -51,9 +52,12 @@ def run(cfg: dict) -> dict:
     )
     from onepose_tpu_torch.train.loop import LoopConfig, train
     from onepose_tpu_torch.train.train_step import TrainConfig
+    from onepose_tpu_torch.utils import comm
     from onepose_tpu_torch.utils.seeding import seed_everything
 
     dev = resolve_device(cfg["device"])  # no CUDA and no device=cpu: raise before any work
+    comm.init_distributed(device=dev)
+    dev = comm.rank_device(dev)
     assert cfg["anno_index"], "train: anno_index is required"
     seed_everything(cfg["seed"])
     ds = GATsSPGDataset(cfg["anno_index"], num_leaf=cfg["num_leaf"], shape2d=cfg["shape2d"],

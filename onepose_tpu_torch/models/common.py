@@ -16,6 +16,13 @@ the JAX package does on an accelerator.
 package leaves it to XLA; its opt-in `use_flash=True` route goes to
 `F.scaled_dot_product_attention` where the JAX package calls its library
 TPU flash kernel. No path of the port takes that route by default.
+
+With a `mesh` (`parallel.mesh`), the attention of a sharded point set
+runs the collectives of `parallel.sharded_attention` (`spmd="kv"`: keys
+and values sharded; `"qkv"`: queries too), and the instance norm of a
+sharded point set takes its statistics over every rank's points through
+the points group (`x_sharded`): the JAX package's compiler inserts both
+reductions itself.
 """
 
 from __future__ import annotations
@@ -48,13 +55,22 @@ class Dense(nn.Linear):
 
 
 def masked_instance_norm(
-    x: torch.Tensor, mask: Optional[torch.Tensor], eps: float = 1e-5
+    x: torch.Tensor, mask: Optional[torch.Tensor], eps: float = 1e-5, group=None
 ) -> torch.Tensor:
     """InstanceNorm over the point axis of [B, N, C] (no affine); biased
-    variance, statistics in fp32. mask=None uses every point."""
+    variance, statistics in fp32. mask=None uses every point. With a
+    process `group`, x is this rank's block of the points and the
+    statistics are those of every rank's points (all-reduced sums)."""
     dtype = x.dtype
     x = x.float()
-    if mask is None:
+    if group is not None:
+        from onepose_tpu_torch.utils.comm import all_reduce
+
+        w = torch.ones_like(x[..., :1]) if mask is None else mask.to(x.dtype)[..., None]
+        n = all_reduce(w.sum(dim=1, keepdim=True), group).clamp(min=1.0)
+        mean = all_reduce((x * w).sum(dim=1, keepdim=True), group) / n
+        var = all_reduce(((x - mean).square() * w).sum(dim=1, keepdim=True), group) / n
+    elif mask is None:
         mean = x.mean(dim=1, keepdim=True)
         var = x.var(dim=1, keepdim=True, unbiased=False)
     else:
@@ -95,12 +111,16 @@ class PointMLP(nn.Module):
                 self.register_parameter(f"bn_bias_{i}", nn.Parameter(torch.zeros(feat)))
             prev = feat
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        """group: the points group when x is this rank's block of a sharded
+        point set (instance-norm statistics over every rank's points)."""
         for i in range(self.n_layers):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n_layers - 1:
                 if self.norm == "instance":
-                    x = masked_instance_norm(x, mask if self.instance_mask_aware else None)
+                    x = masked_instance_norm(x, mask if self.instance_mask_aware else None,
+                                             group=group)
                 elif self.norm == "batch":
                     scale, bias = getattr(self, f"bn_scale_{i}"), getattr(self, f"bn_bias_{i}")
                     x = x * scale.to(x.dtype) + bias.to(x.dtype)
@@ -200,7 +220,13 @@ class MultiHeadAttention(nn.Module):
     (GATsSPG) or 'softmax' (SuperGlue). Channels are head-major
     (c = h * D + d), so the head split is a plain reshape. The projections
     and the merge compute in `dtype`, the attention in fp32 (with
-    bf16-operand contractions when `mixed` and `dtype` is bf16)."""
+    bf16-operand contractions when `mixed` and `dtype` is bf16).
+
+    With `mesh`, forward's spmd="kv" or "qkv" says the source is this
+    rank's block of a point set sharded over the points axis (and, for
+    "qkv", x too): the attention then runs `parallel.sharded_attention`'s
+    collectives, in fp32 (`mixed` has no effect there, as in the JAX
+    package)."""
 
     def __init__(
         self,
@@ -209,10 +235,12 @@ class MultiHeadAttention(nn.Module):
         kind: str = "linear",
         dtype: torch.dtype = torch.float32,
         mixed: bool = False,
+        mesh=None,
     ):
         super().__init__()
         self.dtype = check_compute_dtype(dtype)
         self.mixed = mixed
+        self.mesh = mesh
         if kind not in ("linear", "softmax"):
             raise ValueError(f"unknown attention kind {kind!r}")
         self.kind = kind
@@ -228,6 +256,7 @@ class MultiHeadAttention(nn.Module):
         x: torch.Tensor,
         source: torch.Tensor,
         source_mask: Optional[torch.Tensor] = None,
+        spmd: Optional[str] = None,
     ) -> torch.Tensor:
         b, n, _ = x.shape
         m = source.shape[1]
@@ -235,15 +264,36 @@ class MultiHeadAttention(nn.Module):
         q = self.proj_q(x).reshape(b, n, self.num_heads, hd).float()
         k = self.proj_k(source).reshape(b, m, self.num_heads, hd).float()
         v = self.proj_v(source).reshape(b, m, self.num_heads, hd).float()
-        cd = self.dtype if self.mixed and self.dtype != torch.float32 else None
-        attend = masked_softmax_attention if self.kind == "softmax" else masked_linear_attention
-        out = attend(q, k, v, source_mask, compute_dtype=cd)
+        if self.mesh is not None and spmd in ("kv", "qkv"):
+            # Deferred: parallel.sharded_attention imports NEG_INF from here.
+            from onepose_tpu_torch.parallel.mesh import POINTS_AXIS
+            from onepose_tpu_torch.parallel.sharded_attention import (
+                ring_softmax_attention,
+                sharded_linear_attention,
+            )
+
+            mask = source_mask if source_mask is not None else torch.ones(
+                (b, m), dtype=torch.bool, device=source.device)
+            if self.kind == "softmax":
+                out = ring_softmax_attention(self.mesh, q, k, v, mask)
+            else:
+                out = sharded_linear_attention(self.mesh, q, k, v, mask,
+                                               v_length=m * self.mesh.axis_size(POINTS_AXIS))
+        else:
+            cd = self.dtype if self.mixed and self.dtype != torch.float32 else None
+            attend = (masked_softmax_attention if self.kind == "softmax"
+                      else masked_linear_attention)
+            out = attend(q, k, v, source_mask, compute_dtype=cd)
         return self.merge(out.to(self.dtype).reshape(b, n, self.d_model))
 
 
 class AttentionalPropagation(nn.Module):
     """One message-passing step: attend to source, MLP on [x, message].
-    The residual add happens in the caller."""
+    The residual add happens in the caller.
+
+    With `mesh`: spmd as in MultiHeadAttention; x_sharded says x is this
+    rank's block of the sharded point set (implied by spmd="qkv"), so the
+    MLP's instance norm reduces its statistics over the points group."""
 
     def __init__(
         self,
@@ -253,10 +303,12 @@ class AttentionalPropagation(nn.Module):
         norm: str = "batch",
         dtype: torch.dtype = torch.float32,
         mixed_attention: bool = False,
+        mesh=None,
     ):
         super().__init__()
+        self.mesh = mesh
         self.attn = MultiHeadAttention(num_heads, d_model, kind=kind, dtype=dtype,
-                                       mixed=mixed_attention)
+                                       mixed=mixed_attention, mesh=mesh)
         self.mlp = PointMLP(2 * d_model, [2 * d_model, d_model], norm=norm, dtype=dtype)
 
     def forward(
@@ -265,6 +317,13 @@ class AttentionalPropagation(nn.Module):
         source: torch.Tensor,
         source_mask: Optional[torch.Tensor] = None,
         x_mask: Optional[torch.Tensor] = None,
+        spmd: Optional[str] = None,
+        x_sharded: bool = False,
     ) -> torch.Tensor:
-        message = self.attn(x, source, source_mask)
-        return self.mlp(torch.cat([x, message], dim=-1), x_mask)
+        message = self.attn(x, source, source_mask, spmd=spmd)
+        group = None
+        if self.mesh is not None and (x_sharded or spmd == "qkv"):
+            from onepose_tpu_torch.parallel.mesh import POINTS_AXIS
+
+            group = self.mesh.group(POINTS_AXIS)
+        return self.mlp(torch.cat([x, message], dim=-1), x_mask, group=group)

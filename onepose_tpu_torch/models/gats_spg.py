@@ -29,7 +29,17 @@ Kernel flags (names as in the JAX package's counterparts):
   the largest index wins and matching scores are non-zero only for hits.
   With fused_match=False the head follows `match_from_conf` (first index).
 
-Not ported yet (ROADMAP.md): the points-sharded mesh path.
+mesh (a `parallel.mesh.Mesh`): the points-sharded matcher. forward takes
+and returns whole tensors, as without a mesh; each rank runs the layers on
+its block of the 3D points and leaves (and on its share of the batch over
+the data axis, when the batch divides it), so the GATs aggregation (K2
+where gats_kernel) runs on the rank's own points. The 3D self-attention
+and the 2D<-3D cross-attention reduce over the points group
+(`parallel.sharded_attention`), so do the 3D stream's instance norms; the
+head is `sharded_dual_softmax`, then conf is all-gathered over the points
+group and `match_from_conf` takes the global argmax with its first-index
+rule. block_fused and fused_match raise with a mesh, as the JAX package
+asserts: neither K4 nor K3 is on this path.
 """
 
 from __future__ import annotations
@@ -75,11 +85,16 @@ class GATsSPG(nn.Module):
         dtype: torch.dtype = torch.float32,
         block_fused: bool = False,
         mixed_attention: bool = False,
+        mesh=None,
     ):
         super().__init__()
         self.dtype = check_compute_dtype(dtype)
         if block_fused and (not include_self or additional or with_linear_transform):
             raise ValueError("block_fused runs the shipped GATs configuration only")
+        if mesh is not None and (block_fused or fused_match):
+            raise ValueError("the points-sharded GATsSPG is incompatible with the fused "
+                             "kernel paths (block_fused, fused_match)")
+        self.mesh = mesh
         self.num_heads = num_heads
         self.block_fused = block_fused
         self.num_blocks = num_blocks
@@ -101,7 +116,7 @@ class GATsSPG(nn.Module):
             for kind in ("self", "cross"):
                 self.add_module(f"{kind}_{blk}", AttentionalPropagation(
                     d_model, num_heads, norm="instance", dtype=dtype,
-                    mixed_attention=mixed_attention,
+                    mixed_attention=mixed_attention, mesh=mesh,
                 ))
         self.final_proj = Dense(d_model, d_model, dtype)
         self._packs = PackCache()
@@ -117,23 +132,13 @@ class GATsSPG(nn.Module):
 
         return self._packs.get(blk, [p for m in layers for p in m.parameters()], pack)
 
-    def forward(
-        self,
-        desc2d: torch.Tensor,
-        desc3d: torch.Tensor,
-        leaf_desc: torch.Tensor,
-        mask2d: Optional[torch.Tensor] = None,
-        mask3d: Optional[torch.Tensor] = None,
-        leaf_mask: Optional[torch.Tensor] = None,
-    ) -> dict:
-        """desc2d [B, N2, C]; desc3d [B, N3, C]; leaf_desc [B, N3, L, C];
-        masks True = real. Returns conf_matrix [B, N2, N3] (None when
-        fused), matches0 [B, N2] (-1 unmatched), matching_scores0,
-        matches1 [B, N3], matching_scores1, valid0, valid1."""
-        if self.block_fused and torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.parameters()):
-            raise RuntimeError("block_fused is inference-only, as in the JAX package: run "
-                               "under torch.no_grad() / torch.inference_mode()")
+    def _gnn(self, desc2d, desc3d, leaf_desc, mask2d, mask3d, leaf_mask) -> tuple:
+        """The num_blocks [GATs, self, cross] blocks: (x2, x3) in dtype. With
+        a mesh, desc3d / leaf_desc / mask3d / leaf_mask are this rank's
+        block of the points: the 3D self-attention reduces over the points
+        group ("qkv"), so do the 2D<-3D cross-attention ("kv") and the 3D
+        stream's instance norms (x_sharded); without a mesh those say
+        nothing."""
         dt = self.dtype
         x2, x3, leaves = desc2d.to(dt), desc3d.to(dt), leaf_desc.to(dt)
         if self.block_fused:  # the block kernels read the leaves in dt (bf16 or fp32)
@@ -153,11 +158,32 @@ class GATsSPG(nn.Module):
                 continue
             x3 = gats(leaves, x3, leaf_mask)
             x2 = x2 + self_layer(x2, x2, mask2d, mask2d)
-            x3 = x3 + self_layer(x3, x3, mask3d, mask3d)
-            d2 = cross_layer(x2, x3, mask3d, mask2d)
-            d3 = cross_layer(x3, x2, mask2d, mask3d)
+            x3 = x3 + self_layer(x3, x3, mask3d, mask3d, spmd="qkv")
+            d2 = cross_layer(x2, x3, mask3d, mask2d, spmd="kv")
+            d3 = cross_layer(x3, x2, mask2d, mask3d, x_sharded=True)
             x2, x3 = x2 + d2, x3 + d3
+        return x2, x3
 
+    def forward(
+        self,
+        desc2d: torch.Tensor,
+        desc3d: torch.Tensor,
+        leaf_desc: torch.Tensor,
+        mask2d: Optional[torch.Tensor] = None,
+        mask3d: Optional[torch.Tensor] = None,
+        leaf_mask: Optional[torch.Tensor] = None,
+    ) -> dict:
+        """desc2d [B, N2, C]; desc3d [B, N3, C]; leaf_desc [B, N3, L, C];
+        masks True = real. Returns conf_matrix [B, N2, N3] (None when
+        fused), matches0 [B, N2] (-1 unmatched), matching_scores0,
+        matches1 [B, N3], matching_scores1, valid0, valid1."""
+        if self.block_fused and torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            raise RuntimeError("block_fused is inference-only, as in the JAX package: run "
+                               "under torch.no_grad() / torch.inference_mode()")
+        if self.mesh is not None:
+            return self._forward_sharded(desc2d, desc3d, leaf_desc, mask2d, mask3d, leaf_mask)
+        x2, x3 = self._gnn(desc2d, desc3d, leaf_desc, mask2d, mask3d, leaf_mask)
         m2 = _l2_normalize(self.final_proj(x2).float())
         m3 = _l2_normalize(self.final_proj(x3).float())
         scores = torch.einsum("bnc,bmc->bnm", m2, m3) / self.scale_factor
@@ -176,6 +202,35 @@ class GATsSPG(nn.Module):
         scores = apply_masks(scores, mask2d, mask3d)
         conf = torch.softmax(scores, dim=1) * torch.softmax(scores, dim=2)
         out = match_from_conf(conf, self.match_threshold, mask2d=mask2d, mask3d=mask3d)
+        out["conf_matrix"] = conf
+        return out
+
+    def _forward_sharded(self, desc2d, desc3d, leaf_desc, mask2d, mask3d, leaf_mask) -> dict:
+        """forward over the mesh: this rank's batch share (the data axis,
+        when the batch divides it) and block of the points; outputs whole."""
+        from onepose_tpu_torch.parallel.mesh import DATA_AXIS, POINTS_AXIS, gather, shard
+        from onepose_tpu_torch.parallel.sharded_attention import sharded_dual_softmax
+
+        mesh = self.mesh
+        b, n2, n3 = desc2d.shape[0], desc2d.shape[1], desc3d.shape[1]
+        dev = desc2d.device
+        mask2d = torch.ones((b, n2), dtype=torch.bool, device=dev) if mask2d is None else mask2d
+        mask3d_whole = mask3d
+        mask3d = torch.ones((b, n3), dtype=torch.bool, device=dev) if mask3d is None else mask3d
+        bs = DATA_AXIS if b % mesh.axis_size(DATA_AXIS) == 0 else None
+
+        def local(x, points: bool):
+            return None if x is None else shard(mesh, x, (bs, POINTS_AXIS if points else None))
+
+        m2, m3 = local(mask2d, False), local(mask3d, True)
+        x2, x3 = self._gnn(local(desc2d, False), local(desc3d, True), local(leaf_desc, True), m2,
+                           m3, local(leaf_mask, True))
+        f2 = _l2_normalize(self.final_proj(x2).float())
+        f3 = _l2_normalize(self.final_proj(x3).float())
+        scores = torch.einsum("bnc,bmc->bnm", f2, f3) / self.scale_factor
+        conf = sharded_dual_softmax(mesh, scores, m2, m3)
+        conf = gather(mesh, conf, (bs, None, POINTS_AXIS))
+        out = match_from_conf(conf, self.match_threshold, mask2d=mask2d, mask3d=mask3d_whole)
         out["conf_matrix"] = conf
         return out
 

@@ -8,10 +8,13 @@ pair indices go up and the [chunk, N] match rows come down. The last chunk
 is padded by repeating its first pair, and its extra rows are dropped.
 
 Both `make_*` functions return `match_pairs(pairs) -> np.ndarray [P, N]
-int64` (-1 unmatched), the callable that the SfM mapping consumes. `mesh` other than
-None raises: sharding the pair axis over several cards is a later item, and
-`resolve_sfm_mesh` (the `data_parallel` config value) gives no mesh on one
-card and raises where it would span several.
+int64` (-1 unmatched), the callable that the SfM mapping consumes. With a
+`mesh` (`parallel.mesh`; `resolve_sfm_mesh` turns the `data_parallel`
+config value into one over the ranks), every rank holds the features and
+walks the same chunks; a chunk (rounded up to divide the data axis) is
+split over the data axis, each rank matches its pairs (K6 or K7 on the
+card, for SuperGlue), and the match rows are all-gathered, so every rank
+returns every row.
 Entry points run on CUDA unless the caller passes device="cpu".
 """
 
@@ -22,6 +25,8 @@ import torch
 
 from onepose_tpu_torch._device import resolve_device
 from onepose_tpu_torch.models.nn_matcher import mutual_nn_match
+from onepose_tpu_torch.parallel.mesh import DATA_AXIS, batch_sharding, gather, make_mesh, shard
+from onepose_tpu_torch.utils import comm
 
 F_BUCKET = 32  # frame-axis padding quantum
 # Device bytes of Sinkhorn couplings allowed in flight per chunk: each pair
@@ -30,25 +35,24 @@ F_BUCKET = 32  # frame-axis padding quantum
 HBM_GUARD_BYTES = 1.5e9
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("pair matching over a device mesh is not ported yet "
-                                  "(ROADMAP A14): pass mesh=None")
-
-
-def resolve_sfm_mesh(data_parallel) -> None:
-    """The SfM front end's mesh for the `data_parallel` config value, as the
-    JAX package resolves it: False / None -> none; True -> every local
-    card; an int -> that many, at most the cards present. One card gives
-    no mesh; more raise until the multi-device work (ROADMAP A14)."""
+def resolve_sfm_mesh(data_parallel, device: str | torch.device = "cuda"):
+    """The SfM front end's mesh for the `data_parallel` config value, over
+    the ranks of the process group as the JAX package resolves it over its
+    devices: False / None -> none; True -> every rank; an int -> that many,
+    clamped to [1, world]. One rank gives no mesh. A count between 1 and
+    the world raises: a mesh must hold every rank (a rank left out would
+    walk the roster alone and wait on collectives that never come)."""
     if not data_parallel:
         return None
-    cards = max(1, torch.cuda.device_count())
-    n = cards if data_parallel is True else int(data_parallel)
-    if max(1, min(n, cards)) == 1:
+    world = comm.get_world_size()
+    n = world if data_parallel is True else int(data_parallel)
+    n = max(1, min(n, world))
+    if n == 1:
         return None
-    raise NotImplementedError(f"data_parallel={data_parallel!r} over {cards} cards is not "
-                              "ported yet (ROADMAP A14): pass data_parallel=false")
+    if n != world:
+        raise ValueError(f"data_parallel={data_parallel!r} would build a mesh of {n} of the "
+                         f"{world} ranks: a mesh must span every rank (pass true or {world})")
+    return make_mesh(n_data=n, n_points=1, device=device)
 
 
 def _pad_frames(x: np.ndarray) -> np.ndarray:
@@ -70,9 +74,19 @@ def superglue_chunk(n_keypoints: int, pair_chunk: int) -> int:
     return min(pair_chunk, max(1, int(HBM_GUARD_BYTES // per_pair)))
 
 
-def _run_chunked(fn, pairs: np.ndarray, chunk: int, device: torch.device) -> np.ndarray:
+def _chunk_size(pair_chunk: int, mesh) -> int:
+    """The chunk rounded up so that it divides the data axis."""
+    if mesh is None:
+        return pair_chunk
+    n = mesh.axis_size(DATA_AXIS)
+    return max(pair_chunk, -(-pair_chunk // n) * n)
+
+
+def _run_chunked(fn, pairs: np.ndarray, chunk: int, device: torch.device,
+                 mesh=None) -> np.ndarray:
     """fn(ii, jj) -> [chunk, N] matches over the pair axis in fixed-size
-    chunks, under torch.inference_mode()."""
+    chunks, under torch.inference_mode(); with a mesh, each rank runs its
+    share of a chunk and the rows are all-gathered."""
     outs = []
     with torch.inference_mode():
         for s in range(0, len(pairs), chunk):
@@ -81,7 +95,13 @@ def _run_chunked(fn, pairs: np.ndarray, chunk: int, device: torch.device) -> np.
             if n < chunk:
                 sel = np.concatenate([sel, np.tile(sel[:1], (chunk - n, 1))])
             idx = torch.from_numpy(np.ascontiguousarray(sel, dtype=np.int64)).to(device)
-            outs.append(fn(idx[:, 0], idx[:, 1])[:n].cpu().numpy())
+            if mesh is None:
+                rows = fn(idx[:, 0], idx[:, 1])
+            else:
+                spec = batch_sharding(mesh, 2)
+                idx = shard(mesh, idx, spec)
+                rows = gather(mesh, fn(idx[:, 0], idx[:, 1]), spec)
+            outs.append(rows[:n].cpu().numpy())
     return np.concatenate(outs, axis=0).astype(np.int64)
 
 
@@ -94,8 +114,8 @@ def make_nn_pair_matcher(
     device: str | torch.device = "cuda",
 ):
     """Batched mutual-NN pair matcher over [F, N, C] sequence features."""
-    _no_mesh(mesh)
     dev = resolve_device(device)
+    chunk = _chunk_size(pair_chunk, mesh)
     feats = _put({"desc": descriptors, "mask": mask}, dev)
     n_kpts = descriptors.shape[1]
 
@@ -108,7 +128,7 @@ def make_nn_pair_matcher(
         pairs = np.asarray(pairs)
         if len(pairs) == 0:
             return np.zeros((0, n_kpts), np.int64)
-        return _run_chunked(match, pairs, pair_chunk, dev)
+        return _run_chunked(match, pairs, chunk, dev, mesh)
 
     return match_pairs
 
@@ -126,15 +146,16 @@ def make_superglue_pair_matcher(
     them with `models.bridge.superglue_state_dict`); it is moved to the
     device. feats: keypoints [F, N, 2], descriptors [F, N, C], scores
     [F, N], mask [F, N] (numpy) and image_hw (h, w). The GNN and Sinkhorn
-    run once per chunk of pairs, `pair_chunk` capped by HBM_GUARD_BYTES."""
-    _no_mesh(mesh)
+    run once per chunk of pairs, `pair_chunk` capped by HBM_GUARD_BYTES (per
+    rank: a mesh's chunk holds that many pairs on each rank)."""
     dev = resolve_device(device)
     superglue.to(dev)
     arrays = _put({"kpts": feats["keypoints"], "desc": feats["descriptors"],
                    "scores": feats["scores"], "mask": feats["mask"]}, dev)
     hw = tuple(int(x) for x in feats["image_hw"])
     n_kpts = np.asarray(feats["keypoints"]).shape[1]
-    chunk = superglue_chunk(n_kpts, pair_chunk)
+    n_data = 1 if mesh is None else mesh.axis_size(DATA_AXIS)
+    chunk = _chunk_size(min(pair_chunk, superglue_chunk(n_kpts, pair_chunk) * n_data), mesh)
 
     def match(ii, jj):
         k, d, s, m = (arrays[x] for x in ("kpts", "desc", "scores", "mask"))
@@ -145,7 +166,7 @@ def make_superglue_pair_matcher(
         pairs = np.asarray(pairs)
         if len(pairs) == 0:
             return np.zeros((0, n_kpts), np.int64)
-        return _run_chunked(match, pairs, chunk, dev)
+        return _run_chunked(match, pairs, chunk, dev, mesh)
 
     match_pairs.chunk = chunk
     return match_pairs

@@ -16,7 +16,9 @@ opt-in after TPU measurements that say nothing about this card) the
 default modules launch the hand-written kernels of their dtype's path:
   bf16: NMS, VGG stage (SuperPoint); fused block, dual softmax (GATsSPG);
   fp32: NMS (SuperPoint); GATs leaf attention, dual softmax (GATsSPG).
-`sharded` waits for the multi-device slice.
+`sharded(mesh)` serves the frame batch over the ranks of a mesh's data
+axis (`parallel.mesh`): each rank runs the whole per-frame program on its
+frames, with its kernels, and every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -196,3 +198,47 @@ class PosePipeline:
         mask [B, N])."""
         feats = {k: self._tensor(v) for k, v in feats.items()}
         return self._match_solve(feats, self._tensor(K), anno.to(self.device), draws, generator)
+
+    def sharded(self, mesh=None):
+        """Data-parallel serving: the frame batch split over the mesh's data
+        axis (a mesh over every rank by default). Each rank runs the whole
+        per-frame program on its frames; the models and a single-object
+        annotation are whole on every rank, a batched annotation is split
+        with the frames. The outputs are all-gathered over the data axis.
+
+        Returns run(images, K, anno, draws=None, generator=None) with
+        __call__'s contract; the global batch must divide the data axis.
+        RANSAC draws are made for the global batch on every rank, then
+        sliced (from `generator`, which every rank seeds alike), so the
+        poses are those of __call__ on the whole batch."""
+        from onepose_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            batch_sharding,
+            gather,
+            make_mesh,
+            shard,
+        )
+
+        mesh = mesh or make_mesh(n_points=1, device=self.device)
+        n_data = mesh.axis_size(DATA_AXIS)
+
+        def local(x: torch.Tensor) -> torch.Tensor:
+            return shard(mesh, x, batch_sharding(mesh, x.dim()))
+
+        @torch.inference_mode()
+        def run(images, K, anno: ObjectAnnotation, draws=None, generator=None) -> dict:
+            images, K = self._tensor(images), self._tensor(K)
+            b = images.shape[0]
+            if b % n_data:
+                raise ValueError(f"the batch ({b}) must divide the data axis ({n_data})")
+            if draws is None:
+                draws = torch.rand((b, self.ransac_hypotheses, 3), generator=generator,
+                                   device=generator.device if generator is not None
+                                   else self.device)
+            anno = anno.to(self.device)
+            if anno.batched:
+                anno = ObjectAnnotation(**{k: local(getattr(anno, k)) for k in _ANNO_FIELDS})
+            out = self._forward(local(images), local(K), anno, local(self._tensor(draws)), None)
+            return {k: gather(mesh, v, batch_sharding(mesh, v.dim())) for k, v in out.items()}
+
+        return run

@@ -256,6 +256,9 @@ class CachedPairMatcher:
     `fingerprint` ties the cache to the matcher config + upstream feature
     fingerprint: an existing cache with a different fingerprint is dropped
     (match indices would desync from re-extracted keypoints).
+
+    writer=False (the ranks but rank 0 of a mesh over several ranks) reads
+    the cache and computes what is missing, but drops and writes nothing.
     """
 
     def __init__(
@@ -265,14 +268,17 @@ class CachedPairMatcher:
         image_names,
         n_kpts,
         fingerprint: Optional[str] = None,
+        writer: bool = True,
     ):
         self.fn = match_pair_fn
         self.path = cache_path
         self.names = list(image_names)
         self.n_kpts = n_kpts
         self.fingerprint = fingerprint
+        self.writer = writer
         if (
-            fingerprint is not None
+            writer
+            and fingerprint is not None
             and osp.exists(cache_path)
             and read_fingerprint(cache_path) != fingerprint
         ):
@@ -299,6 +305,8 @@ class CachedPairMatcher:
         if todo.any():
             fresh = np.asarray(self.fn(pairs[todo]))
             out[todo] = fresh
+            if not self.writer:
+                return out
             mode = "a" if osp.exists(self.path) else "w"
             with h5py.File(self.path, mode) as f:
                 if self.fingerprint is not None and mode == "w":

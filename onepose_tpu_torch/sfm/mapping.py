@@ -59,8 +59,9 @@ class MappingConfig:
     global_ba: bool = False
     global_ba_iters: int = 10
     global_ba_refine_cameras: bool = False
-    # A device mesh of more than one device raises: the distributed BA of
-    # the JAX package waits for the port's multi-device work (ROADMAP A14).
+    # A `parallel.mesh.Mesh` of more than one rank: global BA splits the
+    # points over every rank (`parallel.distributed_ba`); every rank calls
+    # run_mapping alike.
     mesh: Optional[object] = None
 
 
@@ -76,13 +77,6 @@ class MappingResult:
     frame_assign: dict  # {frame_idx: [2, K] assign matrix}
     stats: dict
     refined_poses: Optional[np.ndarray] = None  # [F, 4, 4] if global BA refined the cameras
-
-
-def _mesh_devices(mesh) -> int:
-    if mesh is None:
-        return 1
-    devices = getattr(mesh, "devices", mesh)
-    return int(np.asarray(devices).size)
 
 
 def _t(x, device: torch.device) -> torch.Tensor:
@@ -118,9 +112,6 @@ def run_mapping(
     pad_points_to: 3D slots of the annotation (default config.max_points3d).
     """
     cfg = config
-    if _mesh_devices(cfg.mesh) > 1:
-        raise NotImplementedError("global BA over a device mesh is not ported yet (ROADMAP "
-                                  "A14): pass mesh=None")
     dev = resolve_device(device)
     keypoints, K, poses = np.asarray(keypoints), np.asarray(K), np.asarray(poses)
     kpt_mask = np.asarray(kpt_mask, bool)
@@ -236,8 +227,9 @@ def run_mapping(
 def _global_ba(merged_xyz, groups, tracks, obs_inlier, keypoints, K, poses,
                cfg: MappingConfig, dev: torch.device):
     """Global LM bundle adjustment over the merged map (the reference's
-    `colmap bundle_adjuster` with intrinsics fixed) on one device. Returns
-    (points, refined_poses | None, stats)."""
+    `colmap bundle_adjuster` with intrinsics fixed) on one device, or with
+    the points split over every rank of cfg.mesh. Returns (points,
+    refined_poses | None, stats)."""
     P = len(merged_xyz)
     pt_l, cam_l, uv_l = [], [], []
     for new_id in range(P):
@@ -259,11 +251,32 @@ def _global_ba(merged_xyz, groups, tracks, obs_inlier, keypoints, K, poses,
     cam6 = np.concatenate([aa, poses[:, :3, 3]], axis=1).astype(np.float32)
     fix = (None if cfg.global_ba_refine_cameras
            else torch.ones((len(cam6),), dtype=torch.float32, device=dev))
-    out = ba_solve(
-        _t(merged_xyz, dev), _t(cam6, dev), _t(feats, dev), _t(pt_idx, dev),
-        _t(cam_idx, dev), torch.ones((len(pt_idx),), dtype=torch.bool, device=dev),
-        fix_cam_mask=fix, n_iters=cfg.global_ba_iters,
-    )
+    n_dev = cfg.mesh.size if cfg.mesh is not None else 1
+    if n_dev > 1:
+        # Points padded to a multiple of the shard count, as the JAX package
+        # pads them: a padded point has no observation, so its Hpp block is
+        # pure damping and its update exactly zero.
+        from onepose_tpu_torch.parallel.distributed_ba import (
+            distributed_ba_solve,
+            partition_obs_by_point,
+        )
+        from onepose_tpu_torch.parallel.mesh import make_mesh
+
+        P_pad = -(-P // n_dev) * n_dev
+        pts_pad = np.pad(merged_xyz.astype(np.float32), ((0, P_pad - P), (0, 0)))
+        parts = partition_obs_by_point(P_pad, n_dev, feats, pt_idx, cam_idx,
+                                       np.ones((len(pt_idx),), bool))
+        out = distributed_ba_solve(
+            make_mesh(n_data=1, n_points=n_dev, device=dev), _t(pts_pad, dev), _t(cam6, dev),
+            *(_t(a, dev) for a in parts), fix_cam_mask=fix, n_iters=cfg.global_ba_iters,
+        )
+        out["points"] = out["points"][:P]
+    else:
+        out = ba_solve(
+            _t(merged_xyz, dev), _t(cam6, dev), _t(feats, dev), _t(pt_idx, dev),
+            _t(cam_idx, dev), torch.ones((len(pt_idx),), dtype=torch.bool, device=dev),
+            fix_cam_mask=fix, n_iters=cfg.global_ba_iters,
+        )
     n_obs = max(len(pt_idx), 1)
     stats = {
         "global_ba_rmse_initial_px": float(np.sqrt(2.0 * float(out["cost_initial"]) / n_obs)),

@@ -9,9 +9,17 @@ the JAX package's format). Validation computes real pose errors (matcher
 -> RANSAC-PnP -> cm-degree recall), as the reference's validation step
 does (GATsSPG_lightning_model.py:53-73).
 
-One process and one card: a run over several `torch.distributed`
-processes raises (ROADMAP A14), where the JAX package builds one mesh over
-every device.
+Over several ranks (`torchrun --nproc-per-node N -m onepose_tpu_torch
+train ...`): data parallelism over every rank. Each rank draws the same
+global batch stream (the same seeds), takes its slice of each batch, and
+holds the same parameters and optimizer state (seeded alike, or loaded
+from the same checkpoint, then broadcast from rank 0); the train step
+normalises the loss over the global batch and sums the gradients
+(`train_step.make_train_step(group=)`). A batch size that the world size
+does not divide raises (the JAX package shrinks its mesh to a divisor,
+which leaves some processes' devices out of it). Rank 0 writes the
+metrics and checkpoints. Validation gives each rank a strided share of the
+items and combines the counts exactly.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from onepose_tpu_torch._device import require_single_process, resolve_device
+from onepose_tpu_torch._device import resolve_device
 from onepose_tpu_torch.data.dataset import batch_iterator, prefetch_to_device
 from onepose_tpu_torch.eval import Evaluator
 from onepose_tpu_torch.geometry.ransac import ransac_pnp
@@ -42,6 +50,7 @@ from onepose_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from onepose_tpu_torch.utils import comm
 from onepose_tpu_torch.utils.precision import fp32_matmuls
 
 
@@ -61,6 +70,8 @@ class LoopConfig:
 
 
 def _log(metrics_file: str, record: dict) -> None:
+    if not comm.is_main_process():
+        return
     os.makedirs(osp.dirname(metrics_file) or ".", exist_ok=True)
     with open(metrics_file, "a") as f:
         f.write(json.dumps(record) + "\n")
@@ -70,6 +81,12 @@ def adapt_batch(batch: dict) -> dict:
     """Dataset batch -> train-step batch naming."""
     keys = ("desc2d", "desc3d", "leaf_desc", "mask2d", "mask3d", "leaf_mask", "conf_gt")
     return {k: batch[k] for k in keys}
+
+
+def _rank_slice(batch: dict, rank: int, world: int) -> dict:
+    """This rank's rows of a global batch."""
+    n = len(next(iter(batch.values()))) // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
 
 
 def train(
@@ -91,7 +108,11 @@ def train(
       snapshot, best checkpoint, ...).
     """
     dev = resolve_device(loop_cfg.device)
-    require_single_process("train")
+    world, rank = comm.get_world_size(), comm.get_rank()
+    if loop_cfg.batch_size % world:
+        raise ValueError(f"batch_size {loop_cfg.batch_size} must divide over the {world} ranks: "
+                         "every rank takes an equal slice of each batch")
+    group = torch.distributed.group.WORLD if world > 1 else None
     model = model or GATsSPG(gats_kernel=True, fused_match=False)
     batch_iterator_fn = batch_iterator_fn or batch_iterator
     steps_per_epoch = max(len(dataset) // loop_cfg.batch_size, 1)
@@ -109,20 +130,27 @@ def train(
         if ckpt is not None:
             state.load_state_dict(load_checkpoint(ckpt, state.state_dict()))
             start_epoch = checkpoint_step(ckpt) + 1
+    if group is not None:
+        with torch.no_grad():
+            for p in state.model.parameters():
+                p.copy_(comm.broadcast(p, group))
 
     callbacks = callbacks or []
     run_dir = osp.dirname(loop_cfg.metrics_file) or "."
     for cb in callbacks:
         cb.on_train_start(run_dir, dataclasses.asdict(loop_cfg))
 
-    step_fn = make_train_step(model, train_cfg)
+    step_fn = make_train_step(model, train_cfg, group=group)
     history = []
     global_step = start_epoch * steps_per_epoch
     for epoch in range(start_epoch, loop_cfg.max_epochs):
         t0 = time.time()
         epoch_metrics = []
-        batches = batch_iterator_fn(dataset, loop_cfg.batch_size, seed=loop_cfg.seed + epoch)
-        for i, batch in enumerate(prefetch_to_device(map(adapt_batch, batches), device=dev)):
+        batches = map(adapt_batch, batch_iterator_fn(dataset, loop_cfg.batch_size,
+                                                     seed=loop_cfg.seed + epoch))
+        if group is not None:
+            batches = (_rank_slice(b, rank, world) for b in batches)
+        for i, batch in enumerate(prefetch_to_device(batches, device=dev)):
             state, metrics = step_fn(state, batch)
             global_step += 1
             if (i + 1) % loop_cfg.log_every == 0 or i == 0:
@@ -139,7 +167,8 @@ def train(
             cb.on_epoch_end(epoch, record, state)
         _log(loop_cfg.metrics_file, record)
         history.append(record)
-        save_checkpoint(loop_cfg.ckpt_dir, state.state_dict(), epoch)
+        if comm.is_main_process():
+            save_checkpoint(loop_cfg.ckpt_dir, state.state_dict(), epoch)
     for cb in callbacks:
         cb.on_train_end(history)
     result = {"state": state, "history": history}
@@ -163,15 +192,17 @@ def make_pose_val_fn(
     kpts2d, points3d, pose_gt and K. `model` takes the state's parameters
     at each call. Item i's RANSAC draws come from a CPU generator seeded
     with i (the JAX package keys them PRNGKey(i)), so the card and the CPU
-    draw alike. One process: validation over several is ROADMAP A14."""
+    draw alike. Over several ranks each rank evaluates a strided share of
+    the items and the counts are combined exactly (`Evaluator.counts`,
+    `combine_counts`): every rank returns the whole set's metrics."""
 
     def val_fn(state) -> dict:
-        require_single_process("validation")
+        world, rank = comm.get_world_size(), comm.get_rank()
         model.load_state_dict(state.model.state_dict())
         dev = next(model.parameters()).device
         ev = Evaluator()
         with torch.no_grad(), fp32_matmuls():
-            for i in range(len(val_dataset)):
+            for i in range(rank, len(val_dataset), world):
                 item = val_dataset[i]
                 b = {k: torch.from_numpy(np.asarray(v))[None].to(dev) for k, v in item.items()
                      if k not in ("pose_gt", "K")}
@@ -185,6 +216,8 @@ def make_pose_val_fn(
                                  torch.from_numpy(np.asarray(item["K"]))[None].to(dev),
                                  (m0 >= 0)[None], draws=draws, n_hyp=n_hyp)
                 ev.evaluate(res["pose"][0].cpu().numpy(), np.asarray(item["pose_gt"]))
-        return {f"val_{k}": v for k, v in ev.summarize().items()}
+        metrics = (Evaluator.combine_counts(comm.all_gather_pytree(ev.counts())) if world > 1
+                   else ev.summarize())
+        return {f"val_{k}": v for k, v in metrics.items()}
 
     return val_fn

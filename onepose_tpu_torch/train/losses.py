@@ -22,6 +22,7 @@ def focal_loss(
     neg_weight: float = 0.5,
     valid_mask: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
+    group=None,
 ) -> torch.Tensor:
     """Mean focal loss over positive and negative entries.
 
@@ -35,6 +36,12 @@ def focal_loss(
     Negative term: -(1 - alpha) * p^gamma * log(1 - p), mean over negatives.
     Total = pos_weight * pos_mean + neg_weight * neg_mean; a side with no
     entries contributes zero (its count is clamped to 1).
+
+    group: a process group whose ranks each hold a slice of the batch. The
+    means are then over the global batch, as the JAX package takes them
+    over its sharded batch: the positive and negative counts are
+    all-reduced before the division, and the result is this rank's share
+    of the global loss (the shares sum to it; so do their gradients).
     """
     conf = conf.clamp(eps, 1.0 - eps)
     pos = target > 0.5
@@ -48,6 +55,11 @@ def focal_loss(
     loss_pos = -alpha * torch.pow(1.0 - conf, gamma) * torch.log(conf)
     loss_neg = -(1.0 - alpha) * torch.pow(conf, gamma) * torch.log(1.0 - conf)
 
-    mean_pos = (loss_pos * posf).sum() / posf.sum().clamp(min=1.0)
-    mean_neg = (loss_neg * negf).sum() / negf.sum().clamp(min=1.0)
+    n_pos, n_neg = posf.sum(), negf.sum()
+    if group is not None:
+        from onepose_tpu_torch.utils.comm import all_reduce
+
+        n_pos, n_neg = all_reduce(n_pos, group), all_reduce(n_neg, group)
+    mean_pos = (loss_pos * posf).sum() / n_pos.clamp(min=1.0)
+    mean_neg = (loss_neg * negf).sum() / n_neg.clamp(min=1.0)
     return pos_weight * mean_pos + neg_weight * mean_neg

@@ -25,6 +25,14 @@ The train state's checkpoint is the JAX package's artifact
 with the JAX package's parameter layout and optax's state layout, so
 either package resumes the other's checkpoints.
 
+Data parallelism (`make_train_step(..., group=)`): each rank of the group
+holds the same parameters and optimizer state and takes its slice of the
+global batch; the focal loss normalises over the global batch (the
+positive and negative counts are all-reduced before the division, as the
+JAX package's loss over its sharded batch does), the gradients of the
+ranks' shares are summed by one all-reduce, and every rank applies the
+same update. The metrics are those of the global batch.
+
 The step runs in fp32 with TF32 off (`utils.precision.fp32_matmuls`). The
 matcher is GATsSPG(gats_kernel=True, fused_match=False): the GATs kernel
 with its gradient (`ops.kernels.gats.GatsLeafAttention`) and the dense
@@ -44,6 +52,7 @@ from onepose_tpu_torch._device import resolve_device
 from onepose_tpu_torch.models import bridge
 from onepose_tpu_torch.models.gats import GraphAttentionLayer
 from onepose_tpu_torch.train.losses import focal_loss
+from onepose_tpu_torch.utils.comm import all_reduce
 from onepose_tpu_torch.utils.precision import fp32_matmuls
 
 
@@ -252,35 +261,52 @@ def _forward(model: nn.Module, batch: dict) -> dict:
                  batch.get("mask3d"), batch.get("leaf_mask"))
 
 
-def loss_fn(model: nn.Module, batch: dict, cfg: TrainConfig):
+def loss_fn(model: nn.Module, batch: dict, cfg: TrainConfig, group=None):
     """(loss, metrics {loss, precision, recall}) of one batch; the metrics
-    detached, matches by the thresholds 0.2 (conf) and 0.5 (ground truth)."""
+    detached, matches by the thresholds 0.2 (conf) and 0.5 (ground truth).
+    With a process `group`, the batch is this rank's slice: the loss is
+    its share of the global batch's, the metrics the global batch's."""
     out = _forward(model, batch)
     conf = out["conf_matrix"]
     if conf is None:
         raise ValueError("training needs the dense confidence matrix: construct the matcher "
                          "with GATsSPG(fused_match=False)")
     loss = focal_loss(conf, batch["conf_gt"], alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
-                      pos_weight=cfg.pos_weight, neg_weight=cfg.neg_weight)
+                      pos_weight=cfg.pos_weight, neg_weight=cfg.neg_weight, group=group)
     with torch.no_grad():
         pred_pos = conf > 0.2
         gt_pos = batch["conf_gt"] > 0.5
-        tp = (pred_pos & gt_pos).sum()
-        precision = tp / pred_pos.sum().clamp(min=1)
-        recall = tp / gt_pos.sum().clamp(min=1)
-    return loss, {"loss": loss.detach(), "precision": precision, "recall": recall}
+        # [loss, tp, predicted, ground truth]: summed over the ranks.
+        sums = torch.stack([loss.detach(), (pred_pos & gt_pos).sum().to(loss.dtype),
+                            pred_pos.sum().to(loss.dtype), gt_pos.sum().to(loss.dtype)])
+        if group is not None:
+            sums = all_reduce(sums, group)
+        total, tp, n_pred, n_gt = sums
+        precision = tp / n_pred.clamp(min=1)
+        recall = tp / n_gt.clamp(min=1)
+    return loss, {"loss": total, "precision": precision, "recall": recall}
 
 
-def make_train_step(model: Optional[nn.Module], cfg: TrainConfig):
+def _sum_over(grads: list, group) -> list:
+    """The gradients summed over the ranks of `group`: one all-reduce of
+    their concatenation."""
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def make_train_step(model: Optional[nn.Module], cfg: TrainConfig, group=None):
     """train_step(state, batch) -> (state, metrics): the focal loss, its
     gradients by autograd, their raw global norm, then the optimizer
-    (`state` is updated in place and returned)."""
+    (`state` is updated in place and returned). With a process `group`,
+    data parallelism over its ranks (see the module's docstring)."""
 
     def train_step(state: TrainState, batch: dict):
         params = list(state.tx.params)
         with fp32_matmuls():
-            loss, metrics = loss_fn(state.model, batch, cfg)
+            loss, metrics = loss_fn(state.model, batch, cfg, group)
             grads = list(torch.autograd.grad(loss, params))
+            if group is not None:
+                grads = _sum_over(grads, group)
             metrics["grad_norm"] = global_norm(grads)
             state.apply_gradients(grads)
         return state, metrics

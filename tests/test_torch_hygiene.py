@@ -42,7 +42,10 @@ MODULES = (
     "onepose_tpu_torch.tracker.ba_tracker, onepose_tpu_torch.cli.demo, "
     "onepose_tpu_torch.models.convert, onepose_tpu_torch.cli.convert_cmd, "
     "onepose_tpu_torch.data.scan_parser, onepose_tpu_torch.cli.parse_scan_cmd, "
-    "onepose_tpu_torch.cli.merge_anno_cmd"
+    "onepose_tpu_torch.cli.merge_anno_cmd, onepose_tpu_torch.utils.comm, "
+    "onepose_tpu_torch.parallel, onepose_tpu_torch.parallel.mesh, "
+    "onepose_tpu_torch.parallel.sharded_attention, onepose_tpu_torch.parallel.tensor_parallel, "
+    "onepose_tpu_torch.parallel.stage_pipeline, onepose_tpu_torch.parallel.distributed_ba"
 )
 
 

@@ -414,11 +414,19 @@ def test_infer_roster_batch_objects_matches_serial(tmp_path, capsys):
         assert (tmp_path / "eval" / f).exists(), f
 
 
-def test_infer_single_process_only(tmp_path):
-    """data_parallel and a run over several processes raise naming A14;
-    without CUDA and without device=cpu the command raises before any work."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        port_main(["infer", f"data_dir={tmp_path}", "data_parallel=true", "device=cpu"])
+def test_infer_single_process_only(tmp_path, capsys):
+    """In one process data_parallel=true resolves to no mesh (a world of
+    one rank) and gives the metrics of data_parallel=false (several ranks:
+    tests/test_torch_distributed_cli.py); without CUDA and without
+    device=cpu the command raises before any work."""
+    seq = build_sequence(tmp_path, np.random.default_rng(4), n_frames=4, img=96, n_pts=40)
+    _random_annotation(tmp_path / "anno", np.random.default_rng(5))
+    args = ["infer", f"data_dir={seq}", f"anno_dir={tmp_path / 'anno'}", "matcher=nn",
+            "max_keypoints=64", "shape3d=48", "batch=4", "device=cpu"]
+    assert port_main(args) == 0
+    want = _last_json(capsys)
+    assert port_main(args + ["data_parallel=true"]) == 0
+    assert _last_json(capsys) == want and want["num_frames"] == 4
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main(["infer", f"data_dir={tmp_path}"])

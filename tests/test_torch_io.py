@@ -571,15 +571,25 @@ def test_jax_written_match_cache_resumes_in_the_port(h5, tmp_path):
 
 
 def test_resolve_sfm_mesh(monkeypatch):
-    """No mesh for False / None / True / 1 on one card (and an int above
-    the card count is capped, as in JAX); a mesh of several cards raises."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    """Resolved over the ranks as JAX resolves over its devices: no mesh
+    for False / None / 0 / 1, nor for True or an int in a world of one
+    rank (an int above the world is capped); over 4 ranks, True and an int
+    of 4 or more give a data mesh of all 4, and a count between 1 and 4
+    raises (a mesh must span every rank). Over real ranks:
+    tests/test_torch_parallel.py::test_resolve_sfm_mesh_over_ranks."""
+    made = []
+    monkeypatch.setattr(sfm_parallel, "make_mesh", lambda **kw: made.append(kw) or kw)
+    monkeypatch.setattr(sfm_parallel.comm, "get_world_size", lambda: 1)
     for v in (False, None, 0, True, 1, 4):
         assert sfm_parallel.resolve_sfm_mesh(v) is None
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(sfm_parallel.comm, "get_world_size", lambda: 4)
     assert sfm_parallel.resolve_sfm_mesh(1) is None
-    for v in (True, 2):
-        with pytest.raises(NotImplementedError, match="A14"):
+    for v in (True, 4, 9):
+        assert sfm_parallel.resolve_sfm_mesh(v, device="cpu") == {
+            "n_data": 4, "n_points": 1, "device": "cpu"}
+    assert len(made) == 3
+    for v in (2, 3):
+        with pytest.raises(ValueError, match="span every rank"):
             sfm_parallel.resolve_sfm_mesh(v)
 
 

@@ -183,9 +183,15 @@ def test_extract_sequence_features_matches_jax(tmp_path):
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, err_msg=k)
     assert got["image_paths"] == want["image_paths"] and got["image_hw"] == want["image_hw"]
     assert got["mask"].sum() > 100
-    with pytest.raises(NotImplementedError, match="A14"):
-        common.extract_sequence_features(seq, common.load_superpoint_params(model, path), model,
-                                         mesh=object(), device="cpu")
+    # A mesh of one rank (one process): the same features (several ranks:
+    # tests/test_torch_parallel_serving.py).
+    from onepose_tpu_torch.parallel.mesh import make_mesh
+
+    meshed = common.extract_sequence_features(seq, common.load_superpoint_params(model, path),
+                                              model, max_keypoints=160, batch=3,
+                                              mesh=make_mesh(device="cpu"), device="cpu")
+    for k in ("keypoints", "mask", "descriptors", "scores"):
+        np.testing.assert_array_equal(meshed[k], got[k], err_msg=k)
 
 
 def test_load_params(world, tmp_path):

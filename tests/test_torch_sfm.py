@@ -450,16 +450,20 @@ def test_run_mapping_matches_jax(ba):
 
 def test_run_mapping_checks_its_inputs():
     """A matcher must return exactly one row per pair (a padded chunk's
-    extra rows are the matcher's to drop); a mesh of several devices
-    raises until the port's multi-device work; CUDA without CUDA raises."""
+    extra rows are the matcher's to drop); a mesh of one rank takes the
+    one-device BA and maps alike (several ranks:
+    tests/test_torch_parallel_serving.py); CUDA without CUDA raises."""
     scene = make_scene(np.random.default_rng(42), n_frames=8)
     args = (scene["keypoints"], scene["descriptors"], scene["scores"], scene["mask"],
             scene["K"], scene["poses"])
     matcher = nn_pair_matcher(scene)
     with pytest.raises(ValueError, match="one row of 256 per pair"):
         run_mapping(*args, lambda p: matcher(np.concatenate([p, p[:1]])), device=CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        run_mapping(*args, matcher, config=MappingConfig(mesh=np.zeros(4)), device=CPU)
+    from onepose_tpu_torch.parallel.mesh import make_mesh
+
+    plain, meshed = (run_mapping(*args, matcher, config=MappingConfig(global_ba=True, mesh=m),
+                                 device=CPU) for m in (None, make_mesh(device="cpu")))
+    np.testing.assert_array_equal(meshed.points_xyz, plain.points_xyz)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_mapping(*args, matcher)

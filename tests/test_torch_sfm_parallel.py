@@ -99,11 +99,18 @@ def test_superglue_chunk_guard():
 
 
 def test_mesh_and_missing_cuda_raise():
+    """A mesh of one rank matches as no mesh does (several ranks:
+    tests/test_torch_parallel_serving.py); without CUDA the default device
+    raises."""
+    from onepose_tpu_torch.parallel.mesh import make_mesh
+
     rng = np.random.default_rng(2)
     feats = _random_feats(rng, F=3, N=8, C=256)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sfm_parallel.make_nn_pair_matcher(feats["descriptors"], feats["mask"], mesh=object(),
-                                          device="cpu")
+    pairs = np.asarray([[0, 1], [1, 2], [2, 0]])
+    got, want = (sfm_parallel.make_nn_pair_matcher(feats["descriptors"], feats["mask"], mesh=m,
+                                                   pair_chunk=2, device="cpu")(pairs)
+                 for m in (make_mesh(device="cpu"), None))
+    np.testing.assert_array_equal(got, want)
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the no-CUDA error cannot be shown here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -148,11 +148,16 @@ def test_train_without_cuda_raises(world, tmp_path):
 
 
 def test_train_over_several_processes_raises(world, tmp_path, monkeypatch):
+    """Over 2 processes a batch that does not divide over them raises before
+    any step (the JAX package shrinks its mesh instead, ADVICE.md); data
+    parallelism over real ranks: tests/test_torch_distributed_cli.py."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A14"):
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+    with pytest.raises(ValueError, match="must divide over the 2 ranks"):
         port_main(["train", f"anno_index={world['index']}", f"run_dir={tmp_path}",
-                   "device=cpu", *SMALL])
+                   "device=cpu", *[a if a != "batch_size=2" else "batch_size=3" for a in SMALL]])
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_train_is_registered():
