@@ -19,7 +19,16 @@ Phases, each printing its lines before the last:
      on plateau inputs and at radii 10 and 12 (its large-radius entry),
      the dual-softmax head also with planted ties, through its masked
      entry and at two shapes too wide for shared memory; K7's wide entry
-     (rows wider than 14848 columns) at 16385 and 20481 columns;
+     (rows wider than 14848 columns) at 16385 and 20481 columns; then the
+     gradients of NMS and the VGG stage (the autograd.Functions Nms and
+     VggStage: the kernel forward, the plain VJP recomputed) at the
+     production shapes, against autograd through their plain versions on
+     the card and against the CPU, a bf16 stage input raising in the
+     backward, and SuperPoint at batch 8, 512 x 512 differentiated with
+     its NMS kernel on (fp32 and bf16, against the kernel off) and with
+     its VGG kernel on (the forward runs, the backward raises, as in the
+     JAX package); each backward's time beside its plain version's,
+     cuDNN's conv backward and its bound;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
@@ -138,6 +147,15 @@ VGG_SHAPES = (
     ((3, 136, 200, 1, 64, 64, True), (3, 68, 100, 64, 128, 128, True),
      (3, 68, 100, 128, 128, 128, False), (2, 36, 70, 96, 64, 128, True)),
 )
+# Gradients (Nms, VggStage): NMS radii (the fused entry, the large-radius one);
+# K5's gradient against autograd through vgg_stage_reference on the card (max
+# abs err over max abs: the same recompute, deterministic cuDNN), and against
+# the CPU's (relative L2: the fp32 convs sum in another order, and a ReLU input
+# or a pool value within that rounding of its rival routes the gradient the
+# other way; those positions are counted); SuperPoint(nms_kernel=True) against
+# nms_kernel=False (the NMS VJP is bit-exact and cuDNN deterministic: 0 expected).
+GRAD_NMS_RADII = (4, 12)
+GRAD_VGG_REL, GRAD_VGG_CPU_REL, GRAD_SP_REL = 1e-5, 1e-2, 1e-6
 BLOCK_SHAPES = ((8, 1000, 2000, 8, 256, True), (3, 37, 45, 5, 256, True),
                 (2, 300, 200, 8, 256, False))  # [B, N2, N3, L, C, masked]
 GEMM_SHAPE = (16000, 512, 512)  # [M, K, N]: the block's largest GEMM (MLP dense_0 on x3, x2)
@@ -579,6 +597,7 @@ def phase_kernels(torch, timer):
     rows["gats_block"] = _kernels_block(torch, timer, g)
     rows.update(_kernels_sinkhorn(torch, timer, g))
     rows.update(_kernels_serving(torch, timer))
+    rows.update(_kernels_grad(torch, timer))
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -590,6 +609,23 @@ def _bf16_ulp(torch, x):
     """The spacing of bf16 numbers at |x| (8 significant bits)."""
     mag = x.abs().clamp(min=2.0**-126)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _vgg_stage_args(torch, g, shape, fp32_x=False):
+    """A stage's (x, w1, b1, w2, b2, pool) at shape [B, H, W, Cin, C1, C2,
+    pool]: x in [0, 1) for the image stage, else a ReLU'd activation in
+    bf16 (as the previous stage writes it) or, with fp32_x, in fp32."""
+    b, h, w, cin, c1, c2, pool = shape
+    if cin == 1:
+        x = torch.rand((b, h, w, 1), generator=g, device=DEV)
+    else:
+        x = torch.relu(torch.randn((b, h, w, cin), generator=g, device=DEV))
+        x = x if fp32_x else x.bfloat16()
+    w1 = torch.randn((3, 3, cin, c1), generator=g, device=DEV) * (2.0 / (9 * cin)) ** 0.5
+    w2 = torch.randn((3, 3, c1, c2), generator=g, device=DEV) * (2.0 / (9 * c1)) ** 0.5
+    b1 = torch.randn((c1,), generator=g, device=DEV) * 0.1
+    b2 = torch.randn((c2,), generator=g, device=DEV) * 0.1
+    return x, w1, b1, w2, b2, pool
 
 
 def _kernels_vgg(torch, timer, g):
@@ -604,20 +640,7 @@ def _kernels_vgg(torch, timer, g):
     PackCache keeps them, then stage by stage."""
     import torch.nn.functional as F
 
-    from onepose_tpu_torch.ops.kernels import vgg_stage
-
-    def stage_args(b, h, w, cin, c1, c2, pool):
-        if cin == 1:
-            x = torch.rand((b, h, w, 1), generator=g, device=DEV)
-        else:
-            x = torch.relu(torch.randn((b, h, w, cin), generator=g, device=DEV)).bfloat16()
-        w1 = torch.randn((3, 3, cin, c1), generator=g, device=DEV) * (2.0 / (9 * cin)) ** 0.5
-        w2 = torch.randn((3, 3, c1, c2), generator=g, device=DEV) * (2.0 / (9 * c1)) ** 0.5
-        b1 = torch.randn((c1,), generator=g, device=DEV) * 0.1
-        b2 = torch.randn((c2,), generator=g, device=DEV) * 0.1
-        return x, w1, b1, w2, b2, pool
-
-    from onepose_tpu_torch.ops.kernels import _build
+    from onepose_tpu_torch.ops.kernels import _build, vgg_stage
 
     prod, err = [], 0.0
     klib = _build.load("vgg_stage")
@@ -627,7 +650,7 @@ def _kernels_vgg(torch, timer, g):
             th = klib.vgg_stage_tile_rows(cin, c1, c2)
             if th != vgg_stage.tile_rows(cin, c1, c2):
                 fail(f"vgg_stage tile height {th} differs from the Python mirror's")
-            args = stage_args(*shape)
+            args = _vgg_stage_args(torch, g, shape)
             out = vgg_stage.vgg_stage_kernel(*args).float()
             ref = vgg_stage.vgg_stage_plain(*args).float()
             torch.cuda.synchronize()
@@ -1044,6 +1067,331 @@ def _kernels_serving(torch, timer):
         replaces="onepose_tpu/ops/pallas/sinkhorn.py:78", max_abs_err=err,
         ms=timer(kern, reps=10), plain_ms=timer(ref, reps=3, warmup=1), library_ms=None,
         bound_ms=bms, bound_by=by)
+    return rows
+
+
+def _bits_differ(torch, a, b) -> int:
+    """Elements of two fp32 tensors whose bits differ (0.0 and -0.0 too)."""
+    return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+
+def _vgg_routing(torch, x, w1, b1, w2, b2, pool) -> list:
+    """Where the fp32 stage (vgg_stage_reference, TF32 off) routes its
+    gradient: the sign of each ReLU input (the tie at 0 halves it) and,
+    with the pool, which values of each 2 x 2 window reach its max."""
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w1.permute(3, 2, 0, 1), padding=1)
+        y = y + b1[:, None, None]
+        z = F.conv2d(y.clamp_min(0), w2.permute(3, 2, 0, 1), padding=1) + b2[:, None, None]
+        out = [torch.sign(y).to(torch.int8), torch.sign(z).to(torch.int8)]
+        if pool:
+            b, c, h, w = z.shape
+            zw = z.clamp_min(0).reshape(b, c, h // 2, 2, w // 2, 2)
+            out.append(zw == zw.amax(dim=(3, 5), keepdim=True))
+    return out
+
+
+def _kernels_grad(torch, timer):
+    """K1's and K5's gradients (`Nms`, `VggStage`: the kernel forward on
+    detached inputs, the backward the plain VJP recomputed, as the JAX
+    package's `_bwd`s recompute through XLA) at the production shapes, TF32
+    off, cuDNN deterministic for the comparisons:
+    (a) K1 at NMS_SHAPES[0], radii GRAD_NMS_RADII, smooth and plateau
+        inputs: output and gradient bit-equal to autograd through
+        simple_nms on the card and to the CPU's; one launch a forward;
+    (b) K5 at the four stages of VGG_SHAPES[0], each alone with an fp32 x:
+        every gradient within GRAD_VGG_REL of autograd through
+        vgg_stage_reference on the card, within GRAD_VGG_CPU_REL (relative
+        L2) of the CPU's, with the ReLU and pool positions that route the
+        gradient differently on the two devices counted; a bf16 x raises
+        TypeError in the backward on both, as the JAX package's VJP does;
+    (c) SuperPoint(nms_kernel=True) at MAIN's batch and size, fp32 and
+        bf16: the gradients of a fixed loss of score_map and descriptor_map
+        with respect to the image and every parameter within GRAD_SP_REL
+        of nms_kernel=False's, nms launched once; SuperPoint(vgg_kernel=True,
+        nms_kernel=True) runs its forward under autograd (vgg_stage 4, nms 1)
+        and its backward raises TypeError.
+    Times: forward plus backward, the backward alone (CUDA events; device ms
+    and CUDA kernels from torch.profiler), the plain version's, cuDNN's fp32
+    conv backward for K5's eight convs, and the bounds."""
+    import contextlib
+
+    from onepose_tpu_torch.models.superpoint import SuperPoint
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches, score_path, vgg_stage
+
+    g = torch.Generator(device=DEV).manual_seed(43)
+    rows = {}
+    none = dict.fromkeys(launch_counts(), 0)
+    dev_ms = lambda d: sum(ms for _, ms in d.values())  # noqa: E731
+    dev_n = lambda d: sum(n for n, _ in d.values())  # noqa: E731
+    max_abs = lambda t: float(t.abs().max())  # noqa: E731
+
+    @contextlib.contextmanager
+    def deterministic():
+        old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = old
+
+    def vjp(fn, ins, cot, *args):
+        ins = [t.detach().requires_grad_() for t in ins]
+        out = fn(*ins, *args)
+        return out.detach(), torch.autograd.grad(out, ins, cot)
+
+    # (a) K1: bit-equal, the forward one launch.
+    shape = NMS_SHAPES[0]
+    for plateau in (False, True):
+        s = _nms_input(torch, g, *shape, plateau=plateau)
+        cot = torch.randn(shape, generator=g, device=DEV)
+        for radius in GRAD_NMS_RADII:
+            torch.cuda.synchronize()
+            reset_launches()
+            out, (grad,) = vjp(score_path.nms, [s], cot, radius)
+            torch.cuda.synchronize()
+            n_launch = launch_counts()["nms"]
+            ref_out, (ref,) = vjp(score_path.simple_nms, [s], cot, radius)
+            cpu_out, (cpu,) = vjp(score_path.nms, [s.cpu()], cot.cpu(), radius)
+            bad = _bits_differ(torch, out, ref_out) + _bits_differ(torch, grad, ref)
+            bad_cpu = _bits_differ(torch, out.cpu(), cpu_out) + _bits_differ(torch, grad.cpu(), cpu)
+            kept_zeros = int(((out == 0) & (grad != 0)).sum())
+            log(f"[kernels] nms gradient {shape} radius {radius} "
+                f"({'plateau' if plateau else 'smooth'} input): {n_launch} launch (1 required); "
+                f"against autograd through simple_nms {bad} and against the CPU {bad_cpu} "
+                f"differing output and gradient values (bit-equal required); "
+                f"{int((grad != 0).sum())} non-zero, {kept_zeros} of them at kept zeros")
+            if bad or bad_cpu or n_launch != 1 or not bool((grad != 0).any()):
+                fail("the nms gradient differs from simple_nms's VJP")
+    s = _nms_input(torch, g, *shape)
+    cot = torch.randn(shape, generator=g, device=DEV)
+    st = s.detach().requires_grad_()
+    ms = timer(lambda: torch.autograd.grad(score_path.nms(st, 4), st, cot))
+    plain = timer(lambda: torch.autograd.grad(score_path.simple_nms(st, 4), st, cot), reps=5)
+    out, out_p = score_path.nms(st, 4), score_path.simple_nms(st, 4)
+    bwd = lambda: torch.autograd.grad(out, st, cot, retain_graph=True)  # noqa: E731
+    bwd_p = lambda: torch.autograd.grad(out_p, st, cot, retain_graph=True)  # noqa: E731
+    bwd_ms, bwd_p_ms = timer(bwd), timer(bwd_p, reps=5)
+    bwd_dev, bwd_p_dev = _kernel_breakdown(torch, bwd), _kernel_breakdown(torch, bwd_p)
+    n = s.numel()
+    # The least work: read the scores and the cotangent, write the output and
+    # the gradient; the forward's window maxima and a select.
+    bms, by = bound(4 * n * 4, 5 * 2 * 9 * n + n)
+    bwd_bound, bwd_by = bound(3 * n * 4, 5 * 2 * 9 * n + n)
+    log(f"[kernels] nms gradient {shape} radius 4: forward (kernel) plus backward {ms:.4f} ms "
+        f"(plain {plain:.4f}), bound {bms:.4f} ms ({by}); backward alone (the mask recomputed) "
+        f"{bwd_ms:.4f} ms, {dev_ms(bwd_dev):.4f} ms device time in {dev_n(bwd_dev)} CUDA "
+        f"kernels, bound {bwd_bound:.4f} ms ({bwd_by}); autograd through simple_nms's backward "
+        f"(a select with the mask its forward kept) {bwd_p_ms:.4f} ms "
+        f"({dev_ms(bwd_p_dev):.4f} ms device time)")
+    rows["nms_grad"] = dict(
+        name="nms_grad", route="cuda", source="onepose_tpu_torch/csrc/score_path.cu",
+        replaces="onepose_tpu/ops/pallas/score_path.py:133", max_abs_err=0.0, ms=ms,
+        plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+        extra=dict(backward="onepose_tpu_torch/ops/kernels/score_path.py::Nms",
+                   backward_ms=bwd_ms, backward_device_ms=dev_ms(bwd_dev),
+                   backward_cuda_kernels=dev_n(bwd_dev), backward_bound_ms=bwd_bound,
+                   plain_backward_ms=bwd_p_ms))
+
+    # (b) K5, each production stage alone with an fp32 x.
+    names = ("x", "w1", "b1", "w2", "b2")
+    prod, err_all = [], 0.0
+    for shape in VGG_SHAPES[0]:
+        *ins, pool = _vgg_stage_args(torch, g, shape, fp32_x=True)
+        b, h, w, cin, c1, c2, _ = shape
+        out_shape = (b, h // 2, w // 2, c2) if pool else (b, h, w, c2)
+        cot = torch.randn(out_shape, generator=g, device=DEV).to(vgg_stage._out_dtype(cin))
+        prod.append((ins, pool, cot))
+        with deterministic():
+            torch.cuda.synchronize()
+            reset_launches()
+            _, got = vjp(vgg_stage.vgg_stage, ins, cot, pool)
+            torch.cuda.synchronize()
+            n_launch = launch_counts()["vgg_stage"]
+            _, ref = vjp(vgg_stage.vgg_stage_reference, ins, cot.float(), pool)
+        errs = [(max_abs(a - r), max_abs(r)) for a, r in zip(got, ref)]
+        err_all = max(err_all, *(e for e, _ in errs))
+        _, cpu = vjp(vgg_stage.vgg_stage, [t.cpu() for t in ins], cot.cpu(), pool)
+        rel = [float(torch.linalg.vector_norm(a.cpu() - c) / torch.linalg.vector_norm(c))
+               for a, c in zip(got, cpu)]
+        flips = [int((a.cpu() != c).sum()) for a, c in zip(
+            _vgg_routing(torch, *ins, pool), _vgg_routing(torch, *(t.cpu() for t in ins), pool))]
+        log(f"[kernels] vgg_stage gradient {shape} (fp32 x): {n_launch} launch (1 required); "
+            f"against autograd through vgg_stage_reference on the card, max abs err / max abs "
+            f"of " + ", ".join(f"{k} {e:.3e} / {m:.3e}" for k, (e, m) in zip(names, errs))
+            + f" (<= {GRAD_VGG_REL} x max); against the CPU, relative L2 "
+            + ", ".join(f"{k} {r:.3e}" for k, r in zip(names, rel))
+            + f" (<= {GRAD_VGG_CPU_REL}), positions routed differently (ReLU 1, ReLU 2"
+            + (", pool" if pool else "") + f"): {flips}; gradient dtypes "
+            + str(sorted({str(a.dtype) for a in got})))
+        if (n_launch != 1 or any(not (e <= GRAD_VGG_REL * m and m > 0) for e, m in errs)
+                or any(not r <= GRAD_VGG_CPU_REL for r in rel)
+                or any(a.dtype != torch.float32 for a in got)):
+            fail("the vgg_stage gradient differs from vgg_stage_reference's VJP")
+    (x, *ws), pool, cot = prod[1]
+    for dev in (DEV, "cpu"):
+        wd = [t.detach().to(dev).requires_grad_() for t in ws]
+        reset_launches()
+        out = vgg_stage.vgg_stage(x.to(dev).bfloat16(), *wd, pool)
+        n_launch = launch_counts()["vgg_stage"]
+        try:
+            torch.autograd.grad(out, wd, cot.to(dev))
+        except TypeError as e:
+            log(f"[kernels] vgg_stage gradient {tuple(x.shape)} with a bf16 x on {dev}: forward "
+                f"ran ({n_launch} launch), backward raised TypeError as JAX's VJP does: "
+                f"{str(e)[:100]}...")
+        else:
+            fail(f"a vgg_stage backward with a bf16 x did not raise on {dev}")
+        if n_launch != (1 if dev == DEV else 0):
+            fail("the vgg_stage forward with a bf16 x did not launch as expected")
+
+    packs = [vgg_stage.pack_stage_weights(*ins[1:]) for ins, _, _ in prod]
+    leaves = [[t.detach().requires_grad_() for t in ins] for ins, _, _ in prod]
+
+    def fwd_bwd():
+        for ins, (_, pool, cot), p in zip(leaves, prod, packs):
+            torch.autograd.grad(vgg_stage.vgg_stage(*ins, pool, packed=p), ins, cot)
+
+    def plain_fwd_bwd():
+        for ins, (_, pool, cot) in zip(leaves, prod):
+            torch.autograd.grad(vgg_stage.vgg_stage_reference(*ins, pool), ins, cot.float())
+
+    outs = [vgg_stage.vgg_stage(*ins, pool, packed=p)
+            for ins, (_, pool, _), p in zip(leaves, prod, packs)]
+
+    def bwd():
+        for o, ins, (_, _, cot) in zip(outs, leaves, prod):
+            torch.autograd.grad(o, ins, cot, retain_graph=True)
+
+    # cuDNN's fp32 conv backward alone for the eight convs (input, weight
+    # and bias gradients), NCHW: the library yardstick of the backward.
+    lib_args = []
+    for (x, w1, _, w2, _), _, _ in prod:
+        b, h, w, cin = x.shape
+        for wt in (w1, w2):
+            weight = wt.permute(3, 2, 0, 1).contiguous()
+            lib_args.append((torch.randn((b, weight.shape[0], h, w), generator=g, device=DEV),
+                             torch.randn((b, weight.shape[1], h, w), generator=g, device=DEV),
+                             weight))
+
+    def library():
+        for gout, inp, weight in lib_args:
+            torch.ops.aten.convolution_backward(gout, inp, weight, [weight.shape[0]], [1, 1],
+                                                [1, 1], [1, 1], False, [0, 0], 1,
+                                                [True, True, True])
+
+    ms, plain = timer(fwd_bwd, reps=5), timer(plain_fwd_bwd, reps=5)
+    bwd_ms, lib = timer(bwd, reps=5), timer(library, reps=5)
+    bwd_dev = _kernel_breakdown(torch, bwd, calls=2)
+    n_bytes = fwd_ops = 0
+    for (x, w1, b1, w2, b2), pool, cot in prod:
+        b, h, w, cin = x.shape
+        c1, c2 = w1.shape[-1], w2.shape[-1]
+        # read x, the weights and the cotangent, write the output and the
+        # five gradients (fp32 but the bf16 output of a multi-channel stage)
+        n_bytes += (2 * x.numel() + 2 * (w1.numel() + w2.numel() + c1 + c2)) * 4
+        n_bytes += 2 * cot.numel() * cot.element_size()
+        fwd_ops += 2 * b * h * w * 9 * (cin * c1 + c1 * c2)
+    # The forward in bf16 on the tensor cores; the VJP of the fp32 stage
+    # recomputes its fp32 forward (the ReLU and pool routing) and takes the
+    # input and weight gradients: three times the forward's flops in fp32.
+    t_ops = (fwd_ops / BF16_OPS_PER_S + 3 * fwd_ops / FP32_OPS_PER_S) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    bms, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    bwd_bound = 3 * fwd_ops / FP32_OPS_PER_S * 1e3
+    log(f"[kernels] vgg_stage gradient, one encoder pass (4 stages, fp32 x): forward (4 kernel "
+        f"launches) plus backward {ms:.4f} ms; backward alone (vgg_stage_reference recomputed "
+        f"under autograd) {bwd_ms:.4f} ms, {dev_ms(bwd_dev):.4f} ms device time in "
+        f"{dev_n(bwd_dev)} CUDA kernels (the most device time: " + ", ".join(
+            f"{k[:60]} x{n} {t:.4f} ms" for k, (n, t) in sorted(
+                bwd_dev.items(), key=lambda kv: -kv[1][1])[:5])
+        + f"), bound {bwd_bound:.4f} ms (operations: "
+        f"{3 * fwd_ops / 1e9:.1f} GFLOP in fp32); the reference's forward plus backward "
+        f"{plain:.4f} ms; cuDNN's fp32 conv backward alone (8 calls) {lib:.4f} ms; bound of "
+        f"forward plus backward {bms:.4f} ms ({by}: {fwd_ops / 1e9:.1f} GFLOP in bf16, "
+        f"{3 * fwd_ops / 1e9:.1f} in fp32)")
+    rows["vgg_stage_grad"] = dict(
+        name="vgg_stage_grad", route="cuda", source="onepose_tpu_torch/csrc/vgg_stage.cu",
+        replaces="onepose_tpu/ops/pallas/vgg_stage.py:287", max_abs_err=err_all, ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+        extra=dict(backward="onepose_tpu_torch/ops/kernels/vgg_stage.py::VggStage",
+                   backward_ms=bwd_ms, backward_device_ms=dev_ms(bwd_dev),
+                   backward_cuda_kernels=dev_n(bwd_dev), backward_bound_ms=bwd_bound))
+    del outs, lib_args, leaves
+
+    # (c) The path: SuperPoint under autograd with its kernels on.
+    B, S = MAIN["batch"], MAIN["size"]
+    torch.manual_seed(0)
+    sd = SuperPoint().state_dict()
+    img = torch.rand((B, S, S, 1), generator=g, device=DEV)
+    cots = (torch.randn((B, S, S), generator=g, device=DEV),
+            torch.randn((B, S // 8, S // 8, 256), generator=g, device=DEV))
+
+    def model(**kw):
+        m = SuperPoint(**kw).to(DEV)
+        m.load_state_dict(sd)
+        return m
+
+    def sp_grads(m):
+        im = img.detach().requires_grad_()
+        out = m(im)
+        return torch.autograd.grad([out["score_map"], out["descriptor_map"]],
+                                   [im, *m.parameters()], cots)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        kern, plain_m = model(nms_kernel=True, dtype=dtype), model(nms_kernel=False, dtype=dtype)
+        labels = ["image", *(name for name, _ in kern.named_parameters())]
+        sp_grads(kern)  # warm-up (cuDNN, the first launches)
+        with deterministic():
+            torch.cuda.synchronize()
+            reset_launches()  # the path's counts: 0 just before it, read just after
+            got = sp_grads(kern)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = sp_grads(plain_m)
+        errs = {k: (max_abs(a.float() - w.float()), max_abs(w.float()))
+                for k, a, w in zip(labels, got, want)}
+        same = sum(_bits_differ(torch, a.float(), w.float()) == 0 for a, w in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+        ms_k, ms_p = timer(lambda: sp_grads(kern), reps=5), timer(lambda: sp_grads(plain_m), reps=5)
+        log(f"[kernels] SuperPoint(nms_kernel=True) {str(dtype)[6:]} at {(B, S, S, 1)} under "
+            f"autograd: launches {counts} (want nms 1); gradients of the image and "
+            f"{len(labels) - 1} parameters against nms_kernel=False (cuDNN deterministic): "
+            f"{same} of {len(labels)} bit-identical, worst {worst} {errs[worst][0]:.3e} / "
+            f"{errs[worst][1]:.3e} (<= {GRAD_SP_REL} x max), finite {finite}; forward plus "
+            f"backward {ms_k:.4f} ms, nms_kernel=False {ms_p:.4f} ms")
+        if (counts != {**none, "nms": 1} or not finite
+                or any(not (e <= GRAD_SP_REL * m and m > 0) for e, m in errs.values())):
+            fail(f"SuperPoint(nms_kernel=True) {dtype} gradients differ from the plain path's")
+        if dtype == torch.float32:
+            rows["nms_grad"]["launches"] = counts["nms"]
+            rows["nms_grad"]["extra"]["superpoint_fwd_bwd_ms"] = ms_k
+            rows["nms_grad"]["max_abs_err"] = max(e for e, _ in errs.values())
+        del kern, plain_m, got, want
+
+    m = model(vgg_kernel=True, nms_kernel=True)
+    im = img.detach().requires_grad_()
+    torch.cuda.synchronize()
+    reset_launches()  # the path's counts: 0 just before it, read just after
+    out = m(im)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {**none, "nms": 1, "vgg_stage": 4}
+    if counts != want or not bool(torch.isfinite(out["score_map"]).all()):
+        fail(f"SuperPoint(vgg_kernel=True) under autograd launched {counts}, want {want}")
+    try:
+        torch.autograd.grad([out["score_map"], out["descriptor_map"]], [im, *m.parameters()],
+                            cots)
+    except TypeError as e:
+        log(f"[kernels] SuperPoint(vgg_kernel=True, nms_kernel=True) fp32 at {(B, S, S, 1)} "
+            f"under autograd: forward launches {counts}; backward raised TypeError as jax.grad "
+            f"through SuperPoint(use_pallas=True) does: {str(e)[:100]}...")
+    else:
+        fail("the backward of SuperPoint(vgg_kernel=True) did not raise")
+    rows["vgg_stage_grad"]["launches"] = counts["vgg_stage"]
     return rows
 
 

@@ -20,7 +20,16 @@ Kernel flags (the JAX package's `nms_pallas` and `use_pallas`):
   (`ops.kernels.vgg_stage`), NHWC, bf16 taps with fp32 sums in any
   `dtype`, as the JAX package computes them; the heads stay plain. The
   kernel's packed weights are kept in a `PackCache` and packed again only
-  when a conv parameter changes (`packed_stages`).
+  when a conv parameter changes (`packed_stages`), an optimizer step
+  included.
+
+Under autograd both kernels run their forward and take the JAX package's
+custom VJPs (`ops.kernels.score_path.Nms`, `ops.kernels.vgg_stage.VggStage`):
+with nms_kernel, SuperPoint differentiates with respect to the image and
+every parameter in either dtype; with vgg_kernel, stages 1 and 2 (fp32
+input) differentiate, and the backward of the later stages, whose input is
+the previous stage's bf16 output, raises `TypeError`, as `jax.grad`
+through the JAX package's SuperPoint(use_pallas=True) does.
 
 Top-k ties: `jax.lax.top_k` puts the lowest index first and `torch.topk`
 does not promise any order, so every top-k here is a stable descending

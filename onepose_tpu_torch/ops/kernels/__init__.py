@@ -14,9 +14,14 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 | sinkhorn      | sinkhorn.py::sinkhorn_potentials          | csrc/sinkhorn.cu   |
 | sinkhorn_stream | sinkhorn_stream.py::sinkhorn_potentials_streamed | csrc/sinkhorn_stream.cu |
 
-`gats` also holds `GatsLeafAttention`, K2 with a gradient: the kernel's
-forward (one launch, counted) and a backward that recomputes the plain
-version under autograd (no kernel launch).
+Three kernels carry a gradient, as the JAX package's custom VJPs do, each
+an autograd.Function whose forward is the kernel (one launch, counted) and
+whose backward recomputes a plain version (no kernel launch), as JAX's
+`_bwd`s recompute through XLA: `GatsLeafAttention` (K2, in `gats`), `Nms`
+(K1, in `score_path`: `simple_nms`'s VJP, bit for bit) and `VggStage` (K5,
+in `vgg_stage`: the VJP of the unrounded fp32 stage, which raises for a
+bf16 input as JAX's does). The wrappers take them whenever autograd
+records.
 
 `gats_block` counts one launch per call of its wrapper, which runs the
 block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
@@ -39,6 +44,11 @@ from onepose_tpu_torch.ops.kernels import (
     sinkhorn_stream,
     vgg_stage,
 )
+from onepose_tpu_torch.ops.kernels.gats import GatsLeafAttention
+from onepose_tpu_torch.ops.kernels.score_path import Nms
+from onepose_tpu_torch.ops.kernels.vgg_stage import VggStage
+
+__all__ = ["GatsLeafAttention", "Nms", "VggStage", "launch_counts", "reset_launches"]
 
 # kernel name -> (module, its counter)
 _COUNTERS = {

@@ -14,7 +14,13 @@ kernel widens its pad lanes for a large radius):
 See the source for both designs.
 
 `nms` launches a kernel on a CUDA tensor and runs `simple_nms` only on a
-CPU tensor. Forward-only: a CUDA input that requires grad raises.
+CPU tensor. When autograd records, it goes through `Nms`, the counterpart
+of the JAX package's custom VJP (`nms` there, `_fwd` / `_bwd`): the
+forward is the kernel (`simple_nms` on the CPU) on detached scores, the
+backward `simple_nms`'s VJP, where(max_mask, g, 0), with the mask
+recomputed from the saved scores by the plain version (a kept score of
+exactly 0 looks like a suppressed one in the output, so the mask cannot be
+read back from it). No kernel launches in the backward.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ def simple_nms(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
     Port of onepose_tpu/models/superpoint.py::simple_nms: two refinement
     rounds where suppressed neighbourhoods are zeroed and local maxima are
     recomputed."""
+    return torch.where(nms_mask(scores, nms_radius), scores, torch.zeros_like(scores))
+
+
+def nms_mask(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
+    """The pixels `simple_nms` keeps, [B, H, W] bool."""
     if nms_radius < 0:
         raise ValueError("nms_radius must be >= 0")
     zeros = torch.zeros_like(scores)
@@ -52,7 +63,7 @@ def simple_nms(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
         supp_scores = torch.where(supp_mask, zeros, scores)
         new_max_mask = supp_scores == _max_pool(supp_scores, nms_radius)
         max_mask = max_mask | (new_max_mask & ~supp_mask)
-    return torch.where(max_mask, scores, zeros)
+    return max_mask
 
 
 def large_smem(h: int, w: int, radius: int) -> int:
@@ -64,9 +75,36 @@ def large_smem(h: int, w: int, radius: int) -> int:
 
 
 def nms(scores: torch.Tensor, nms_radius: int = 4) -> torch.Tensor:
-    """simple_nms of [B, H, W] fp32 scores: a kernel on CUDA."""
-    if scores.device.type == "cpu":
-        return simple_nms(scores, nms_radius)
+    """simple_nms of [B, H, W] fp32 scores: a kernel on CUDA; through `Nms`
+    when autograd records."""
+    forward = simple_nms if scores.device.type == "cpu" else nms_kernel
+    if torch.is_grad_enabled() and scores.requires_grad:
+        return Nms.apply(scores, nms_radius, forward)
+    return forward(scores, nms_radius)
+
+
+class Nms(torch.autograd.Function):
+    """NMS with a gradient: `forward` (the CUDA kernel on the card,
+    `simple_nms` on the CPU) on detached scores; the backward is
+    `simple_nms`'s VJP, bit for bit (onepose_tpu/ops/pallas/score_path.py::_bwd).
+
+    apply(scores, nms_radius, forward) -> [B, H, W]."""
+
+    @staticmethod
+    def forward(ctx, scores, nms_radius, forward):
+        ctx.save_for_backward(scores)
+        ctx.nms_radius = nms_radius
+        return forward(scores.detach(), nms_radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        (scores,) = ctx.saved_tensors
+        return torch.where(nms_mask(scores, ctx.nms_radius), g, 0.0), None, None
+
+
+def nms_kernel(scores: torch.Tensor, nms_radius: int = 4) -> torch.Tensor:
+    """Launch the CUDA kernel (the fused entry up to FUSED_MAX_RADIUS, the
+    large-radius one above) on simple_nms's input."""
     _build.require_cuda_input(scores, "nms scores", 3)
     if nms_radius < 0:
         raise ValueError("nms_radius must be >= 0")

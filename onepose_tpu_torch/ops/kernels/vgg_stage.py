@@ -15,13 +15,24 @@ rounds to bf16; the pool takes the max of bf16 values. The stage output
 is fp32 for the single-channel image stage and bf16 for the others.
 
 `vgg_stage` launches the kernel on a CUDA tensor and runs
-`vgg_stage_plain` only on a CPU tensor. Forward-only: a CUDA input that
-requires grad raises. `pack_stage_weights` lays the weights out for the
-kernel; a caller that runs the same weights again passes its result as
-`packed=` (SuperPoint keeps it in a `PackCache`).
+`vgg_stage_plain` only on a CPU tensor. When autograd records, it goes
+through `VggStage`, the counterpart of the JAX package's custom VJP
+(`vgg_stage` there, `_fwd` / `_bwd`): the forward is the kernel (the plain
+version on the CPU) on detached inputs, the backward the VJP of
+`vgg_stage_reference` (the unrounded fp32 stage, `vgg_stage_reference_xla`
+there) at the saved inputs, with the cotangent cast to fp32. Its ReLU and
+pool split the gradient at ties as `jnp.maximum` and `jnp.max` do: half
+each way at a ReLU input of exactly 0, equal shares among the tied values
+of a pool window. As in the JAX package, that backward raises `TypeError`
+for a bf16 x (the input of every stage after the second in SuperPoint).
+`pack_stage_weights` lays the weights out for the kernel; a caller that
+runs the same weights again passes its result as `packed=` (SuperPoint
+keeps it in a `PackCache`).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +73,39 @@ def vgg_stage_plain(
     return z.permute(0, 2, 3, 1).contiguous().to(_out_dtype(x.shape[-1]))
 
 
+def vgg_stage_reference(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    pool: bool = True,
+) -> torch.Tensor:
+    """The stage unrounded, the function whose VJP is the stage's gradient
+    (onepose_tpu/ops/pallas/vgg_stage.py::vgg_stage_reference_xla): fp32
+    convolutions (TF32 off), ReLU as `torch.maximum(., 0)` (half the
+    gradient each way at 0, as `jnp.maximum`), the pool as `amax` over
+    2 x 2 windows (equal shares among tied values, as `jnp.max`; not
+    `F.max_pool2d`, which gives all of it to one). A bf16 x with fp32
+    weights raises `TypeError`, as `conv_general_dilated` does there."""
+    if x.dtype != w1.dtype:
+        raise TypeError(
+            f"vgg_stage_reference: x is {x.dtype} and the weights {w1.dtype}; the JAX "
+            "package's VJP (onepose_tpu/ops/pallas/vgg_stage.py::_bwd) raises for mixed "
+            "dtypes too, so a stage whose input is the previous stage's bf16 output has no "
+            "gradient")
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    with fp32_matmuls():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w1.permute(3, 2, 0, 1), padding=1)
+        y = torch.maximum(y + b1[:, None, None], zero)
+        z = F.conv2d(y, w2.permute(3, 2, 0, 1), padding=1)
+        z = torch.maximum(z + b2[:, None, None], zero).permute(0, 2, 3, 1)
+    if pool:
+        b, h, w, c = z.shape
+        z = z.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    return z
+
+
 def vgg_stage(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -72,10 +116,42 @@ def vgg_stage(
     packed: tuple | None = None,
 ) -> torch.Tensor:
     """One fused VGG stage (see the module docstring); the kernel on CUDA,
-    with `packed` = pack_stage_weights(w1, b1, w2, b2) if given."""
+    with `packed` = pack_stage_weights(w1, b1, w2, b2) if given; through
+    `VggStage` when autograd records."""
     if x.device.type == "cpu":
-        return vgg_stage_plain(x, w1, b1, w2, b2, pool)
-    return vgg_stage_kernel(x, w1, b1, w2, b2, pool, packed)
+        forward = vgg_stage_plain
+    else:
+        forward = partial(vgg_stage_kernel, packed=packed)
+    args = (x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return VggStage.apply(*args, pool, forward)
+    return forward(*args, pool)
+
+
+class VggStage(torch.autograd.Function):
+    """A VGG stage with a gradient: `forward` (the CUDA kernel on the card;
+    the plain version on the CPU) on detached inputs, the backward by
+    autograd through `vgg_stage_reference` at the saved inputs, the
+    cotangent cast to fp32 (onepose_tpu/ops/pallas/vgg_stage.py::_bwd).
+
+    apply(x, w1, b1, w2, b2, pool, forward) -> NHWC stage output, where
+    forward(x, w1, b1, w2, b2, pool) computes the stage."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, pool, forward):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.pool = pool
+        return forward(*(t.detach() for t in (x, w1, b1, w2, b2)), pool)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, want)]
+        with torch.enable_grad(), fp32_matmuls():
+            out = vgg_stage_reference(*inputs, ctx.pool)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g.float()))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
