@@ -104,7 +104,14 @@ Phases, each printing its lines before the last:
      launches of K1 to K7 and its ms (two ranks share one card: no scaling
      claim); `--multi-cards N` runs (b) as one NCCL rank on each of N
      cards instead;
- 13. one JSON line {"kernels": [...]}, then the last line
+ 13. the repository's measurement entry points (phase bench), each run as
+     a subprocess under its own time limit and its last line checked:
+     `python -m onepose_tpu_torch.bench` (bench.py's four keys, a finite
+     positive frames/s, the kernel launches of one call), the stage
+     roofline `onepose_tpu_torch.scripts.roofline_audit --sweep` (five
+     rows, each measured at or above its bound; batches 8 to 64) and
+     `onepose_tpu_torch.scripts.bench_train_step` (finite losses);
+ 14. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -117,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -125,7 +133,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", "detect",
-          "infer", "tracker", "demo", "multi")
+          "infer", "tracker", "demo", "multi", "bench")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -381,8 +389,20 @@ class Timer:
         return statistics.median(times)
 
 
+def _reset_peak(torch, phase: str, what: str) -> float:
+    """torch.cuda.reset_peak_memory_stats() after a synchronize, logging what
+    was allocated at the reset (GiB, returned): a peak read after it is
+    that resident memory plus the phase's own."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[{phase}] {what}: {resident:.3f} GiB allocated at the peak-memory reset")
+    return resident
+
+
 def phase_build():
     from onepose_tpu_torch.ops.kernels import _build
+    from onepose_tpu_torch.utils.profiling import card_line
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -399,10 +419,7 @@ def phase_build():
                 log(f"[build] {name} {fn}: {line.strip()}")
             elif "Used" in line:
                 log(f"[build] {name}: {line.strip()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     return smi
 
@@ -1703,7 +1720,7 @@ def phase_main(torch, rows):
         run(pipe, 3)
     results = {label: [] for label in labels}
     for label in (labels + labels[::-1]) * 2:  # in turns: the host's load drifts
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak(torch, "main", label)
         ms = run(pipes[label])
         peak = torch.cuda.max_memory_allocated() / 2**30
         results[label].append(ms)
@@ -2051,8 +2068,7 @@ def phase_pairs(torch, rows):
                     + f"; device {total:.2f} ms, Sinkhorn {100 * prof['sinkhorn'][1] / total:.1f}%")
         runs = {"on": [], "off": []}
         for label in ("on", "off", "off", "on") * PAIR_RUNS:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _reset_peak(torch, "pairs", f"{tag}, kernels {label}")
             t0 = time.perf_counter()
             matchers[label](pairs)
             torch.cuda.synchronize()
@@ -2212,8 +2228,7 @@ def _map_run(torch, np, scene, cfg, label, device, matcher, profile=False):
                                    num_leaf=MAP_CONFIG["num_leaf"], **cfg)
     clock = _StageClock(torch, device, profile)
     if device != "cpu":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak(torch, "map", label)
     t0 = time.perf_counter()
     res = clock.run(mapping, scene["keypoints"], scene["descriptors"], scene["scores"],
                     scene["mask"], scene["K"], scene["poses"], match=matcher,
@@ -2529,8 +2544,7 @@ def _cli_map(torch, args, label):
     out = Path(next(a.split("=", 1)[1] for a in args if a.startswith("out_dir=")))
     dev = next(a.split("=", 1)[1] for a in args if a.startswith("device="))
     if dev != "cpu":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak(torch, "cli", f"map ({label})")
     reset_launches()  # this path's counts: 0 just before it, read just after
     t0 = time.perf_counter()
     rc = cli_main(["map", *args])
@@ -3165,8 +3179,7 @@ def _command(torch, argv, device, wraps=()):
     buf = io.StringIO()
     try:
         if device != "cpu":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _reset_peak(torch, argv[0], "the command")
         reset_launches()  # this path's counts: 0 just before it, read just after
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -4597,6 +4610,83 @@ def phase_multi(torch, rows, cards: int = 0):
     log(f"[multi] (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s")
 
 
+# Phase bench: each entry point as `python <args>` from the repository's
+# root, with the seconds it may take.
+BENCH_TRAIN_STEPS = 20
+BENCH_RUNS = (
+    ("bench", ["-m", "onepose_tpu_torch.bench"], 180),
+    ("roofline", ["-m", "onepose_tpu_torch.scripts.roofline_audit", "--sweep"], 240),
+    ("train_step", ["-m", "onepose_tpu_torch.scripts.bench_train_step", "8",
+                    str(BENCH_TRAIN_STEPS)], 180),
+)
+BENCH_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1}
+ROOFLINE_STAGES = ("superpoint_dense", "extract_keypoints", "gats_spg_matcher", "ransac_pnp",
+                   "fused_pipeline")
+ROOFLINE_SWEEP = [8, 16, 32, 64]
+
+
+def _entry_point(args, timeout: int) -> tuple:
+    """Run `python args` from the repository's root: (stdout lines, the
+    last line as JSON, seconds); fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    sec = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        fail(f"{' '.join(args)} exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    return lines, json.loads(lines[-1]), sec
+
+
+def phase_bench(smi: str):
+    """The measurement entry points on the card, each in its own process."""
+    from onepose_tpu_torch.ops.kernels import launch_counts
+
+    out = {}
+    for label, args, timeout in BENCH_RUNS:
+        lines, last, sec = _entry_point(args, timeout)
+        for line in lines[:-1]:
+            log(f"[bench] {label}: {line}")
+        log(f"[bench] {label}: {sec:.1f} s; last line {json.dumps(last)}")
+        out[label] = (lines, last)
+
+    lines, last = out["bench"]
+    if set(last) != {"metric", "value", "unit", "vs_baseline"} or \
+            last["metric"] != "pose_pipeline_frames_per_s" or last["unit"] != "frames/s":
+        fail(f"the bench's last line is not bench.py's: {last}")
+    if not (math.isfinite(last["value"]) and last["value"] > 0):
+        fail(f"the bench's frames/s is {last['value']}")
+    prefix = "[bench] launches in one call: "
+    counts = json.loads(next(x for x in lines if x.startswith(prefix))[len(prefix):])
+    want = {**dict.fromkeys(launch_counts(), 0), **BENCH_LAUNCHES}
+    if counts != want:
+        fail(f"the bench's call launched {counts}, want {want}")
+    log(f"[bench] {smi}: pose_pipeline_frames_per_s {last['value']} (median of the windows, host "
+        f"clock), launches of one call {counts}")
+
+    roof = out["roofline"][1]["roofline"]
+    if [r["stage"] for r in roof["rows"]] != list(ROOFLINE_STAGES):
+        fail(f"the roofline's rows are {[r['stage'] for r in roof['rows']]}")
+    for r in roof["rows"]:
+        share = r["bound_ms"] / r["ms"]
+        log(f"[bench] {smi}: roofline {r['stage']}: {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), share of the bound {share:.4f}, MFU {100 * r['mfu']:.2f}%")
+        if not share <= 1.0:
+            fail(f"the roofline's {r['stage']} ran faster than its bound (share {share})")
+    if [w["batch"] for w in roof["sweep"]] != ROOFLINE_SWEEP:
+        fail(f"the roofline's sweep covered {roof['sweep']}")
+    log(f"[bench] {smi}: stage sum {roof['stage_sum_ms']:.3f} ms (bound "
+        f"{roof['stage_sum_bound_ms']:.4f}), whole call MFU {100 * roof['mfu']:.3f}%; sweep "
+        + ", ".join(f"batch {w['batch']} {w['frames_per_s']:.1f} frames/s" for w in roof["sweep"]))
+
+    train = out["train_step"][1]["train_step"]
+    if len(train["losses"]) != BENCH_TRAIN_STEPS or not all(math.isfinite(x) for x in train["losses"]):
+        fail(f"the train step's losses are {train['losses']}")
+    log(f"[bench] {smi}: train step {train['dtype']} batch {train['batch']}: "
+        f"{train['ms_per_step']:.2f} ms a step, losses finite")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4630,7 +4720,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[env] TF32 off (cudnn and matmul) for the parity phases")
-    phase_build()  # every other phase needs the kernels
+    smi = phase_build()  # every other phase needs the kernels
     rows = {}
     try:
         if "kernels" in phases:
@@ -4657,6 +4747,8 @@ def main(argv=None) -> int:
             phase_demo(torch, rows)
         if "multi" in phases:
             phase_multi(torch, rows, args.multi_cards)
+        if "bench" in phases:
+            phase_bench(smi)
     finally:
         if "root" in _WORLD:
             import shutil

@@ -5,13 +5,17 @@ tock accumulator with the same `report()` keys; with `sync=True` each
 stage boundary waits for the card (`torch.cuda.synchronize()`, where the
 JAX package drains its effects). `device_trace` records a `torch.profiler`
 trace of CPU and CUDA activity and exports it to `log_dir` (Chrome trace
-format, viewable in TensorBoard or Perfetto).
+format, viewable in TensorBoard or Perfetto). `device_busy` sums the CUDA
+kernel time of a block under torch.profiler over the span the kernels
+cover; `card_line` is the card's name and power limit as nvidia-smi
+prints them, which every measurement of the card is printed beside.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
 
@@ -82,3 +86,33 @@ def device_trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` for
+    the first card, e.g. "NVIDIA H100 80GB HBM3, 700.00 W"."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_busy(fn) -> dict | None:
+    """Run fn() once under torch.profiler (CUDA activity) and synchronize:
+    {kernels, kernel_ms, span_ms, share}, the CUDA kernels' count, their
+    summed time, the span from the first kernel's start to the last one's
+    end, and kernel_ms / span_ms; None if the profiler recorded no kernel
+    (then the share is not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    kernel_ms = sum(r.elapsed_us() for r in kernels) / 1e3
+    span_ms = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3
+    return {"kernels": len(kernels), "kernel_ms": kernel_ms, "span_ms": span_ms,
+            "share": kernel_ms / span_ms}

@@ -45,7 +45,9 @@ MODULES = (
     "onepose_tpu_torch.cli.merge_anno_cmd, onepose_tpu_torch.utils.comm, "
     "onepose_tpu_torch.parallel, onepose_tpu_torch.parallel.mesh, "
     "onepose_tpu_torch.parallel.sharded_attention, onepose_tpu_torch.parallel.tensor_parallel, "
-    "onepose_tpu_torch.parallel.stage_pipeline, onepose_tpu_torch.parallel.distributed_ba"
+    "onepose_tpu_torch.parallel.stage_pipeline, onepose_tpu_torch.parallel.distributed_ba, "
+    "onepose_tpu_torch.utils.costs, onepose_tpu_torch.bench, onepose_tpu_torch.scripts, "
+    "onepose_tpu_torch.scripts.roofline_audit, onepose_tpu_torch.scripts.bench_train_step"
 )
 
 
