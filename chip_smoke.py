@@ -30,7 +30,9 @@ Phases, each printing its lines before the last:
      JAX package); each backward's time beside its plain version's,
      cuDNN's conv backward and its bound;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
-     noise and 30% outliers, recovered within 1 cm and 1 degree;
+     noise and 30% outliers, recovered within 1 cm and 1 degree; and a
+     batch whose Gauss-Newton system is singular for some frame (ROADMAP
+     C20): no raise, ok and inliers equal to the CPU's;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
      2000 x 8 points, 512 hypotheses, 4 blocks, d_model 256, 4 heads,
      random weights from a seed, in bf16 (the serving default: NMS, VGG
@@ -86,7 +88,8 @@ Phases, each printing its lines before the last:
      window 10, capacity 4096, 128 hypotheses) on a planted 24-frame orbit
      at 512 x 512: every pose within 5 cm / 5 degrees of the ground truth,
      most within 1 degree, the blank-frame motion fallback, ms a tracked
-     frame, host syncs, CUDA kernels and busy share of a frame, peak
+     frame, host syncs (and their source lines), CUDA kernels and busy
+     share of a frame, peak
      memory, and the card against the CPU on the same frames and draws;
  11. the demo command (phase demo) on phase detect's full frames against
      phase cli's map: without tracking and with it (K1 / K2 / K3 launches
@@ -102,15 +105,24 @@ Phases, each printing its lines before the last:
      (NCCL refuses two ranks on one device), each serving 4 of the 8 frames
      and holding 1000 of the 2000 points, held against (a); each path's
      launches of K1 to K7 and its ms (two ranks share one card: no scaling
-     claim); `--multi-cards N` runs (b) as one NCCL rank on each of N
-     cards instead;
+     claim); then A17, `onepose_tpu_torch.scripts.audit_collectives` on the
+     same two ranks: the collective bytes of the points-sharded matcher and
+     the data-parallel train step, a block's equal at N3 2000 and 4000 and
+     each kind at its closed form; `--multi-cards N` runs (b) and A17 as
+     one NCCL rank on each of N cards instead;
  13. the repository's measurement entry points (phase bench), each run as
      a subprocess under its own time limit and its last line checked:
      `python -m onepose_tpu_torch.bench` (bench.py's four keys, a finite
      positive frames/s, the kernel launches of one call), the stage
      roofline `onepose_tpu_torch.scripts.roofline_audit --sweep` (five
-     rows, each measured at or above its bound; batches 8 to 64) and
-     `onepose_tpu_torch.scripts.bench_train_step` (finite losses);
+     rows, each measured at or above its bound; batches 8 to 64),
+     `onepose_tpu_torch.scripts.bench_train_step` (finite losses), and the
+     ports of the last measurement scripts, each with its launches:
+     `profile_pnp` (RANSAC-PnP's sub-stages: ms, CUDA kernels, host syncs;
+     none in the refine), `bench_pair_batching` (batched matches equal to
+     serial), `bench_matcher_parts`, `bench_mixed_attention`,
+     `profile_sp_layers`, `profile_superpoint_parts` and `demo_pipeline`
+     (parse-scan, map and demo with tracking on a rendered ARKit capture);
  14. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
@@ -123,6 +135,7 @@ the parity phases; the main path runs with PyTorch's defaults.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import statistics
@@ -1447,6 +1460,40 @@ def phase_ransac(torch):
         f"{out['num_inliers'].tolist()}, recall {aggregate_metrics(rot, trans)}")
     if not (bool(out["ok"].all()) and float(rot.max()) < 1.0 and float(trans.max()) < 1.0):
         fail("RANSAC-PnP oracle outside 1 cm / 1 degree")
+    _ransac_singular(torch)
+
+
+def _ransac_singular(torch):
+    """ROADMAP C20 on the card: 8 frames of 16 matches with 3D points on a
+    0.1 grid, integer pixels and 1 to 3 valid matches a frame (as
+    tests/test_torch_geometry.py::_gridded_batch makes them, seed 17) and
+    draws from default_rng(1017): a batch whose refine has an exactly
+    singular normal matrix in fp32, on which torch.linalg.solve raised on
+    the CPU. The batch must not raise, and ok, num_inliers and inliers must
+    equal the CPU's for the same draws."""
+    import numpy as np
+
+    from onepose_tpu_torch.geometry import ransac_pnp
+
+    rng = np.random.default_rng(17)
+    b, n = 8, 16
+    pts3d = (rng.integers(-3, 4, size=(b, n, 3)) * 0.1).astype(np.float32)
+    pts2d = rng.integers(0, 512, size=(b, n, 2)).astype(np.float32)
+    mask = np.zeros((b, n), bool)
+    for f in range(b):
+        mask[f, rng.choice(n, rng.integers(1, 4), replace=False)] = True
+    K = np.broadcast_to(np.array([[600.0, 0, 256], [0, 600.0, 256], [0, 0, 1]], np.float32),
+                        (b, 3, 3)).copy()
+    draws = np.random.default_rng(1017).random((b, 64, 3)).astype(np.float32)
+    outs = [ransac_pnp(*(torch.from_numpy(x).to(dev) for x in (pts2d, pts3d, K, mask, draws)),
+                       n_hyp=64) for dev in (DEV, "cpu")]
+    card, cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
+    same = all(torch.equal(card[k], cpu[k]) for k in ("ok", "num_inliers", "inliers"))
+    log(f"[ransac] C20 (a singular refine in the batch): no raise; ok {card['ok'].tolist()}, "
+        f"num_inliers {card['num_inliers'].tolist()}; ok, num_inliers and inliers equal to "
+        f"the CPU's: {same}; poses finite {bool(torch.isfinite(card['pose']).all())}")
+    if not (same and bool(torch.isfinite(card["pose"]).all())):
+        fail("RANSAC-PnP on the C20 batch differs from the CPU's")
 
 
 def _annotation(torch, g, n3, L, c, device):
@@ -3657,23 +3704,18 @@ def _tracker_run(torch, np, pts, K, frames, device):
     return trk, outs, ms, kf
 
 
-def _tracker_syncs(torch, trk, frame, K) -> int:
-    """Host syncs of one tracked frame (torch.cuda's sync debug mode warns
-    at each), the tracker's state restored after."""
-    import warnings
+def _tracker_syncs(torch, trk, frame, K) -> list:
+    """Where one tracked frame syncs the host ("file:line" a sync, from
+    torch.cuda's sync debug mode: `utils.profiling.host_syncs`), the
+    tracker's state restored after."""
+    from onepose_tpu_torch.utils.profiling import host_syncs
 
     saved = (trk.state, trk._frame_count, trk._use_motion_cnt)
     _, image, kp, ds, m, _ = frame
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            trk.track(image, kp, ds, m, K)
+        return host_syncs(lambda: trk.track(image, kp, ds, m, K))
     finally:
-        torch.cuda.set_sync_debug_mode(0)
         trk.state, trk._frame_count, trk._use_motion_cnt = saved
-    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def _tracker_profile(torch, trk, frame, K, calls=3) -> tuple:
@@ -3810,7 +3852,9 @@ def phase_tracker(torch):
     mid = frames[len(frames) // 2]
     syncs = _tracker_syncs(torch, trk, mid, K)
     n_k, busy, wall, top = _tracker_profile(torch, trk, mid, K)
-    log(f"[tracker] one tracked frame: {syncs} host syncs (torch.cuda sync debug mode); "
+    where = ", ".join(f"{k} x{v}" for k, v in sorted(collections.Counter(syncs).items()))
+    log(f"[tracker] one tracked frame: {len(syncs)} host syncs (torch.cuda sync debug mode) at "
+        f"{where or 'none'}; "
         f"profiler over 3 calls: {n_k} CUDA kernels, {busy:.2f} ms of device time in "
         f"{wall:.2f} ms wall: busy {100 * busy / wall:.1f}%")
     for name, kms in top:
@@ -4533,33 +4577,27 @@ def _multi_rank_main(torch, np, work_dir: Path, backend: str) -> int:
     return 0
 
 
-def _multi_b(torch, rows, work_dir: Path, cards: int) -> None:
-    """(b): MULTI_RANKS processes on the one card (NCCL refuses two ranks on
-    one device), joined by gloo over CUDA tensors; or, with `cards`, one
-    NCCL rank on each of that many cards. Each rank runs every meshed path
-    on its share and is held to (a)'s outputs. The times of ranks sharing
-    one card show that the paths run, not how they scale."""
+def _run_ranks(cmd: list, n: int, cards: int, work_dir: Path, tag: str, timeout: float) -> None:
+    """`cmd` as n ranks of one world (RANK, WORLD_SIZE, LOCAL_RANK: r with
+    `cards`, else 0 for ranks sharing the card; MASTER_*), each writing
+    work_dir/<tag><r>.log; fails past `timeout` seconds (every rank
+    killed) or when a rank exits non-zero."""
     import os
 
-    n = cards or MULTI_RANKS
-    backend = "nccl" if cards else "gloo"
-    if cards > torch.cuda.device_count():
-        fail(f"multi (b): {cards} cards asked for, {torch.cuda.device_count()} present")
     port = _free_port()
     procs = []
     for r in range(n):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r if cards else 0),
                    MASTER_ADDR="localhost", MASTER_PORT=str(port))
-        out = open(work_dir / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen([*MULTI_WORKER, "--multi-rank", str(work_dir),
-                                        "--multi-backend", backend], env=env,
-                                       stdout=out, stderr=subprocess.STDOUT, cwd=ROOT), out))
-    deadline = time.perf_counter() + MULTI_TIMEOUT
+        out = open(work_dir / f"{tag}{r}.log", "w")
+        procs.append((subprocess.Popen(cmd, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                       cwd=ROOT), out))
+    deadline = time.perf_counter() + timeout
     try:
         for p, _ in procs:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
     except subprocess.TimeoutExpired:
-        fail(f"multi (b): the ranks passed {MULTI_TIMEOUT} s")
+        fail(f"{' '.join(cmd[1:3])}: the ranks passed {timeout} s")
     finally:
         for p, out in procs:
             if p.poll() is None:
@@ -4568,8 +4606,22 @@ def _multi_b(torch, rows, work_dir: Path, cards: int) -> None:
             out.close()
     for r, (p, _) in enumerate(procs):
         if p.returncode != 0:
-            text = (work_dir / f"rank{r}.log").read_text()
-            fail(f"multi (b) rank {r} exited {p.returncode}:\n{text[-3000:]}")
+            text = (work_dir / f"{tag}{r}.log").read_text()
+            fail(f"{' '.join(cmd[1:3])} rank {r} exited {p.returncode}:\n{text[-3000:]}")
+
+
+def _multi_b(torch, rows, work_dir: Path, cards: int) -> None:
+    """(b): MULTI_RANKS processes on the one card (NCCL refuses two ranks on
+    one device), joined by gloo over CUDA tensors; or, with `cards`, one
+    NCCL rank on each of that many cards. Each rank runs every meshed path
+    on its share and is held to (a)'s outputs. The times of ranks sharing
+    one card show that the paths run, not how they scale."""
+    n = cards or MULTI_RANKS
+    backend = "nccl" if cards else "gloo"
+    if cards > torch.cuda.device_count():
+        fail(f"multi (b): {cards} cards asked for, {torch.cuda.device_count()} present")
+    _run_ranks([*MULTI_WORKER, "--multi-rank", str(work_dir), "--multi-backend", backend], n,
+               cards, work_dir, "rank", MULTI_TIMEOUT)
     B, P = MAIN["batch"], MAIN["points"]
     where = (f"{n} ranks on {n} cards, NCCL" if cards else
              f"{n} ranks on one card, gloo over CUDA tensors (send and recv of CUDA tensors are "
@@ -4589,6 +4641,37 @@ def _multi_b(torch, rows, work_dir: Path, cards: int) -> None:
                 fail(f"multi (b) rank {r} launched no {key}")
 
 
+AUDIT_TIMEOUT = 300  # seconds for A17's ranks
+
+
+def _multi_audit(work_dir: Path, cards: int) -> None:
+    """A17 in (b)'s setting: `python -m onepose_tpu_torch.scripts.
+    audit_collectives` on MULTI_RANKS ranks sharing the card over gloo (or
+    one NCCL rank a card with `cards`); rank 0's last line must show the
+    per-block volume equal at every N3 and each kind at its closed form."""
+    from onepose_tpu_torch.scripts import audit_collectives as ac
+
+    _run_ranks([sys.executable, "-m", "onepose_tpu_torch.scripts.audit_collectives",
+                *(() if cards else ("--backend", "gloo"))], cards or MULTI_RANKS, cards,
+               work_dir, "audit", AUDIT_TIMEOUT)
+    lines = (work_dir / "audit0.log").read_text().strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[multi] A17 audit: {line}")
+    res = json.loads(lines[-1])["audit_collectives"]
+    for name, closed in (("serving", lambda n3: ac.serving_closed_form(ac.B, ac.N2, n3)),
+                         ("train_step", lambda n3: ac.train_closed_form())):
+        runs = res[name]
+        blocks = [r["block"] for r in runs.values()]
+        if len(runs) != len(ac.N3S) or any(b != blocks[0] for b in blocks):
+            fail(f"A17 {name}: the per-block volume differs between N3 {list(runs)}: {blocks}")
+        for n3, r in runs.items():
+            want = closed(int(n3))
+            if r["block"] != want["block"] or r["head"] != want["head"]:
+                fail(f"A17 {name} at N3 {n3}: {r}, closed form {want}")
+        log(f"[multi] A17 {name}: per block {blocks[0]} at N3 {', '.join(runs)} (the closed "
+            f"form's), head " + "; ".join(f"N3 {k}: {v['head']}" for k, v in runs.items()))
+
+
 def phase_multi(torch, rows, cards: int = 0):
     import tempfile
 
@@ -4603,34 +4686,62 @@ def phase_multi(torch, rows, cards: int = 0):
         _multi_a(torch, np, rows, work_dir)
         t1 = time.perf_counter()
         _multi_b(torch, rows, work_dir, cards)
+        t2 = time.perf_counter()
+        _multi_audit(work_dir, cards)
     finally:
         import shutil
 
         shutil.rmtree(work_dir, ignore_errors=True)
-    log(f"[multi] (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s")
+    log(f"[multi] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, A17's audit "
+        f"{time.perf_counter() - t2:.1f} s")
 
 
 # Phase bench: each entry point as `python <args>` from the repository's
-# root, with the seconds it may take.
+# root, with the seconds it may take; "{capture}" stands for the A20
+# capture's object directory.
 BENCH_TRAIN_STEPS = 20
 BENCH_RUNS = (
     ("bench", ["-m", "onepose_tpu_torch.bench"], 180),
     ("roofline", ["-m", "onepose_tpu_torch.scripts.roofline_audit", "--sweep"], 240),
     ("train_step", ["-m", "onepose_tpu_torch.scripts.bench_train_step", "8",
                     str(BENCH_TRAIN_STEPS)], 180),
+    ("profile_pnp", ["-m", "onepose_tpu_torch.scripts.profile_pnp"], 180),
+    ("pair_batching", ["-m", "onepose_tpu_torch.scripts.bench_pair_batching"], 240),
+    ("matcher_parts", ["-m", "onepose_tpu_torch.scripts.bench_matcher_parts"], 180),
+    ("mixed_attention", ["-m", "onepose_tpu_torch.scripts.bench_mixed_attention"], 180),
+    ("sp_layers", ["-m", "onepose_tpu_torch.scripts.profile_sp_layers"], 180),
+    ("superpoint_parts", ["-m", "onepose_tpu_torch.scripts.profile_superpoint_parts"], 180),
+    ("demo_pipeline", ["-m", "onepose_tpu_torch.scripts.demo_pipeline", "{capture}",
+                       "--with-tracking"], 420),
 )
+PNP_ROWS = ["pnp_fixed", "pnp_varying", "sample", "sample+p3p", "subset_score_sort",
+            "full_score", "gn_refine"]
+PAIR_N = 64  # bench_pair_batching's pairs
+SP_PARTS = {"encoder only (bf16, K5)": {"vgg_stage": 4}, "encoder only (bf16, plain convs)": {},
+            "full dense fwd (bf16, K5 + K1)": {"nms": 1, "vgg_stage": 4},
+            "full dense fwd (bf16, plain)": {}, "simple_nms r=4 (fp32, K1)": {"nms": 1},
+            "simple_nms r=4 (fp32, plain)": {}, "full dense fwd (fp32, K1)": {"nms": 1},
+            "full dense fwd (fp32, plain)": {}}
+MIXED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "dual_softmax": 1}
+# A20: scripts/demo_pipeline.sh's layout, a capture of phase cli's object
+# rendered as phase detect renders its queries (full DETECT_HW frames,
+# CLI_SCENE's focal length, the two rings) and written as ARKit files:
+# `annotate` frames to map, `test` frames (a quarter step round) to demo,
+# with tracking (depth cuts from a scan's hundreds of frames); map at
+# configs/map.yaml's width with phase cli's weights, demo as phase demo (b).
+A20 = dict(annotate=24, test=6)
 BENCH_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1}
 ROOFLINE_STAGES = ("superpoint_dense", "extract_keypoints", "gats_spg_matcher", "ransac_pnp",
                    "fused_pipeline")
 ROOFLINE_SWEEP = [8, 16, 32, 64]
 
 
-def _entry_point(args, timeout: int) -> tuple:
-    """Run `python args` from the repository's root: (stdout lines, the
-    last line as JSON, seconds); fails on a non-zero exit."""
+def _entry_point(args, timeout: int, env=None) -> tuple:
+    """Run `python args` from the repository's root (with `env`): (stdout
+    lines, the last line as JSON, seconds); fails on a non-zero exit."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout)
+                         timeout=timeout, env=env)
     sec = time.perf_counter() - t0
     lines = res.stdout.strip().splitlines()
     if res.returncode != 0 or not lines:
@@ -4639,17 +4750,174 @@ def _entry_point(args, timeout: int) -> tuple:
     return lines, json.loads(lines[-1]), sec
 
 
+def _arkit_capture(np, torch, root: Path, frames: int, offset: float) -> None:
+    """An ARKit capture of phase cli's object under root (Frames.m4v,
+    ARposes.txt, Box.txt, intrinsics.txt: the files parse-scan reads):
+    `frames` full DETECT_HW frames rendered as `_query_scene` renders them,
+    from cameras on the two rings `offset` of a step round; the object
+    frame is the world frame (Box.txt's pose is the identity) and each
+    camera's world->camera pose P is written as ARKit's camera->world
+    pose, inv(P) with its y and z axes flipped."""
+    import cv2
+
+    from onepose_tpu_torch.geometry.rotations import rotmat_to_qvec
+
+    obj, rng = _cli_object(np, CLI_SCENE, seed=0)
+    h, w = DETECT_HW
+    f_len = CLI_SCENE["focal"]
+    K = np.array([[f_len, 0, w / 2], [0, f_len, h / 2], [0, 0, 1]])
+    root.mkdir(parents=True)
+    e = CLI_SCENE["cube"] * 1.2  # the box: the cube and a margin
+    (root / "Box.txt").write_text(f"px,py,pz,ex,ey,ez,qw,qx,qy,qz\n0,0,0,{e},{e},{e},1,0,0,0\n")
+    writer = cv2.VideoWriter(str(root / "Frames.m4v"), cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                             (w, h))
+    if not writer.isOpened():
+        fail("cv2 cannot write an .m4v here")
+    poses, intrinsics = [], []
+    for f in range(frames):
+        pose, ang = _ring_pose(np, f, max(frames // 2, 1), offset=offset)
+        T_cw = np.linalg.inv(pose)
+        R = T_cw[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+        q = rotmat_to_qvec(torch.from_numpy(R)).numpy()
+        poses.append(",".join(map(str, [0.1 * f, *T_cw[:3, 3], *q])))
+        intrinsics.append(f"{f},{0.1 * f},{f_len},{f_len},{w / 2},{h / 2}")
+        gray = _cli_frame(np, obj, rng, CLI_SCENE, pose, ang, K, (h, w))
+        writer.write(np.repeat(gray[..., None], 3, axis=-1))
+    writer.release()
+    (root / "ARposes.txt").write_text("\n".join(poses) + "\n")
+    (root / "intrinsics.txt").write_text("\n".join(intrinsics) + "\n")
+
+
+def _a20_world(np, torch) -> tuple:
+    """(the object directory, the environment with MAP_ARGS and DEMO_ARGS)
+    of A20's run: <obj>-annotate and <obj>-test captures and phase cli's
+    weights."""
+    import os
+
+    w = _world(np)
+    obj = w["root"] / "a20" / "cup"
+    t0 = time.perf_counter()
+    _arkit_capture(np, torch, obj / "cup-annotate", A20["annotate"], 0.0)
+    _arkit_capture(np, torch, obj / "cup-test", A20["test"], 0.25)
+    log(f"[bench] A20 capture: {A20['annotate']} + {A20['test']} frames of {DETECT_HW[1]}x"
+        f"{DETECT_HW[0]} as ARKit files in {time.perf_counter() - t0:.1f} s")
+    env = dict(os.environ,
+               MAP_ARGS=" ".join([f"weights.superpoint={w['sp_ckpt']}", "matcher=nn",
+                                  _cache_arg(), "anno_format=npz", *_cli_args()]),
+               DEMO_ARGS=" ".join([f"weights.superpoint={w['sp_ckpt']}",
+                                   f"weights.matcher={w['gats_ckpt']}",
+                                   *(f"{k}={v}" for k, v in DEMO.items()),
+                                   *DEMO_RUNS[1][1]]))
+    return obj, env
+
+
+def _bench_checks(label: str, last: dict, smi: str) -> None:
+    """The last line and the launch counts of the A16 to A20 entry points."""
+    import numpy as np
+
+    if label == "profile_pnp":
+        out = last["profile_pnp"]
+        by = {r["stage"]: r for r in out["rows"]}
+        if list(by) != PNP_ROWS or out["launches"] != {}:
+            fail(f"profile_pnp's rows {list(by)}, launches {out['launches']}")
+        for r in out["rows"]:
+            log(f"[bench] {smi}: profile_pnp {r['stage']}: {r['ms']:.3f} ms, {r['kernels']} CUDA "
+                f"kernels ({r['device_ms']} device ms), {r['syncs']} host syncs "
+                f"{r['sync_lines']}")
+            if not (r["ms"] > 0 and r["kernels"]):
+                fail(f"profile_pnp's {r['stage']} row: {r}")
+        if by["gn_refine"]["syncs"]:
+            fail(f"the Gauss-Newton refine syncs the host: {by['gn_refine']['sync_lines']}")
+        log(f"[bench] {smi}: profile_pnp stage sum {out['stage_sum_ms']:.3f} ms against the "
+            f"whole call {out['whole_ms']:.3f} ms")
+    elif label == "pair_batching":
+        for r in last["pair_batching"]["rows"]:
+            serial = "serial" in r["label"]
+            chunk = None if serial else int(r["label"].rsplit("=", 1)[1])
+            want = ({} if r["label"].startswith("NN") else
+                    {"sinkhorn": PAIR_N if serial else -(-PAIR_N // chunk)})
+            if r["launches"] != want or (not serial and r["equal_to_serial"] is not True):
+                fail(f"pair_batching {r['label']}: launches {r['launches']} (want {want}), "
+                     f"equal to serial {r['equal_to_serial']}")
+            log(f"[bench] {smi}: pair_batching {r['label']}: {r['ms_per_pair']:.2f} ms a pair, "
+                f"{r['pairs_per_s']:.1f} pairs/s, {r['matches']} matches, launches "
+                f"{r['launches']}")
+    elif label == "matcher_parts":
+        for r in last["matcher_parts"]["rows"]:
+            want = {} if r["config"] == "fp32" else {
+                k: v for k, v in (("gats_block", r["blocks"]), ("dual_softmax", 1)) if v}
+            if r["launches"] != want or not r["ms"] > 0:
+                fail(f"matcher_parts {r}: want launches {want}")
+            log(f"[bench] {smi}: matcher_parts {r['config']} blocks {r['blocks']}: "
+                f"{r['ms']:.3f} ms, launches {r['launches']}")
+    elif label == "mixed_attention":
+        out = last["mixed_attention"]
+        if any(r["launches"] != MIXED_LAUNCHES for r in out["rows"]) or not (
+                0 <= out["match_agreement"] <= 1 and np.isfinite(out["max_pose_delta"])):
+            fail(f"mixed_attention: {out}")
+        log(f"[bench] {smi}: mixed_attention frames/s "
+            + ", ".join(f"mixed={r['mixed']} {r['frames_per_s']:.1f}" for r in out["rows"])
+            + f"; speedup {out['speedup']:.3f}, match agreement {out['match_agreement']:.5f}, "
+            f"max pose delta {out['max_pose_delta']:.3e}, the rule would flip: {out['flip']}")
+    elif label == "sp_layers":
+        out = last["sp_layers"]
+        stacks = collections.Counter(r["stack"] for r in out["rows"])
+        if stacks != {"layers": 13, "stages": 6} or set(out["launches"]) != {"nms", "vgg_stage"} \
+                or not all(r["prefix_ms"] > 0 for r in out["rows"]):
+            fail(f"sp_layers: rows {stacks}, launches {out['launches']}")
+        for r in out["rows"]:
+            log(f"[bench] {smi}: sp_layers {r['stack']} {r['layer']}: prefix "
+                f"{r['prefix_ms']:.3f} ms, marginal {r['marginal_ms']:.3f} ms, "
+                f"{r['gflop']:.1f} GFLOP")
+    elif label == "superpoint_parts":
+        rows = last["superpoint_parts"]["rows"]
+        got = {r["part"]: r["launches"] for r in rows}
+        if got != SP_PARTS or not all(r["ms"] > 0 for r in rows):
+            fail(f"superpoint_parts launched {got}, want {SP_PARTS}")
+        for r in rows:
+            log(f"[bench] {smi}: superpoint_parts {r['part']}: {r['ms']:.3f} ms, launches "
+                f"{r['launches']}")
+    elif label == "demo_pipeline":
+        out = last["demo_pipeline"]
+        cmds = out["commands"]
+        if [c["argv"][0] for c in cmds] != ["parse-scan", "parse-scan", "map", "demo"] or \
+                any(c["rc"] for c in cmds) or not (out["video"] and Path(out["video"]).is_file()):
+            fail(f"demo_pipeline: {out}")
+        parsed = cmds[1]["summary"]["num_frames"]
+        s = cmds[3]["summary"]
+        want = {k: 0 for k in cmds[3]["launches"]}
+        want.update(nms=-(-parsed // 8) + s["n_detect"] + s["n_matcher"] + s["n_flow_track"],
+                    gats=4 * s["n_matcher"], dual_softmax=s["n_matcher"])
+        map_want = {**dict.fromkeys(want, 0), "nms": -(-cmds[0]["summary"]["num_frames"] // 8)}
+        if any(any(c["launches"].values()) for c in cmds[:2]) or \
+                cmds[2]["launches"] != map_want or cmds[3]["launches"] != want or \
+                not s["n_flow_track"]:
+            fail(f"demo_pipeline's launches: {[c['launches'] for c in cmds]}, want map "
+                 f"{map_want}, demo {want}")
+        for c in cmds:
+            log(f"[bench] {smi}: demo_pipeline {' '.join(c['argv'][:2])}: {c['seconds']:.1f} s, "
+                f"summary {c['summary']}, launches {({k: v for k, v in c['launches'].items() if v})}")
+
+
 def phase_bench(smi: str):
     """The measurement entry points on the card, each in its own process."""
+    import numpy as np
+    import torch
+
     from onepose_tpu_torch.ops.kernels import launch_counts
 
     out = {}
     for label, args, timeout in BENCH_RUNS:
-        lines, last, sec = _entry_point(args, timeout)
+        env = None
+        if "{capture}" in args:
+            obj, env = _a20_world(np, torch)
+            args = [str(obj) if a == "{capture}" else a for a in args]
+        lines, last, sec = _entry_point(args, timeout, env)
         for line in lines[:-1]:
             log(f"[bench] {label}: {line}")
-        log(f"[bench] {label}: {sec:.1f} s; last line {json.dumps(last)}")
+        log(f"[bench] {label}: {sec:.1f} s; last line {json.dumps(last)[:2000]}")
         out[label] = (lines, last)
+        _bench_checks(label, last, smi)
 
     lines, last = out["bench"]
     if set(last) != {"metric", "value", "unit", "vs_baseline"} or \

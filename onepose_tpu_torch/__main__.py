@@ -13,14 +13,21 @@ work:
   parse-scan  parse an ARKit capture (host)
   video2img   extract video frames (host)
   convert     convert PyTorch weights to msgpack checkpoints (host)
+
+After the command, a line "[launches] {...}" on standard error gives the
+kernel launches it made (`ops.kernels.launch_counts()`).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from onepose_tpu_torch.config import load_config
+
+
+LAUNCHES = "[launches]"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +55,9 @@ def main(argv=None) -> int:
     cfg = load_config(args._defaults, args.config, args.overrides)
     cfg.pop("compilation_cache_dir", None)  # the port has no compilation cache
     args._run(cfg)
+    from onepose_tpu_torch.ops.kernels import launch_counts
+
+    print(f"{LAUNCHES} {json.dumps(launch_counts())}", file=sys.stderr, flush=True)
     return 0
 
 

@@ -116,7 +116,9 @@ def _gn_refine(R0, t0, K, pts3d, pts2d, weights, iters: int = 5, damping: float 
         r, J = _residuals_and_jacobian(x, K, pts3d, pts2d, weights)
         Jt = J.transpose(-1, -2)
         H = Jt @ J + eye
-        dx = torch.linalg.solve(H, -(Jt @ r[..., None]))[..., 0]
+        # A frame whose H is singular gets non-finite steps, as from JAX's
+        # LU, and comes back not ok; the batch does not raise (ROADMAP C20).
+        dx = torch.linalg.solve_ex(H, -(Jt @ r[..., None]), check_errors=False)[0][..., 0]
         x = x + dx
     return angle_axis_to_rotmat(x[:, :3]), x[:, 3:]
 
@@ -126,6 +128,58 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     shape = idx.shape + x.shape[2:]
     flat = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape)
     return torch.gather(x, 1, flat)
+
+
+def _valid_first(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order [B, N], n_valid [B]): the valid indices first, in index order
+    (a stable sort of ~mask), and how many there are."""
+    return torch.argsort((~mask).to(torch.int8), dim=1, stable=True), mask.sum(dim=1)
+
+
+def _p3p_hypotheses(pts2d, pts3d_s, K, idx) -> tuple:
+    """The P3P poses of the samples idx [B, H, 3]: (Rs [B, 4H, 3, 3], ts
+    [B, 4H, 3], oks [B, 4H]), up to 4 a sample; a sample that repeats an
+    index is not ok."""
+    B, n_hyp = idx.shape[:2]
+    distinct = (
+        (idx[..., 0] != idx[..., 1]) & (idx[..., 0] != idx[..., 2]) & (idx[..., 1] != idx[..., 2])
+    )
+    sample3d = _take(pts3d_s, idx.reshape(B, -1)).reshape(B, n_hyp, 3, 3)
+    sample2d = _take(pts2d, idx.reshape(B, -1)).reshape(B, n_hyp, 3, 2)
+    Rs, ts, oks = p3p_solve(sample3d, sample2d, K[:, None])  # [B, H, 4, ...]
+    return (Rs.reshape(B, -1, 3, 3), ts.reshape(B, -1, 3),
+            (oks & distinct[..., None]).reshape(B, -1))
+
+
+def _preemptive_keep(Rs, ts, oks, pts2d, pts3d_s, K, order, n_valid,
+                     reproj_threshold: float) -> torch.Tensor:
+    """The first of the two scoring stages: every candidate ranked by its
+    inliers on a compacted subset of the points (the first 128 valid
+    ones); the indices [B, n_keep] of the best 64 (a stable sort)."""
+    n_sub = min(128, pts2d.shape[1])
+    n_keep = min(64, Rs.shape[1])
+    sub_ids = order[:, :n_sub]
+    sub_valid = torch.arange(n_sub, device=pts2d.device)[None, :] < n_valid[:, None]
+    errs_sub = _reproj_err(
+        Rs, ts, K[:, None], _take(pts3d_s, sub_ids)[:, None], _take(pts2d, sub_ids)[:, None]
+    )  # [B, 4H, n_sub]
+    counts_sub = ((errs_sub < reproj_threshold) & sub_valid[:, None, :]).sum(-1) * oks.int()
+    return torch.sort(counts_sub, dim=-1, descending=True, stable=True)[1][:, :n_keep]
+
+
+def _score_kept(Rs, ts, oks, keep, pts2d, pts3d_s, K, mask, reproj_threshold: float) -> tuple:
+    """The second scoring stage: the kept candidates on every point. (R
+    [B, 3, 3], t [B, 3], inliers [B, N], count [B]) of the first best.
+    The count is multiplied by ok and the inlier mask is not, as in the
+    JAX package: a failed P3P pose (R = 0) can be the best of a frame
+    with no ok candidate (ROADMAP, reference behaviours)."""
+    R_keep, t_keep = _take(Rs, keep), _take(ts, keep)
+    errs = _reproj_err(R_keep, t_keep, K[:, None], pts3d_s[:, None], pts2d[:, None])
+    inl = (errs < reproj_threshold) & mask[:, None, :]  # [B, keep, N]
+    counts = inl.sum(-1) * _take(oks, keep).int()
+    best = counts.argmax(dim=-1)[:, None]  # first maximum
+    return (_take(R_keep, best)[:, 0], _take(t_keep, best)[:, 0], _take(inl, best)[:, 0],
+            _take(counts, best)[:, 0])
 
 
 @fp32_matmuls()
@@ -153,7 +207,7 @@ def ransac_pnp(
     Gauss-Newton refinement."""
     dtype = torch.float32
     dev = pts2d.device
-    B, n = pts2d.shape[:2]
+    B = pts2d.shape[0]
     pts2d = pts2d.to(dtype)
     pts3d_s = pts3d.to(dtype) * scale
     K = K.to(dtype)
@@ -164,42 +218,12 @@ def ransac_pnp(
     if draws.shape != (B, n_hyp, 3):
         raise ValueError(f"draws must be [{B}, {n_hyp}, 3], got {tuple(draws.shape)}")
 
-    # Valid indices first, in index order (a stable sort of ~mask).
-    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
-    n_valid = mask.sum(dim=1)
+    order, n_valid = _valid_first(mask)
     idx = _sample_minimal_sets(draws, order, n_valid)  # [B, H, 3]
-    distinct = (
-        (idx[..., 0] != idx[..., 1]) & (idx[..., 0] != idx[..., 2]) & (idx[..., 1] != idx[..., 2])
-    )
-    sample3d = _take(pts3d_s, idx.reshape(B, -1)).reshape(B, n_hyp, 3, 3)
-    sample2d = _take(pts2d, idx.reshape(B, -1)).reshape(B, n_hyp, 3, 2)
-    Rs, ts, oks = p3p_solve(sample3d, sample2d, K[:, None])  # [B, H, 4, ...]
-    Rs = Rs.reshape(B, -1, 3, 3)
-    ts = ts.reshape(B, -1, 3)
-    oks = (oks & distinct[..., None]).reshape(B, -1)
-    Kb = K[:, None]  # [B, 1, 3, 3]
-
-    # Preemptive two-stage scoring: rank every candidate on a compacted
-    # subset of the points, then score the survivors on all of them.
-    n_sub = min(128, n)
-    n_keep = min(64, 4 * n_hyp)
-    sub_ids = order[:, :n_sub]
-    sub_valid = torch.arange(n_sub, device=dev)[None, :] < n_valid[:, None]
-    errs_sub = _reproj_err(
-        Rs, ts, Kb, _take(pts3d_s, sub_ids)[:, None], _take(pts2d, sub_ids)[:, None]
-    )  # [B, 4H, n_sub]
-    counts_sub = ((errs_sub < reproj_threshold) & sub_valid[:, None, :]).sum(-1) * oks.int()
-    keep = torch.sort(counts_sub, dim=-1, descending=True, stable=True)[1][:, :n_keep]
-
-    R_keep, t_keep = _take(Rs, keep), _take(ts, keep)
-    errs = _reproj_err(R_keep, t_keep, Kb, pts3d_s[:, None], pts2d[:, None])  # [B, keep, N]
-    inl = (errs < reproj_threshold) & mask[:, None, :]
-    counts = inl.sum(-1) * _take(oks, keep).int()
-    best = counts.argmax(dim=-1)  # first maximum
-    R_best = _take(R_keep, best[:, None])[:, 0]
-    t_best = _take(t_keep, best[:, None])[:, 0]
-    inliers = _take(inl, best[:, None])[:, 0]
-    n_in = _take(counts, best[:, None])[:, 0]
+    Rs, ts, oks = _p3p_hypotheses(pts2d, pts3d_s, K, idx)
+    keep = _preemptive_keep(Rs, ts, oks, pts2d, pts3d_s, K, order, n_valid, reproj_threshold)
+    R_best, t_best, inliers, n_in = _score_kept(Rs, ts, oks, keep, pts2d, pts3d_s, K, mask,
+                                                reproj_threshold)
 
     # Refine on the inliers, from the best P3P pose or, with epnp_refit,
     # from the EPnP re-solve where its inlier error is no larger (a point

@@ -25,13 +25,17 @@ EIGH_BATCH = 8192
 
 
 def _dlt_solve(A_sq: torch.Tensor) -> torch.Tensor:
-    """Smallest eigenvector of symmetric [..., 4, 4] (null space of A)."""
+    """Smallest eigenvector of symmetric [..., 4, 4] (null space of A); NaN
+    for a system that is not finite, as jnp.linalg.eigh gives (LAPACK
+    fails to converge on one and torch.linalg.eigh raises for the batch)."""
     flat = A_sq.reshape(-1, 4, 4)
     if flat.shape[0] == 0:
         return flat.new_zeros(A_sq.shape[:-1])
+    finite = torch.isfinite(flat).all(dim=-1).all(dim=-1)
+    flat = torch.where(finite[:, None, None], flat, 0.0)
     # ascending eigenvalues; the first column is the smallest one's vector
     vecs = torch.cat([torch.linalg.eigh(c)[1][:, :, 0] for c in flat.split(EIGH_BATCH)])
-    return vecs.reshape(A_sq.shape[:-1])
+    return torch.where(finite[:, None], vecs, torch.nan).reshape(A_sq.shape[:-1])
 
 
 @fp32_matmuls()
@@ -113,5 +117,6 @@ def refine_points_gn(xyz0, uv, K, R, t, obs_mask, iters: int = 5,
         Jw = J * w[..., None]
         H = torch.einsum("...tri,...trj->...ij", Jw, J) + eye
         g = torch.einsum("...tri,...tr->...i", Jw, r * w)
-        xyz = xyz + torch.linalg.solve(H, -g)
+        # Non-finite where H is singular (as JAX's LU gives), never a raise.
+        xyz = xyz + torch.linalg.solve_ex(H, -g, check_errors=False)[0]
     return xyz

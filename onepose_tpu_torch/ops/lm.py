@@ -83,7 +83,9 @@ def _solve_normal_equations(r, Jp, Jc, pt_idx, cam_idx, n_points: int, n_cams: i
                                            min=1e-6)[..., None] * eye3
     Hcc_d = Hcc + lam * eye6 * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1),
                                            min=1e-6)[..., None] * eye6
-    Hpp_inv = torch.linalg.inv(Hpp_d + 1e-9 * eye3)  # [P, 3, 3]
+    # inv_ex / solve_ex: a singular system gives non-finite values, as JAX's
+    # LU does, where inv / solve would raise (and sync the host).
+    Hpp_inv = torch.linalg.inv_ex(Hpp_d + 1e-9 * eye3, check_errors=False)[0]  # [P, 3, 3]
 
     # Camera-point coupling: U[p, c] = sum over observations of Jc^T Jp.
     A = torch.einsum("mri,mrj->mij", Jc, Jp)  # [M, 6, 3]
@@ -107,8 +109,8 @@ def _solve_normal_equations(r, Jp, Jc, pt_idx, cam_idx, n_points: int, n_cams: i
         rhs = rhs * free[:, None]
 
     S_flat = S.reshape(n_cams * 6, n_cams * 6)
-    dc = torch.linalg.solve(S_flat + 1e-9 * torch.eye(n_cams * 6, dtype=dtype, device=dev),
-                            rhs.reshape(-1)).reshape(n_cams, 6)
+    dc = torch.linalg.solve_ex(S_flat + 1e-9 * torch.eye(n_cams * 6, dtype=dtype, device=dev),
+                               rhs.reshape(-1), check_errors=False)[0].reshape(n_cams, 6)
 
     # Back-substitute the points: dp = Hpp^-1 (bp - U^T dc).
     Ut_dc = torch.einsum("pcij,ci->pj", U, dc)  # [P, 3]

@@ -73,7 +73,7 @@ def _local_assemble(points_l, cams, feats, pt_idx, cam_idx, mask, lam) -> dict:
     eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
     Hpp_d = Hpp + lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1),
                                     min=1e-6)[..., None] * eye3
-    Hpp_inv = torch.linalg.inv(Hpp_d + 1e-9 * eye3)
+    Hpp_inv = torch.linalg.inv_ex(Hpp_d + 1e-9 * eye3, check_errors=False)[0]  # never raises
     A = torch.einsum("mri,mrj->mij", Jc, Jp)  # [M, 6, 3]
     U = _segment_sum(A, pt_idx * n_cams + cam_idx, n_local * n_cams).reshape(
         n_local, n_cams, 6, 3)
@@ -141,10 +141,10 @@ def distributed_ba_solve(
         S = (S - S_red) * free[:, None, None, None] * free[None, None, :, None]
         S[diag, :, diag, :] += eye6[None] * fix[:, None, None]
         rhs = (bc - rhs_red) * free[:, None]
-        dc = torch.linalg.solve(
+        dc = torch.linalg.solve_ex(
             S.reshape(n_cams * 6, n_cams * 6)
             + 1e-9 * torch.eye(n_cams * 6, dtype=dtype, device=dev),
-            rhs.reshape(-1)).reshape(n_cams, 6)
+            rhs.reshape(-1), check_errors=False)[0].reshape(n_cams, 6)
         Ut_dc = torch.einsum("pcij,ci->pj", loc["U"], dc)
         dp = torch.einsum("pij,pj->pi", loc["Hpp_inv"], loc["bp"] - Ut_dc)
         c_old, c_new = cost(pts, cms), cost(pts + dp, cms + dc)

@@ -35,7 +35,10 @@ def fundamental_from_poses(K0, R0, t0, K1, R1, t1) -> torch.Tensor:
     R_rel = R1 @ R0.transpose(-1, -2)
     t_rel = t1 - torch.einsum("...ij,...j->...i", R_rel, t0)
     E = _skew(t_rel) @ R_rel
-    return torch.linalg.inv(K1).transpose(-1, -2) @ E @ torch.linalg.inv(K0)
+    # A singular K gives a non-finite F (its pairs then fail the gate), as
+    # jnp.linalg.inv does; torch.linalg.inv would raise for the batch.
+    K0_inv, K1_inv = (torch.linalg.inv_ex(k, check_errors=False)[0] for k in (K0, K1))
+    return K1_inv.transpose(-1, -2) @ E @ K0_inv
 
 
 @fp32_matmuls()

@@ -22,10 +22,17 @@ does not: a step chosen by the group's backend and the tensor's device
 
 Every group is created with a timeout (`TIMEOUT`, or the caller's), so a
 collective that waits for a rank that is gone raises instead of hanging.
+
+`record_collectives()` counts the collectives of this module inside a
+`with` block (kind, calls, bytes): the port's collectives are explicit,
+so they are counted where they run, where the JAX package's audit
+(scripts/audit_collectives.py) sums them from the compiled HLO. Outside
+such a block each collective tests one module global and records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Any, Callable, Optional
@@ -95,6 +102,52 @@ def synchronize(group=None) -> None:
     dist.barrier(group=group)
 
 
+# --- a count of the collectives ---------------------------------------------
+
+class CollectiveLog:
+    """The collectives run while recording, per kind ("all_reduce",
+    "all_gather", "broadcast", "ring_shift"): calls and bytes. The bytes
+    of a call are those of its result on this rank, at the width they
+    travel at (bool as uint8): an all-reduce's or a broadcast's tensor,
+    an all-gather's gathered tensor, a ring shift's received blocks (also
+    where gloo builds the shift from an all-gather). They are what XLA's
+    HLO shapes give for the same collectives."""
+
+    def __init__(self):
+        self.ops: dict[str, list] = {}
+
+    def add(self, kind: str, n_bytes: int) -> None:
+        entry = self.ops.setdefault(kind, [0, 0])
+        entry[0] += 1
+        entry[1] += n_bytes
+
+    def totals(self) -> dict:
+        """{kind: {"calls", "bytes"}}, by kind."""
+        return {k: {"calls": c, "bytes": b} for k, (c, b) in sorted(self.ops.items())}
+
+
+_LOG: Optional[CollectiveLog] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """`with record_collectives() as log:` counts in `log` the collectives
+    that the block runs on a group of two ranks or more (group=None, or a
+    group of one rank, moves nothing and is not counted); an outer
+    recording resumes after the block."""
+    global _LOG
+    outer, _LOG = _LOG, CollectiveLog()
+    try:
+        yield _LOG
+    finally:
+        _LOG = outer
+
+
+def _record(kind: str, t: torch.Tensor, group, copies: int = 1) -> None:
+    if _LOG is not None and dist.get_world_size(group) > 1:
+        _LOG.add(kind, copies * t.numel() * t.element_size())
+
+
 # --- tensors over a group --------------------------------------------------
 
 def _gloo_on_cuda(t: torch.Tensor, group) -> bool:
@@ -114,6 +167,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         return t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     buf = _wire(t).contiguous().clone()
+    _record("all_reduce", buf, group)
     dist.all_reduce(buf, op=red, group=group)
     return buf.to(t.dtype)
 
@@ -123,11 +177,16 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     `dim` in rank order; t itself when group is None."""
     if group is None:
         return t
-    n = dist.get_world_size(group)
     buf = _wire(t).contiguous()
-    parts = [torch.empty_like(buf) for _ in range(n)]
+    _record("all_gather", buf, group, dist.get_world_size(group))
+    return torch.cat(_gather(buf, group), dim=dim).to(t.dtype)
+
+
+def _gather(buf: torch.Tensor, group) -> list:
+    """Every rank's buf of `group`, in rank order (not recorded)."""
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
-    return torch.cat(parts, dim=dim).to(t.dtype)
+    return parts
 
 
 def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
@@ -135,6 +194,7 @@ def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     if group is None:
         return t
     buf = _wire(t).contiguous().clone()
+    _record("broadcast", buf, group)
     dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
     return buf.to(t.dtype)
 
@@ -152,9 +212,9 @@ def ring_shift(tensors: list, group) -> list:
     out = []
     for t in tensors:
         buf = _wire(t).contiguous()
+        _record("ring_shift", buf, group)
         if _gloo_on_cuda(buf, group):
-            parts = all_gather(buf[None], group)
-            out.append(parts[(me - 1) % n].to(t.dtype))
+            out.append(_gather(buf, group)[(me - 1) % n].to(t.dtype))
             continue
         recv = torch.empty_like(buf)
         ops = [dist.P2POp(dist.isend, buf, nxt, group=group),

@@ -7,8 +7,9 @@ JAX package drains its effects). `device_trace` records a `torch.profiler`
 trace of CPU and CUDA activity and exports it to `log_dir` (Chrome trace
 format, viewable in TensorBoard or Perfetto). `device_busy` sums the CUDA
 kernel time of a block under torch.profiler over the span the kernels
-cover; `card_line` is the card's name and power limit as nvidia-smi
-prints them, which every measurement of the card is printed beside.
+cover; `host_syncs` lists where a block made the host wait for the card;
+`card_line` is the card's name and power limit as nvidia-smi prints
+them, which every measurement of the card is printed beside.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import contextlib
 import os
 import subprocess
 import time
+import traceback
+import warnings
 from collections import defaultdict
 
 import torch
@@ -116,3 +119,35 @@ def device_busy(fn) -> dict | None:
     span_ms = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3
     return {"kernels": len(kernels), "kernel_ms": kernel_ms, "span_ms": span_ms,
             "share": kernel_ms / span_ms}
+
+
+def host_syncs(fn) -> list[str]:
+    """Run fn() once under torch.cuda's sync debug mode ("warn") and return
+    where each synchronizing call was made, as "file:line" (from the
+    repository's root) of the innermost frame in this package, else the
+    innermost frame of the caller, one entry a sync.
+    Work queued before the call is drained first, so it is not counted."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    found, running = [], [False]
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not running[0] or "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not f.filename.endswith(("warnings.py", "profiling.py"))]
+        ours = [f for f in frames if f.filename.startswith(here)]
+        f = (ours or frames)[-1]
+        found.append(f"{os.path.relpath(f.filename, os.path.dirname(here))}:{f.lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        running[0] = True  # a sync outside fn (the mode's own calls) is not fn's
+        try:
+            fn()
+        finally:
+            running[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    return found

@@ -182,6 +182,37 @@ def test_ransac_pnp_generator_draws_and_degenerate_frames():
     assert re.item() < 1.0 and te.item() < 1.0
 
 
+def _gridded_batch(seed, b=8, n=16, grid=0.1):
+    """b frames of n matches with 3D points on a `grid` lattice, integer
+    pixels and 1 to 3 valid matches a frame: P3P fails on such samples and
+    the best hypothesis can be one with R = 0 (the scoring multiplies the
+    counts by ok, the inlier mask it refines from is not), whose
+    Gauss-Newton system is exactly singular in fp32."""
+    rng = np.random.default_rng(seed)
+    pts3d = (rng.integers(-3, 4, size=(b, n, 3)) * grid).astype(np.float32)
+    pts2d = rng.integers(0, 512, size=(b, n, 2)).astype(np.float32)
+    mask = np.zeros((b, n), bool)
+    for f in range(b):
+        mask[f, rng.choice(n, rng.integers(1, 4), replace=False)] = True
+    return pts2d, pts3d, np.broadcast_to(K_NP, (b, 3, 3)).copy(), mask
+
+
+def test_ransac_pnp_singular_refine_matches_jax():
+    """ROADMAP C20: a batch where the refine's normal matrix is singular for
+    some frame. torch.linalg.solve raised for the whole batch; JAX's LU
+    gives non-finite steps and the frames come back not ok. The port now
+    gives JAX's ok, inliers and counts, and its poses within 1e-4."""
+    pts2d, pts3d, K, mask = _gridded_batch(seed=2)
+    want, draws = _jax_ransac(jax.random.PRNGKey(2), 64, pts2d, pts3d, K, mask)
+    got = ransac_pnp(*(torch.from_numpy(x) for x in (pts2d, pts3d, K, mask)),
+                     draws=torch.from_numpy(draws), n_hyp=64)
+    np.testing.assert_array_equal(got["ok"].numpy(), np.asarray(want["ok"]))
+    np.testing.assert_array_equal(got["num_inliers"].numpy(), np.asarray(want["num_inliers"]))
+    np.testing.assert_array_equal(got["inliers"].numpy(), np.asarray(want["inliers"]))
+    np.testing.assert_allclose(got["pose"].numpy(), np.asarray(want["pose"]), atol=1e-4)
+    assert torch.isfinite(got["pose"]).all()
+
+
 def test_ransac_epnp_refit_is_not_ported_yet():
     """The EPnP refit is ported now (the name is kept from when it raised):
     epnp_refit=True runs and gives JAX's pose with JAX's draws injected

@@ -47,7 +47,11 @@ MODULES = (
     "onepose_tpu_torch.parallel.sharded_attention, onepose_tpu_torch.parallel.tensor_parallel, "
     "onepose_tpu_torch.parallel.stage_pipeline, onepose_tpu_torch.parallel.distributed_ba, "
     "onepose_tpu_torch.utils.costs, onepose_tpu_torch.bench, onepose_tpu_torch.scripts, "
-    "onepose_tpu_torch.scripts.roofline_audit, onepose_tpu_torch.scripts.bench_train_step"
+    "onepose_tpu_torch.scripts.roofline_audit, onepose_tpu_torch.scripts.bench_train_step, "
+    "onepose_tpu_torch.scripts.profile_pnp, onepose_tpu_torch.scripts.audit_collectives, "
+    "onepose_tpu_torch.scripts.bench_pair_batching, onepose_tpu_torch.scripts.bench_matcher_parts, "
+    "onepose_tpu_torch.scripts.bench_mixed_attention, onepose_tpu_torch.scripts.profile_sp_layers, "
+    "onepose_tpu_torch.scripts.profile_superpoint_parts, onepose_tpu_torch.scripts.demo_pipeline"
 )
 
 

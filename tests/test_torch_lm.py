@@ -169,3 +169,44 @@ def test_ba_solve_converges_as_jax(mode):
         np.testing.assert_array_equal(got["cam_poses"], prob["cams0"])
     if mode in ("anchored", "free"):
         assert got["cost_final"] < got["cost_initial"] * 1e-3
+
+
+# Windows whose normal equations are exactly singular in fp32 once lambda's
+# damping (1e-9 of the diagonal) and the 1e-9 ridge are lost beside the
+# entries. "inv": one point seen by one camera (its other observation
+# masked), whose 3 x 3 block has rank 2: torch.linalg.inv raised. "solve":
+# one point seen by two cameras, whose reduced camera system is singular:
+# torch.linalg.solve raised. JAX's LU gives non-finite steps, which LM
+# rejects.
+SINGULAR_BA = {
+    "inv": dict(pts=[[0.0, 1.0, 1.0]],
+                cams=[[0.0, 0.0, 0.0, 0.0, -1.0, 0.0], [0.0, 0.0, 0.0, -1.0, 0.0, 0.0]],
+                feats=[[436.0, 103.0, 256.0, 256.0, 256.0], [223.0, 103.0, 256.0, 256.0, 256.0]],
+                pt=[0, 0], cam=[0, 1], mask=[False, True]),
+    "solve": dict(pts=[[-2.0, 0.0, 3.0]],
+                  cams=[[0.0, 0.0, 0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0, 1.0, 0.0]],
+                  feats=[[297.0, 442.0, 64.0, 256.0, 256.0], [208.0, 31.0, 64.0, 256.0, 256.0]],
+                  pt=[0, 0], cam=[0, 1], mask=[True, True]),
+}
+
+
+def singular_ba_args(case: str) -> tuple:
+    """(points, cameras, features, pt_idx, cam_idx, obs_mask) of SINGULAR_BA[case]."""
+    p = SINGULAR_BA[case]
+    return (np.asarray(p["pts"], np.float32), np.asarray(p["cams"], np.float32),
+            np.asarray(p["feats"], np.float32), np.asarray(p["pt"], np.int32),
+            np.asarray(p["cam"], np.int32), np.asarray(p["mask"], bool))
+
+
+@pytest.mark.parametrize("case", sorted(SINGULAR_BA))
+def test_ba_solve_on_a_singular_system_matches_jax(case):
+    """No raise: both steps rejected as in JAX (points, cameras and lambda
+    equal), costs within fp32 rounding of JAX's."""
+    args = singular_ba_args(case)
+    want = jax_lm.ba_solve(*map(jnp.asarray, args), n_iters=2, init_lambda=1e-9)
+    got = lm.ba_solve(*map(torch.from_numpy, args), n_iters=2, init_lambda=1e-9)
+    for k in ("points", "cam_poses", "lambda"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    np.testing.assert_array_equal(got["points"].numpy(), args[0])
+    for k in ("cost_initial", "cost_final"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6, err_msg=k)

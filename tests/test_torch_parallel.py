@@ -42,6 +42,7 @@ from onepose_tpu_torch.parallel.sharded_attention import (
 )
 from onepose_tpu_torch.parallel.stage_pipeline import StagePipeline
 from test_ops import make_ba_problem
+from test_torch_lm import SINGULAR_BA, singular_ba_args
 from torch_ranks import spawn
 
 torch.set_num_threads(2)
@@ -262,6 +263,25 @@ def test_one_process_mesh_is_the_identity():
     torch.testing.assert_close(conf, sm.softmax(1) * sm.softmax(2), atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="every rank"):
         port_mesh.make_mesh(n_data=2, device="cpu")
+
+
+@pytest.mark.parametrize("case", sorted(SINGULAR_BA))
+def test_distributed_ba_on_a_singular_system_matches_jax(case):
+    """tests/test_torch_lm.py's singular windows through distributed_ba_solve
+    on a one-process mesh against JAX's on one device: no raise, both
+    steps rejected, costs within fp32 rounding."""
+    pts, cams, feats, pt_idx, cam_idx, mask = singular_ba_args(case)
+    parts = jax_partition(1, 1, feats, pt_idx, cam_idx, mask)
+    jmesh = jax_make_mesh(n_data=1, n_points=1, devices=jax.devices()[:1])
+    want = jax_dist_ba(jmesh, jnp.asarray(pts), jnp.asarray(cams), *map(jnp.asarray, parts),
+                       n_iters=2, init_lambda=1e-9)
+    got = distributed_ba.distributed_ba_solve(
+        port_mesh.make_mesh(device="cpu"), torch.from_numpy(pts), torch.from_numpy(cams),
+        *(torch.from_numpy(np.asarray(a)) for a in parts), n_iters=2, init_lambda=1e-9)
+    for k in ("points", "cam_poses"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    for k in ("cost_initial", "cost_final"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6, err_msg=k)
 
 
 def test_tp_specs_split_attention_and_mlp():

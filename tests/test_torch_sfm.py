@@ -290,6 +290,28 @@ def test_epipolar_verify_matches_jax():
     assert 0.1 < want.mean() < valid.mean()  # the gate cuts the planted outliers
 
 
+def test_epipolar_verify_with_a_singular_K_matches_jax():
+    """A pair whose first K is all zero: F is not finite and the pair's
+    matches all fail the gate, as in JAX (jnp.linalg.inv does not raise);
+    the other pairs are verified as before."""
+    scene, pairs, m0 = _scene_matches()
+    i, j = pairs[:, 0], pairs[:, 1]
+    kp, K, P = scene["keypoints"], scene["K"], scene["poses"]
+    uv0 = kp[i[:, None], np.arange(256)[None]]
+    uv1 = kp[j[:, None], np.maximum(m0, 0)]
+    valid = m0 >= 0
+    K0 = K[i].copy()
+    K0[0] = 0.0
+    cams = (K0, P[i, :3, :3], P[i, :3, 3], K[j], P[j, :3, :3], P[j, :3, 3])
+    got = verify.epipolar_verify_matches(torch.from_numpy(uv0), torch.from_numpy(uv1),
+                                         torch.from_numpy(valid),
+                                         *map(torch.from_numpy, cams)).numpy()
+    want = np.asarray(jax_verify.epipolar_verify_matches(
+        jnp.asarray(uv0), jnp.asarray(uv1), jnp.asarray(valid), *map(jnp.asarray, cams)))
+    assert valid[0].any() and not want[0].any()
+    np.testing.assert_array_equal(got, want)
+
+
 # --- 7. triangulation ------------------------------------------------------
 
 
@@ -347,6 +369,44 @@ def test_triangulation_matches_jax():
     np.testing.assert_allclose(gt[okj], gj[okj], atol=1e-5)
     err = lambda x: np.linalg.norm(x[okj] - pts[okj], axis=-1).mean()  # noqa: E731
     assert err(gt) < err(xt)
+
+
+def test_triangulation_of_a_non_finite_track_matches_jax():
+    """A NaN pixel in one valid observation: JAX's eigh gives that track NaN
+    (not ok), where torch.linalg.eigh raised for the whole batch; ok is
+    JAX's and the other tracks within 1e-4 of JAX's."""
+    pts, uv, K, R, t, mask, P = _tri_inputs()
+    uv = uv.copy()
+    assert mask[5, 0]
+    uv[5, 0, 0] = np.nan
+    xj, okj = map(np.asarray, jax_tri.triangulate_tracks_dlt(
+        jnp.asarray(uv), jnp.asarray(P), jnp.asarray(mask)))
+    xt, okt = triangulation.triangulate_tracks_dlt(
+        torch.from_numpy(uv), torch.from_numpy(P), torch.from_numpy(mask))
+    assert not okj[5] and okj.sum() > 50
+    np.testing.assert_array_equal(okt.numpy(), okj)
+    np.testing.assert_allclose(xt.numpy()[okj], xj[okj], atol=1e-4)
+
+
+def test_refine_points_without_damping_matches_jax():
+    """damping=0 leaves the tracks with no valid observation an all-zero 3 x
+    3 system: non-finite there, as JAX's LU gives (torch.linalg.solve
+    raised for the batch); the same tracks are finite in both packages and
+    the triangulated ones within 1e-5 of JAX's."""
+    pts, uv, K, R, t, mask, P = _tri_inputs()
+    xj, okj = map(np.asarray, jax_tri.triangulate_tracks_dlt(
+        jnp.asarray(uv), jnp.asarray(P), jnp.asarray(mask)))
+    cams = tuple(np.asarray(x, np.float32) for x in (K, R, t))
+    gj = np.asarray(jax_tri.refine_points_gn(jnp.asarray(xj), jnp.asarray(uv),
+                                             *map(jnp.asarray, cams), jnp.asarray(mask),
+                                             damping=0.0))
+    gt = triangulation.refine_points_gn(torch.from_numpy(xj), torch.from_numpy(uv),
+                                        *map(torch.from_numpy, cams), torch.from_numpy(mask),
+                                        damping=0.0).numpy()
+    finite = np.isfinite(gj).all(-1)
+    assert not finite[:3].any() and finite[okj].all()
+    np.testing.assert_array_equal(np.isfinite(gt).all(-1), finite)
+    np.testing.assert_allclose(gt[okj], gj[okj], atol=1e-5)
 
 
 def test_dlt_solves_in_chunks(monkeypatch):

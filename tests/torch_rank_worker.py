@@ -289,6 +289,23 @@ def validation(d: dict, opt: dict) -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+@task
+def audit(d: dict, opt: dict) -> dict:
+    """scripts.audit_collectives' audit over make_mesh(n_points=W) and the
+    world group at opt["audit"]'s widths: its result (as JSON) and what
+    its check finds."""
+    from onepose_tpu_torch.parallel.mesh import make_mesh
+    from onepose_tpu_torch.scripts import audit_collectives as ac
+    from onepose_tpu_torch.utils import comm
+
+    w = opt["audit"]
+    mesh = make_mesh(n_data=1, n_points=comm.get_world_size(), device="cpu")
+    result = ac.audit(mesh, torch.distributed.group.WORLD, w["n3s"], b=w["b"], n2=w["n2"],
+                      leaves=w["leaves"], c=w["c"], blocks=w["blocks"])
+    bad = ac.check(result, b=w["b"], n2=w["n2"], c=w["c"])
+    return {"result": np.array(json.dumps(result)), "bad": np.array(json.dumps(bad))}
+
+
 def main() -> None:
     name, in_dir, out_dir = sys.argv[1:4]
     torch.set_num_threads(1)
