@@ -123,7 +123,19 @@ Phases, each printing its lines before the last:
      serial), `bench_matcher_parts`, `bench_mixed_attention`,
      `profile_sp_layers`, `profile_superpoint_parts` and `demo_pipeline`
      (parse-scan, map and demo with tracking on a rendered ARKit capture);
- 14. one JSON line {"kernels": [...]}, then the last line
+ 14. SuperPoint's front end in its semantics-preserving forms (phase
+     sp_variants), in the process at the scripts' shapes (B 8, 512 x 512):
+     `onepose_tpu_torch.scripts.bench_sp_front` (the input conv: cuDNN,
+     padded to 8 channels, im2col-9, folded into K5's first stage; the
+     score path and its parts), `bench_sp_score` (softmax forms, the path
+     plain and with K1, each with a stream sync before NMS; NMS
+     separable, as one 2-D window, K1) and `bench_sp_variants` (the whole
+     dense forward with each encoder, NMS and sync form, fp32 and bf16,
+     kernel flags off and on): each form held against its default within
+     the tolerance that models/superpoint_variants.py states, its
+     kernels launched, and a line of times a form (the median of
+     SP_VARIANT_WINDOWS windows of each module's calls, and the spread);
+ 15. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -146,7 +158,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", "detect",
-          "infer", "tracker", "demo", "multi", "bench")
+          "infer", "tracker", "demo", "multi", "bench", "sp_variants")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -4955,6 +4967,40 @@ def phase_bench(smi: str):
         f"{train['ms_per_step']:.2f} ms a step, losses finite")
 
 
+# Phase sp_variants: the three front-end benchmarks at the scripts' shapes,
+# each with the kernels its forms must launch and its calls a window (the
+# modules' own ITERS); should the whole run near its time limit, cut these
+# counts first.
+SP_VARIANT_SHAPE = dict(b=8, img=512)
+SP_VARIANTS = {"bench_sp_front": ({"nms", "vgg_stage"}, 50), "bench_sp_score": ({"nms"}, 50),
+               "bench_sp_variants": ({"nms", "vgg_stage"}, 20)}
+SP_VARIANT_WINDOWS = 5
+
+
+def phase_sp_variants(smi: str):
+    """The front-end forms of SuperPoint, each module's run in this process."""
+    import importlib
+
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from onepose_tpu_torch.scripts._forms import row_line
+
+    for name, (kernels, iters) in SP_VARIANTS.items():
+        module = importlib.import_module(f"onepose_tpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        reset_launches()  # this path's counts: 0 just before it, read just after
+        out = module.run(DEV, **SP_VARIANT_SHAPE, iters=iters, windows=SP_VARIANT_WINDOWS)
+        counts = {k: n for k, n in launch_counts().items() if n}
+        for row in out["rows"]:
+            log(f"[sp_variants] {smi}: {name} {row_line(row)}")
+        bad = [r["form"] for r in out["rows"] if not r["ok"]]
+        if bad:
+            fail(f"{name}: forms out of tolerance or without their kernels: {bad}")
+        if set(counts) != kernels:
+            fail(f"{name} launched {counts}, want each of {sorted(kernels)}")
+        log(f"[sp_variants] {name}: {time.perf_counter() - t0:.1f} s, launches over the run "
+            f"{counts}" + (f"; fastest {out['fastest']}" if "fastest" in out else ""))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -5017,6 +5063,8 @@ def main(argv=None) -> int:
             phase_multi(torch, rows, args.multi_cards)
         if "bench" in phases:
             phase_bench(smi)
+        if "sp_variants" in phases:
+            phase_sp_variants(smi)
     finally:
         if "root" in _WORLD:
             import shutil

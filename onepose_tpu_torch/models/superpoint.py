@@ -49,8 +49,10 @@ from onepose_tpu_torch.ops.kernels.vgg_stage import pack_stage_weights, vgg_stag
 
 __all__ = [
     "SuperPoint",
+    "depth_to_space",
     "extract_keypoints",
     "sample_descriptors",
+    "score_probs",
     "simple_nms",
     "topk_lowest_index",
 ]
@@ -118,39 +120,64 @@ class SuperPoint(nn.Module):
     def _encoder(self, image: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 1] -> the stride-8 feature map [B, 128, H/8, W/8] in dtype."""
         x = image.to(self.dtype)
-        stages = self._stages()
         if self.vgg_kernel:
-            x = x.float().contiguous()  # NHWC through the fused stages
-            packed = self.packed_stages() if x.device.type == "cuda" else [None] * 4
-
-            def hwio(conv):
-                return conv.weight.permute(2, 3, 1, 0)
-
-            for (a, b, pool), p in zip(stages, packed):
-                x = vgg_stage(x, hwio(a), a.bias, hwio(b), b.bias, pool, packed=p)
+            x = self._kernel_stages(x.float().contiguous(), 4)  # NHWC through the fused stages
             return x.permute(0, 3, 1, 2).to(self.dtype)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        for a, b, pool in stages:
-            x = F.relu(self._conv(b, F.relu(self._conv(a, x))))
-            if pool:
-                x = F.max_pool2d(x, 2, 2)
+        for a, b, pool in self._stages():
+            x = self._stage(a, b, pool, x)
         return x
+
+    def _kernel_stages(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The first n encoder stages through the fused VGG-stage kernel
+        (`vgg_stage`) on NHWC x; NHWC out, fp32 after the first stage, bf16
+        after the others."""
+        packed = self.packed_stages() if x.device.type == "cuda" else [None] * 4
+
+        def hwio(conv):
+            return conv.weight.permute(2, 3, 1, 0)
+
+        for (a, b, pool), p in zip(self._stages()[:n], packed):
+            x = vgg_stage(x, hwio(a), a.bias, hwio(b), b.bias, pool, packed=p)
+        return x
+
+    def _stage(self, a: nn.Conv2d, b: nn.Conv2d, pool: bool, x: torch.Tensor) -> torch.Tensor:
+        """One plain encoder stage on NCHW x: conv, ReLU, conv, ReLU [, 2 x 2 max-pool]."""
+        x = F.relu(self._conv(b, F.relu(self._conv(a, x))))
+        return F.max_pool2d(x, 2, 2) if pool else x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The detector head on the encoder's output: [B, 65, h, w] in dtype."""
+        return self._conv(self.convPb, F.relu(self._conv(self.convPa, x)))
+
+    def _nms(self, scores: torch.Tensor) -> torch.Tensor:
+        if self.nms_kernel:
+            return nms(scores.contiguous(), self.nms_radius)
+        return simple_nms(scores, self.nms_radius)
+
+    def _descriptors(self, x: torch.Tensor) -> torch.Tensor:
+        """The descriptor head, L2-normalized per cell: [B, h, w, C] fp32."""
+        desc = self._conv(self.convDb, F.relu(self._conv(self.convDa, x))).float()
+        desc = desc / torch.linalg.vector_norm(desc, dim=1, keepdim=True)
+        return desc.permute(0, 2, 3, 1)
 
     def forward(self, image: torch.Tensor) -> dict:
         x = self._encoder(image)
-        logits = self._conv(self.convPb, F.relu(self._conv(self.convPa, x)))  # [B, 65, h, w]
-        probs = torch.softmax(logits.float(), dim=1)[:, :-1]  # [B, 64, h, w]
-        b, _, h, w = probs.shape
-        # Channel c = 8 * dy + dx -> full-resolution pixel (8y + dy, 8x + dx).
-        scores = probs.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2).reshape(b, h * 8, w * 8)
-        if self.nms_kernel:
-            scores = nms(scores.contiguous(), self.nms_radius)
-        else:
-            scores = simple_nms(scores, self.nms_radius)
+        scores = self._nms(depth_to_space(score_probs(self._logits(x))))
+        return {"score_map": scores, "descriptor_map": self._descriptors(x)}
 
-        desc = self._conv(self.convDb, F.relu(self._conv(self.convDa, x))).float()
-        desc = desc / torch.linalg.vector_norm(desc, dim=1, keepdim=True)
-        return {"score_map": scores, "descriptor_map": desc.permute(0, 2, 3, 1)}
+
+def score_probs(logits: torch.Tensor) -> torch.Tensor:
+    """The detector's softmax in fp32 over the 65 channels of [B, 65, h, w]
+    logits, the dustbin dropped: [B, 64, h, w]."""
+    return torch.softmax(logits.float(), dim=1)[:, :-1]
+
+
+def depth_to_space(probs: torch.Tensor) -> torch.Tensor:
+    """[B, 64, h, w] -> the full-resolution score map [B, 8h, 8w]: channel
+    c = 8 * dy + dx goes to pixel (8y + dy, 8x + dx)."""
+    b, _, h, w = probs.shape
+    return probs.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2).reshape(b, h * 8, w * 8)
 
 
 def sample_descriptors(

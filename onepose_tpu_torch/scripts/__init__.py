@@ -9,9 +9,12 @@ points-sharded matcher and the train step, over ranks),
 loop), `bench_matcher_parts` (GATsSPG with 0, 2 and 4 blocks),
 `bench_mixed_attention` (the matcher's mixed-precision attention A/B),
 `profile_sp_layers` and `profile_superpoint_parts` (SuperPoint by layer
-and by part) and `demo_pipeline` (parse-scan, map and demo in one
-command); the headline frames/s is `onepose_tpu_torch.bench`. Each runs
-on the card and raises without one:
+and by part), `bench_sp_front`, `bench_sp_score` and `bench_sp_variants`
+(SuperPoint's front end in its semantics-preserving forms, each held
+against its default; `--device cpu` runs them on the host) and
+`demo_pipeline` (parse-scan, map and demo in one command); the headline
+frames/s is `onepose_tpu_torch.bench`. Each runs on the card and raises
+without one:
 
     python -m onepose_tpu_torch.scripts.roofline_audit [--sweep]
     python -m onepose_tpu_torch.scripts.bench_train_step [batch] [steps] [bf16]
@@ -23,5 +26,8 @@ on the card and raises without one:
     python -m onepose_tpu_torch.scripts.bench_mixed_attention
     python -m onepose_tpu_torch.scripts.profile_sp_layers
     python -m onepose_tpu_torch.scripts.profile_superpoint_parts
+    python -m onepose_tpu_torch.scripts.bench_sp_front [--device cpu]
+    python -m onepose_tpu_torch.scripts.bench_sp_score [--device cpu]
+    python -m onepose_tpu_torch.scripts.bench_sp_variants [--device cpu]
     python -m onepose_tpu_torch.scripts.demo_pipeline <obj_dir> [--with-tracking]
 """

@@ -34,9 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from onepose_tpu_torch._device import resolve_device
-from onepose_tpu_torch.models.superpoint import SuperPoint
+from onepose_tpu_torch.models.superpoint import SuperPoint, depth_to_space, score_probs
 from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
-from onepose_tpu_torch.ops.kernels.score_path import nms, simple_nms
 from onepose_tpu_torch.ops.kernels.vgg_stage import vgg_stage
 from onepose_tpu_torch.scripts.roofline_audit import time_stage
 from onepose_tpu_torch.utils import costs
@@ -55,12 +54,7 @@ def make_image(b: int = B, img: int = IMG, device="cuda") -> torch.Tensor:
 def _score(sp: SuperPoint, x: torch.Tensor) -> torch.Tensor:
     """convPb, the softmax without the dustbin, depth-to-space and NMS:
     SuperPoint.forward's score path on convPa's output."""
-    logits = sp._conv(sp.convPb, x)
-    probs = torch.softmax(logits.float(), dim=1)[:, :-1]
-    b, _, h, w = probs.shape
-    scores = probs.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2).reshape(b, h * 8, w * 8)
-    return nms(scores.contiguous(), sp.nms_radius) if sp.nms_kernel else \
-        simple_nms(scores, sp.nms_radius)
+    return sp._nms(depth_to_space(score_probs(sp._conv(sp.convPb, x))))
 
 
 def prefix_steps(sp: SuperPoint) -> list:

@@ -9,13 +9,16 @@ format, viewable in TensorBoard or Perfetto). `device_busy` sums the CUDA
 kernel time of a block under torch.profiler over the span the kernels
 cover; `host_syncs` lists where a block made the host wait for the card;
 `card_line` is the card's name and power limit as nvidia-smi prints
-them, which every measurement of the card is printed beside.
+them, which every measurement of the card is printed beside;
+`time_windows` times a call by CUDA events in windows of calls and
+reports the median window and the spread.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import subprocess
 import time
 import traceback
@@ -151,3 +154,33 @@ def host_syncs(fn) -> list[str]:
             running[0] = False
             torch.cuda.set_sync_debug_mode(0)
     return found
+
+
+def time_windows(fn, device: torch.device, iters: int, windows: int, warmup: int = 3) -> dict:
+    """ms a call of fn(): `warmup` calls, then `windows` windows of `iters`
+    calls, each window timed by CUDA events on the current stream (on the
+    CPU by the host clock: not a card time). {ms: the median window's ms a
+    call, min_ms, max_ms, windows: each window's}."""
+    cuda = device.type == "cuda"
+    for _ in range(warmup):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    per_call = []
+    for _ in range(windows):
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        per_call.append(ms / iters)
+    return {"ms": statistics.median(per_call), "min_ms": min(per_call), "max_ms": max(per_call),
+            "windows": per_call}

@@ -51,7 +51,9 @@ MODULES = (
     "onepose_tpu_torch.scripts.profile_pnp, onepose_tpu_torch.scripts.audit_collectives, "
     "onepose_tpu_torch.scripts.bench_pair_batching, onepose_tpu_torch.scripts.bench_matcher_parts, "
     "onepose_tpu_torch.scripts.bench_mixed_attention, onepose_tpu_torch.scripts.profile_sp_layers, "
-    "onepose_tpu_torch.scripts.profile_superpoint_parts, onepose_tpu_torch.scripts.demo_pipeline"
+    "onepose_tpu_torch.scripts.profile_superpoint_parts, onepose_tpu_torch.scripts.demo_pipeline, "
+    "onepose_tpu_torch.models.superpoint_variants, onepose_tpu_torch.scripts.bench_sp_front, "
+    "onepose_tpu_torch.scripts.bench_sp_score, onepose_tpu_torch.scripts.bench_sp_variants"
 )
 
 

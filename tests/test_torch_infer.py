@@ -430,3 +430,40 @@ def test_infer_single_process_only(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main(["infer", f"data_dir={tmp_path}"])
+
+
+SHIFTS_PX = (0.0, 1.0, 3.0, 5.0, 8.0, 12.0, 16.0, 24.0)
+
+
+def test_infer_recalls_match_jax(tmp_path, capsys):
+    """`eval_sequence`'s recalls (cmd1 / cmd3 / cmd5) and mean errors
+    against JAX `infer`'s on the same poses: the oracle's map, then
+    features whose keypoints frame f shifts by SHIFTS_PX[f] pixels along x
+    (every match stays an inlier, so the refined pose does not depend on
+    the RANSAC draws, and frames land between the 1, 3 and 5 cm-degree
+    bounds)."""
+    from onepose_tpu.sfm.cache import save_features_h5
+
+    seq, out_dir, _, features = _oracle_scene(tmp_path)
+    shifted = dict(features, keypoints=features["keypoints"].copy())
+    shifted["keypoints"][..., 0] += np.asarray(SHIFTS_PX, np.float32)[:, None]
+    feats_h5 = str(tmp_path / "feats-shifted.h5")
+    n_frames, img = shifted["mask"].shape[0], 128
+    save_features_h5(feats_h5, [f"{f}.png" for f in range(n_frames)], shifted["keypoints"],
+                     shifted["descriptors"], shifted["scores"], shifted["mask"], (img, img))
+    capsys.readouterr()
+    args = ["infer", f"data_dir={seq}", f"anno_dir={osp.join(out_dir, 'anno')}",
+            f"features_h5={feats_h5}", "matcher=nn", "max_keypoints=40", "shape3d=300",
+            "batch=4"]
+    assert jax_main([*args, f"dump_vis3d={tmp_path / 'jax_vis'}"]) == 0
+    want = _last_json(capsys)
+    assert port_main([*args, f"dump_vis3d={tmp_path / 'port_vis'}", "device=cpu"]) == 0
+    got = _last_json(capsys)
+    assert got.keys() == want.keys() and got["num_frames"] == want["num_frames"] == n_frames
+    for k in ("cmd1", "cmd3", "cmd5"):
+        assert got[k] == want[k], (k, got, want)
+    assert 0 < got["cmd1"] < got["cmd3"] < got["cmd5"] < 1, got
+    for k in ("mean_trans_cm", "mean_rot_deg"):
+        assert got[k] == pytest.approx(want[k], abs=1e-3), k
+    np.testing.assert_allclose(_frame_errors(str(tmp_path / "port_vis"), seq),
+                               _frame_errors(str(tmp_path / "jax_vis"), seq), atol=1e-3)

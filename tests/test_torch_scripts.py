@@ -2,7 +2,9 @@
 `scripts.profile_pnp` (A16), `audit_collectives` (A17),
 `bench_pair_batching`, `bench_matcher_parts`, `bench_mixed_attention`
 (A18), `profile_sp_layers`, `profile_superpoint_parts` (A19) and
-`demo_pipeline` (A20).
+`demo_pipeline` (A20); the SuperPoint front-end benchmarks
+(`bench_sp_front`, `bench_sp_score`, `bench_sp_variants`) are held in
+tests/test_torch_sp_variants.py, and here only raise without CUDA.
 
 Each entry point runs on the card and raises here; these tests hold its
 building blocks, with an explicit CPU device:
@@ -49,6 +51,9 @@ from onepose_tpu_torch.scripts import (
     bench_matcher_parts,
     bench_mixed_attention,
     bench_pair_batching,
+    bench_sp_front,
+    bench_sp_score,
+    bench_sp_variants,
     demo_pipeline,
     profile_pnp,
     profile_sp_layers,
@@ -316,6 +321,9 @@ MAINS = {
     "profile_sp_layers": (profile_sp_layers.main, []),
     "profile_superpoint_parts": (profile_superpoint_parts.main, []),
     "demo_pipeline": (demo_pipeline.main, ["/nonexistent/obj"]),
+    "bench_sp_front": (bench_sp_front.main, []),
+    "bench_sp_score": (bench_sp_score.main, []),
+    "bench_sp_variants": (bench_sp_variants.main, []),
 }
 
 
