@@ -28,7 +28,16 @@ Phases, each printing its lines before the last:
      its NMS kernel on (fp32 and bf16, against the kernel off) and with
      its VGG kernel on (the forward runs, the backward raises, as in the
      JAX package); each backward's time beside its plain version's,
-     cuDNN's conv backward and its bound;
+     cuDNN's conv backward and its bound; then K8, flash attention,
+     through masked_softmax_attention(..., use_flash=True) under autograd
+     (forward 1, backward 2 launches a call) at SuperGlue's heads at 4096
+     keypoints in chunks of 7 pairs [7, 4096, 4096, 4, 64], a ragged
+     cross shape with an example without a valid key (its output and
+     gradients exactly 0), a 32-channel head without a mask, and [1,
+     16384, 16384, 4, 64] (forward only): the forward and the q / k / v
+     gradients against the plain version, the forward's, the backward's
+     and both's times beside the plain version's and
+     scaled_dot_product_attention's (the yardstick, timed only here);
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree; and a
      batch whose Gauss-Newton system is singular for some frame (ROADMAP
@@ -217,6 +226,17 @@ STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049), (2, 700, 4401), (1, 1000, 900
 # K7's wide entry (rows wider than its widest instantiation, 14848
 # columns), taken on an explicit kernel request: 16384 and 20480 keypoints.
 WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481))
+# K8 flash attention [B, N, M, H, D, mask]: SuperGlue's heads (d_model 256,
+# 4 heads) at the SfM budget of 4096 keypoints in K7's chunks of 7 pairs,
+# 80% valid keys; a ragged cross shape with example 1 fully masked; a
+# narrow head without a mask; the >8k budget (forward only: the plain
+# version's backward would hold several 4.3 GB score tensors). The forward
+# within FLASH_FWD_ABS of the plain version (fp32 sums in another order);
+# each gradient within FLASH_BWD_REL x its max of autograd through it.
+FLASH_SHAPES = ((7, 4096, 4096, 4, 64, "masked"), (3, 300, 260, 4, 64, "one_empty"),
+                (2, 1000, 4096, 4, 32, "none"), (1, 16384, 16384, 4, 64, "masked"))
+FLASH_BWD_SHAPES = 2  # the first two run the backward too
+FLASH_FWD_ABS, FLASH_BWD_REL = 2e-5, 1e-4
 SINKHORN_ITERS = 100
 STREAM_DRAWS = 6  # more draws of K7's production inputs, checked but not timed
 SINKHORN_ABS = 1e-3
@@ -640,6 +660,7 @@ def phase_kernels(torch, timer):
     rows.update(_kernels_sinkhorn(torch, timer, g))
     rows.update(_kernels_serving(torch, timer))
     rows.update(_kernels_grad(torch, timer))
+    rows.update(_kernels_flash(torch, timer))
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -1434,6 +1455,163 @@ def _kernels_grad(torch, timer):
     else:
         fail("the backward of SuperPoint(vgg_kernel=True) did not raise")
     rows["vgg_stage_grad"]["launches"] = counts["vgg_stage"]
+    return rows
+
+
+def _flash_input(torch, g, b, n, m, h, d, kind):
+    """q, k, v, the key mask (80% valid; example 1 with none valid for
+    "one_empty"; None for "none") and a cotangent, on the card."""
+    q = torch.randn((b, n, h, d), generator=g, device=DEV)
+    k = torch.randn((b, m, h, d), generator=g, device=DEV)
+    v = torch.randn((b, m, h, d), generator=g, device=DEV)
+    w = torch.randn((b, n, h, d), generator=g, device=DEV)
+    mask = None
+    if kind != "none":
+        mask = torch.rand((b, m), generator=g, device=DEV) < 0.8
+        if kind == "one_empty":
+            mask[1] = False
+    return q, k, v, mask, w
+
+
+def _kernels_flash(torch, timer):
+    """K8, flash attention (`ops.kernels.flash_attention`), through its
+    entry point `masked_softmax_attention(..., use_flash=True)` under
+    autograd at each of FLASH_SHAPES, TF32 off: the launches of a call
+    (forward 1, backward 2; counts 0 just before, read just after), the
+    forward against the plain version (<= FLASH_FWD_ABS) and, at the first
+    FLASH_BWD_SHAPES shapes, the q / k / v gradients of sum(out * w)
+    against autograd through it (<= FLASH_BWD_REL x max); an example with
+    no valid key gives exactly 0 in both. Times at the production shape
+    (the forward's also at the widest): the kernels, the plain version,
+    and F.scaled_dot_product_attention with the same bool mask (the
+    library yardstick, called nowhere in the package); bounds at fp32
+    outside the tensor cores, counting the valid keys only (a masked key
+    needs no work), and each tensor read or written once."""
+    import torch.nn.functional as F
+
+    from onepose_tpu_torch.models.common import masked_softmax_attention
+    from onepose_tpu_torch.ops.kernels import flash_attention as fa
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    g = torch.Generator(device=DEV).manual_seed(18)
+    none = dict.fromkeys(launch_counts(), 0)
+    rows, fwd_errs, bwd_errs = {}, [], []
+    for i, (b, n, m, h, d, kind) in enumerate(FLASH_SHAPES):
+        q, k, v, mask, w = _flash_input(torch, g, b, n, m, h, d, kind)
+        scale = 1.0 / d ** 0.5
+        backward = i < FLASH_BWD_SHAPES
+        want = {**none, "flash_attention": 1, "flash_attention_bwd": 2 if backward else 0}
+        leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_launches()  # the path's counts: 0 just before it, read just after
+        out = masked_softmax_attention(*leaves, mask, use_flash=True)
+        grads = torch.autograd.grad(out, leaves, w) if backward else ()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out = out.detach()
+        with torch.no_grad():
+            ref = fa.flash_attention_plain(q, k, v, mask, scale)
+        err = float((out - ref).abs().max())
+        fwd_errs.append(err)
+        empty = [] if mask is None else [j for j in range(b) if not bool(mask[j].any())]
+        zero = all(bool((t[j] == 0).all()) for t in (out, ref, *grads) for j in empty)
+        line = (f"[kernels] flash_attention {(b, n, m, h, d)} mask {kind}: launches "
+                f"{ {key: c for key, c in counts.items() if c} } (want forward 1"
+                f"{', backward 2' if backward else ''}); forward max abs err {err:.3e} "
+                f"(<= {FLASH_FWD_ABS})")
+        ok = counts == want and err <= FLASH_FWD_ABS and bool(torch.isfinite(out).all())
+        if backward:
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            ref_grads = torch.autograd.grad(fa.flash_attention_plain(*ins, mask, scale), ins, w)
+            zero = zero and all(bool((t[j] == 0).all()) for t in ref_grads for j in empty)
+            rel = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                   for a, r in zip(grads, ref_grads)]
+            bwd_errs.extend(rel)
+            line += (f"; gradients max abs err / max abs: dq {rel[0]:.3e}, dk {rel[1]:.3e}, "
+                     f"dv {rel[2]:.3e} (<= {FLASH_BWD_REL})")
+            ok = ok and all(r <= FLASH_BWD_REL for r in rel)
+            ok = ok and all(bool(torch.isfinite(t).all()) for t in grads)
+            del ins, ref_grads
+        log(line + f"; examples without a valid key {empty}: output"
+            f"{' and gradients' if backward else ''} exactly 0 {zero}")
+        if not (ok and zero):
+            fail(f"flash attention {(b, n, m, h, d)} disagrees with its plain version or "
+                 "launched otherwise")
+        if i == 0:
+            path_counts = counts
+        elif i != len(FLASH_SHAPES) - 1:
+            continue
+
+        # Times: the kernels, the plain version and SDPA on the same inputs.
+        del leaves, grads, out, ref
+        valid_keys = m * b if mask is None else int(mask.sum())
+        work = n * h * d * valid_keys  # multiply-adds of one [N, M] x D product
+        qb, kb = q.numel() * 4, k.numel() * 4
+        mb = 0 if mask is None else mask.numel()
+        amask = None if mask is None else mask[:, None, None, :]
+
+        def sdpa(q_, k_, v_):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2), attn_mask=amask,
+                scale=scale).transpose(1, 2)
+
+        fns = {"kernel": lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, mask, scale),
+               "plain": lambda q_, k_, v_: fa.flash_attention_plain(q_, k_, v_, mask, scale),
+               "sdpa": sdpa}
+        reps = {"kernel": 5, "plain": 3, "sdpa": 5}
+        with torch.no_grad():
+            fwd = {key: timer(lambda f=f: f(q, k, v), reps=reps[key]) for key, f in fns.items()}
+        bms, by = bound(2 * qb + 2 * kb + mb, 4 * work)  # q, k, v, mask in; o out
+        log(f"[kernels] flash_attention {(b, n, m, h, d)} forward: kernel {fwd['kernel']:.4f} "
+            f"ms, plain {fwd['plain']:.4f} ms, scaled_dot_product_attention {fwd['sdpa']:.4f} "
+            f"ms, bound {bms:.4f} ms ({by}: {4 * work / 1e9:.1f} GFLOP over the {valid_keys} "
+            f"valid keys; {4 * n * m * h * d * b / 1e9:.1f} over all keys)")
+        if i != 0:  # the widest shape: the forward only
+            rows["flash_attention"]["extra"].update(
+                wide_shape=[b, n, m, h, d], wide_ms=fwd["kernel"], wide_plain_ms=fwd["plain"],
+                wide_library_ms=fwd["sdpa"], wide_bound_ms=bms)
+            continue
+        rows["flash_attention"] = dict(
+            name="flash_attention", route="cuda", source="onepose_tpu_torch/csrc/flash_attention.cu",
+            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:589", max_abs_err=err,
+            ms=fwd["kernel"], plain_ms=fwd["plain"], library_ms=fwd["sdpa"], bound_ms=bms,
+            bound_by=by, launches=path_counts["flash_attention"],
+            extra=dict(reached_through="onepose_tpu/models/common.py:119", shape=[b, n, m, h, d]))
+
+        # The backward alone (di and the dK / dV and dQ kernels), then
+        # forward plus backward, each against the same through autograd.
+        bwd, both = {}, {}
+        for key, f in fns.items():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = f(*ins)
+            bwd[key] = timer(lambda: torch.autograd.grad(o, ins, w, retain_graph=True),
+                             reps=reps[key])
+            both[key] = timer(lambda f=f: torch.autograd.grad(f(*ins), ins, w), reps=reps[key])
+            del o, ins
+        # q, k, v, o, do, lse, mask in; dq, dk, dv out. Forward plus
+        # backward: q, k, v, w, mask in; dq, dk, dv out.
+        bwd_bms, bwd_by = bound(4 * qb + 4 * kb + qb // d + mb, 10 * work)
+        both_bms, _ = bound(3 * qb + 4 * kb + mb, 14 * work)
+        log(f"[kernels] flash_attention {(b, n, m, h, d)} backward alone (di, then the dK / dV "
+            f"and dQ kernels): {bwd['kernel']:.4f} ms, autograd through the plain version "
+            f"{bwd['plain']:.4f} ms, through scaled_dot_product_attention {bwd['sdpa']:.4f} ms, "
+            f"bound {bwd_bms:.4f} ms ({bwd_by}: {10 * work / 1e9:.1f} GFLOP); forward plus "
+            f"backward {both['kernel']:.4f} ms, plain {both['plain']:.4f} ms, sdpa "
+            f"{both['sdpa']:.4f} ms, bound {both_bms:.4f} ms")
+        rows["flash_attention_bwd"] = dict(
+            name="flash_attention_bwd", route="cuda",
+            source="onepose_tpu_torch/csrc/flash_attention.cu",
+            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941 and :1287",
+            max_abs_err=0.0, ms=bwd["kernel"], plain_ms=bwd["plain"], library_ms=bwd["sdpa"],
+            bound_ms=bwd_bms, bound_by=bwd_by, launches=path_counts["flash_attention_bwd"],
+            extra=dict(reached_through="onepose_tpu/models/common.py:119",
+                       backward="onepose_tpu_torch/ops/kernels/flash_attention.py::FlashAttention",
+                       max_abs_err_is="max |grad - plain| / max |plain grad| over dq, dk, dv",
+                       shape=[b, n, m, h, d], fwd_bwd_ms=both["kernel"],
+                       plain_fwd_bwd_ms=both["plain"], library_fwd_bwd_ms=both["sdpa"],
+                       fwd_bwd_bound_ms=both_bms))
+    rows["flash_attention"]["max_abs_err"] = max(fwd_errs)
+    rows["flash_attention_bwd"]["max_abs_err"] = max(bwd_errs)
     return rows
 
 

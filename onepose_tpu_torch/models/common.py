@@ -13,9 +13,11 @@ contractions bf16-rounded operands with fp32 sums (`mixed_einsum`), as
 the JAX package does on an accelerator.
 
 `masked_softmax_attention` (SuperGlue) is plain PyTorch, as the JAX
-package leaves it to XLA; its opt-in `use_flash=True` route goes to
-`F.scaled_dot_product_attention` where the JAX package calls its library
-TPU flash kernel. No path of the port takes that route by default.
+package leaves it to XLA. Its opt-in `use_flash=True` route goes where the
+JAX package calls its library TPU flash kernel: to K8,
+`ops.kernels.flash_attention` (hand-written forward, dK / dV and dQ
+kernels on the card, their plain version on the CPU). No path of the port
+takes that route by default.
 
 With a `mesh` (`parallel.mesh`), the attention of a sharded point set
 runs the collectives of `parallel.sharded_attention` (`spmd="kv"`: keys
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from onepose_tpu_torch._device import check_compute_dtype
+from onepose_tpu_torch.ops.kernels.flash_attention import flash_attention
 from onepose_tpu_torch.utils.precision import mixed_einsum
 
 NEG_INF = -1e9
@@ -167,17 +170,14 @@ def masked_linear_attention(
 
 
 def _flash_softmax_attention(q, k, v, kv_mask, sm_scale):
-    """Softmax attention through `F.scaled_dot_product_attention` with a
-    key mask, fp32. q/k/v: [B, N|M, H, D]. Rows whose keys are all masked
-    are zeroed, as the JAX flash route does (the plain path returns the
-    mean of v there)."""
-    qt, kt, vt = (x.float().transpose(1, 2) for x in (q, k, v))
-    mask = None if kv_mask is None else kv_mask[:, None, None, :]
-    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm_scale)
-    out = out.transpose(1, 2)
-    if kv_mask is not None:
-        out = torch.where(kv_mask.any(dim=1)[:, None, None, None], out, 0.0)
-    return out
+    """Softmax attention through K8 (`ops.kernels.flash_attention`) with a
+    key mask, fp32, in the [B, N|M, H, D] layout (nothing transposed).
+    Rows whose keys are all masked are zeroed, as the JAX flash route does
+    (the plain path returns the mean of v there), and so are their
+    gradients. The head dimension is at most 128 (ValueError above)."""
+    q, k, v = (x.float().contiguous() for x in (q, k, v))
+    mask = None if kv_mask is None else kv_mask.contiguous()
+    return flash_attention(q, k, v, mask, sm_scale)
 
 
 def masked_softmax_attention(

@@ -13,6 +13,7 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 | gats_block    | gats_block.py::fused_gats_block           | csrc/gats_block.cu |
 | sinkhorn      | sinkhorn.py::sinkhorn_potentials          | csrc/sinkhorn.cu   |
 | sinkhorn_stream | sinkhorn_stream.py::sinkhorn_potentials_streamed | csrc/sinkhorn_stream.cu |
+| flash_attention | JAX's library flash attention, reached by models/common.py::_flash_softmax_attention (not under ops/pallas/) | csrc/flash_attention.cu |
 
 Three kernels carry a gradient, as the JAX package's custom VJPs do, each
 an autograd.Function whose forward is the kernel (one launch, counted) and
@@ -21,7 +22,10 @@ whose backward recomputes a plain version (no kernel launch), as JAX's
 (K1, in `score_path`: `simple_nms`'s VJP, bit for bit) and `VggStage` (K5,
 in `vgg_stage`: the VJP of the unrounded fp32 stage, which raises for a
 bf16 input as JAX's does). The wrappers take them whenever autograd
-records.
+records. K8's `FlashAttention` (in `flash_attention`) differentiates
+through kernels both ways, as the library's custom VJP does through two
+Pallas backward kernels: its backward launches the dK / dV and the dQ
+kernels, counted as `flash_attention_bwd`.
 
 `gats_block` counts one launch per call of its wrapper, which runs the
 block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 from onepose_tpu_torch.ops.kernels import (
     dual_softmax,
+    flash_attention,
     gats,
     gats_block,
     score_path,
@@ -44,11 +49,12 @@ from onepose_tpu_torch.ops.kernels import (
     sinkhorn_stream,
     vgg_stage,
 )
+from onepose_tpu_torch.ops.kernels.flash_attention import FlashAttention
 from onepose_tpu_torch.ops.kernels.gats import GatsLeafAttention
 from onepose_tpu_torch.ops.kernels.score_path import Nms
 from onepose_tpu_torch.ops.kernels.vgg_stage import VggStage
 
-__all__ = ["GatsLeafAttention", "Nms", "VggStage", "launch_counts", "reset_launches"]
+__all__ = ["FlashAttention", "GatsLeafAttention", "Nms", "VggStage", "launch_counts", "reset_launches"]
 
 # kernel name -> (module, its counter)
 _COUNTERS = {
@@ -60,6 +66,8 @@ _COUNTERS = {
     "sinkhorn": (sinkhorn, "launches"),
     "sinkhorn_stream": (sinkhorn_stream, "launches"),
     "sinkhorn_stream_wide": (sinkhorn_stream, "wide_launches"),
+    "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bwd": (flash_attention, "bwd_launches"),
 }
 
 

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "--ptxas-options=-v",  # registers / shared memory / spills in the build log
 )
 KERNELS = ("score_path", "gats", "dual_softmax", "vgg_stage", "gats_block", "sinkhorn",
-           "sinkhorn_stream")
+           "sinkhorn_stream", "flash_attention")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> (argtypes, restype).
@@ -67,6 +67,11 @@ SIGNATURES = {
         "sinkhorn_stream_launch": ([_P, _I] + [_P] * 7 + [_I] * 13 + [_P], _I),
         "sinkhorn_stream_wide_max_blocks": ([], _I),
         "sinkhorn_stream_wide_launch": ([_P, _I] + [_P] * 7 + [_I] * 8 + [_P], _I),
+    },
+    "flash_attention": {
+        "flash_attention_fwd_launch": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+        "flash_attention_bwd_dkv_launch": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
+        "flash_attention_bwd_dq_launch": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
     },
 }
 

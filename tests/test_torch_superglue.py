@@ -76,9 +76,9 @@ def test_masked_softmax_attention_bf16_matches_jax():
 
 
 def test_flash_route_matches_plain_and_zeroes_masked_rows():
-    """use_flash=True (scaled_dot_product_attention, opt-in) against the
-    plain path; rows whose keys are all masked are zeroed, where the plain
-    path averages v."""
+    """use_flash=True (K8's route, opt-in; its plain version on the CPU)
+    against the plain path; rows whose keys are all masked are zeroed,
+    where the plain path averages v."""
     q, k, v, mask = _qkv(2)
     qt, kt, vt, mt = _t(q, k, v, mask)
     plain = masked_softmax_attention(qt, kt, vt, mt)
