@@ -31,13 +31,14 @@ Phases, each printing its lines before the last:
      cuDNN's conv backward and its bound; then K8, flash attention,
      through masked_softmax_attention(..., use_flash=True) under autograd
      (forward 1, backward 2 launches a call) at SuperGlue's heads at 4096
-     keypoints in chunks of 7 pairs [7, 4096, 4096, 4, 64], a ragged
-     cross shape with an example without a valid key (its output and
-     gradients exactly 0), a 32-channel head without a mask, and [1,
-     16384, 16384, 4, 64] (forward only): the forward and the q / k / v
-     gradients against the plain version, the forward's, the backward's
-     and both's times beside the plain version's and
-     scaled_dot_product_attention's (the yardstick, timed only here);
+     keypoints in chunks of 7 pairs [7, 4096, 4096, 4, 64] (its backward
+     run twice, bit-equal), a ragged cross shape and a 256-channel head,
+     each with an example without a valid key (its output and gradients
+     exactly 0), a 32-channel head without a mask, and [1, 16384, 16384,
+     4, 64] (forward only): the forward and the q / k / v gradients
+     against the plain version, the forward's, the backward's and both's
+     times beside the plain version's and scaled_dot_product_attention's
+     (the yardstick, timed only here) and beside 3xTF32 bounds;
   3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
      noise and 30% outliers, recovered within 1 cm and 1 degree; and a
      batch whose Gauss-Newton system is singular for some frame (ROADMAP
@@ -170,6 +171,7 @@ PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", 
           "infer", "tracker", "demo", "multi", "bench", "sp_variants")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense tf32 on the tensor cores (K8: 3 tf32 products an fp32 one)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 NEG_INF = -1e9
 DEV = "cuda"
@@ -226,16 +228,19 @@ STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049), (2, 700, 4401), (1, 1000, 900
 # K7's wide entry (rows wider than its widest instantiation, 14848
 # columns), taken on an explicit kernel request: 16384 and 20480 keypoints.
 WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481))
-# K8 flash attention [B, N, M, H, D, mask]: SuperGlue's heads (d_model 256,
-# 4 heads) at the SfM budget of 4096 keypoints in K7's chunks of 7 pairs,
-# 80% valid keys; a ragged cross shape with example 1 fully masked; a
-# narrow head without a mask; the >8k budget (forward only: the plain
-# version's backward would hold several 4.3 GB score tensors). The forward
-# within FLASH_FWD_ABS of the plain version (fp32 sums in another order);
-# each gradient within FLASH_BWD_REL x its max of autograd through it.
-FLASH_SHAPES = ((7, 4096, 4096, 4, 64, "masked"), (3, 300, 260, 4, 64, "one_empty"),
-                (2, 1000, 4096, 4, 32, "none"), (1, 16384, 16384, 4, 64, "masked"))
-FLASH_BWD_SHAPES = 2  # the first two run the backward too
+# K8 flash attention [B, N, M, H, D, mask, backward too]: SuperGlue's heads
+# (d_model 256, 4 heads) at the SfM budget of 4096 keypoints in K7's chunks
+# of 7 pairs, 80% valid keys; a ragged cross shape with example 1 fully
+# masked; a head of 256 channels (JAX's route takes multiples of 128 above
+# 128) with an empty example; a narrow head without a mask; the >8k budget
+# (forward only: the plain version's backward would hold several 4.3 GB
+# score tensors). The forward within FLASH_FWD_ABS of the plain version
+# (fp32 sums in another order, the products in 3xTF32); each gradient
+# within FLASH_BWD_REL x its max of autograd through it.
+FLASH_SHAPES = ((7, 4096, 4096, 4, 64, "masked", True), (3, 300, 260, 4, 64, "one_empty", True),
+                (2, 1024, 1000, 2, 256, "one_empty", True), (2, 1000, 4096, 4, 32, "none", False),
+                (1, 16384, 16384, 4, 64, "masked", False))
+FLASH_TIMED = (0, 2, 4)  # the shapes timed: production, the 256-channel head, the widest
 FLASH_FWD_ABS, FLASH_BWD_REL = 2e-5, 1e-4
 SINKHORN_ITERS = 100
 STREAM_DRAWS = 6  # more draws of K7's production inputs, checked but not timed
@@ -1478,15 +1483,18 @@ def _kernels_flash(torch, timer):
     entry point `masked_softmax_attention(..., use_flash=True)` under
     autograd at each of FLASH_SHAPES, TF32 off: the launches of a call
     (forward 1, backward 2; counts 0 just before, read just after), the
-    forward against the plain version (<= FLASH_FWD_ABS) and, at the first
-    FLASH_BWD_SHAPES shapes, the q / k / v gradients of sum(out * w)
+    forward against the plain version (<= FLASH_FWD_ABS) and, where the
+    shape runs the backward, the q / k / v gradients of sum(out * w)
     against autograd through it (<= FLASH_BWD_REL x max); an example with
-    no valid key gives exactly 0 in both. Times at the production shape
-    (the forward's also at the widest): the kernels, the plain version,
-    and F.scaled_dot_product_attention with the same bool mask (the
-    library yardstick, called nowhere in the package); bounds at fp32
-    outside the tensor cores, counting the valid keys only (a masked key
-    needs no work), and each tensor read or written once."""
+    no valid key gives exactly 0 in both; at the production shape a second
+    backward must equal the first bit for bit (no atomics). Times at the
+    FLASH_TIMED shapes (the backward's too but at the widest): the
+    kernels, the plain version, and F.scaled_dot_product_attention with the
+    same bool mask (the library yardstick, called nowhere in the package);
+    bounds at the tensor cores' tf32 rate, three tf32 products for each
+    fp32 one (the kernels' 3xTF32), and beside them the fp32-SIMT bound of
+    PR 18's kernels (the old yardstick), counting the valid keys only (a
+    masked key needs no work), and each tensor read or written once."""
     import torch.nn.functional as F
 
     from onepose_tpu_torch.models.common import masked_softmax_attention
@@ -1496,10 +1504,9 @@ def _kernels_flash(torch, timer):
     g = torch.Generator(device=DEV).manual_seed(18)
     none = dict.fromkeys(launch_counts(), 0)
     rows, fwd_errs, bwd_errs = {}, [], []
-    for i, (b, n, m, h, d, kind) in enumerate(FLASH_SHAPES):
+    for i, (b, n, m, h, d, kind, backward) in enumerate(FLASH_SHAPES):
         q, k, v, mask, w = _flash_input(torch, g, b, n, m, h, d, kind)
         scale = 1.0 / d ** 0.5
-        backward = i < FLASH_BWD_SHAPES
         want = {**none, "flash_attention": 1, "flash_attention_bwd": 2 if backward else 0}
         leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
         torch.cuda.synchronize()
@@ -1520,6 +1527,13 @@ def _kernels_flash(torch, timer):
                 f"{', backward 2' if backward else ''}); forward max abs err {err:.3e} "
                 f"(<= {FLASH_FWD_ABS})")
         ok = counts == want and err <= FLASH_FWD_ABS and bool(torch.isfinite(out).all())
+        if backward and i == 0:  # deterministic: a second backward, bit for bit
+            again = torch.autograd.grad(masked_softmax_attention(*leaves, mask, use_flash=True),
+                                        leaves, w)
+            same = all(torch.equal(a, c) for a, c in zip(grads, again))
+            line += f"; a second backward equal bit for bit {same}"
+            ok = ok and same
+            del again
         if backward:
             ins = [t.detach().requires_grad_() for t in (q, k, v)]
             ref_grads = torch.autograd.grad(fa.flash_attention_plain(*ins, mask, scale), ins, w)
@@ -1539,7 +1553,7 @@ def _kernels_flash(torch, timer):
                  "launched otherwise")
         if i == 0:
             path_counts = counts
-        elif i != len(FLASH_SHAPES) - 1:
+        if i not in FLASH_TIMED:
             continue
 
         # Times: the kernels, the plain version and SDPA on the same inputs.
@@ -1561,22 +1575,33 @@ def _kernels_flash(torch, timer):
         reps = {"kernel": 5, "plain": 3, "sdpa": 5}
         with torch.no_grad():
             fwd = {key: timer(lambda f=f: f(q, k, v), reps=reps[key]) for key, f in fns.items()}
-        bms, by = bound(2 * qb + 2 * kb + mb, 4 * work)  # q, k, v, mask in; o out
+        fwd_bytes = 2 * qb + 2 * kb + mb  # q, k, v, mask in; o out
+        bms, by = bound(fwd_bytes, 3 * 4 * work, TF32_OPS_PER_S)
+        simt_bms, _ = bound(fwd_bytes, 4 * work)
         log(f"[kernels] flash_attention {(b, n, m, h, d)} forward: kernel {fwd['kernel']:.4f} "
             f"ms, plain {fwd['plain']:.4f} ms, scaled_dot_product_attention {fwd['sdpa']:.4f} "
-            f"ms, bound {bms:.4f} ms ({by}: {4 * work / 1e9:.1f} GFLOP over the {valid_keys} "
-            f"valid keys; {4 * n * m * h * d * b / 1e9:.1f} over all keys)")
-        if i != 0:  # the widest shape: the forward only
+            f"ms, bound {bms:.4f} ms in 3xTF32 ({by}: 3 x {4 * work / 1e9:.1f} GFLOP over the "
+            f"{valid_keys} valid keys; {4 * n * m * h * d * b / 1e9:.1f} over all keys), "
+            f"{simt_bms:.4f} ms in fp32 SIMT (the old yardstick)")
+        if i == len(FLASH_SHAPES) - 1:  # the widest shape: the forward only
             rows["flash_attention"]["extra"].update(
                 wide_shape=[b, n, m, h, d], wide_ms=fwd["kernel"], wide_plain_ms=fwd["plain"],
-                wide_library_ms=fwd["sdpa"], wide_bound_ms=bms)
+                wide_library_ms=fwd["sdpa"], wide_bound_ms=bms, wide_simt_bound_ms=simt_bms)
             continue
-        rows["flash_attention"] = dict(
-            name="flash_attention", route="cuda", source="onepose_tpu_torch/csrc/flash_attention.cu",
-            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:589", max_abs_err=err,
-            ms=fwd["kernel"], plain_ms=fwd["plain"], library_ms=fwd["sdpa"], bound_ms=bms,
-            bound_by=by, launches=path_counts["flash_attention"],
-            extra=dict(reached_through="onepose_tpu/models/common.py:119", shape=[b, n, m, h, d]))
+        if i == 0:
+            rows["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="onepose_tpu_torch/csrc/flash_attention.cu",
+                replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:589", max_abs_err=err,
+                ms=fwd["kernel"], plain_ms=fwd["plain"], library_ms=fwd["sdpa"], bound_ms=bms,
+                bound_by=by, launches=path_counts["flash_attention"],
+                extra=dict(reached_through="onepose_tpu/models/common.py:119",
+                           shape=[b, n, m, h, d], bound_is="3 x flops at TF32_OPS_PER_S",
+                           simt_bound_ms=simt_bms))
+        else:
+            rows["flash_attention"]["extra"].update(
+                d256_shape=[b, n, m, h, d], d256_ms=fwd["kernel"], d256_plain_ms=fwd["plain"],
+                d256_library_ms=fwd["sdpa"], d256_bound_ms=bms)
 
         # The backward alone (di and the dK / dV and dQ kernels), then
         # forward plus backward, each against the same through autograd.
@@ -1590,14 +1615,22 @@ def _kernels_flash(torch, timer):
             del o, ins
         # q, k, v, o, do, lse, mask in; dq, dk, dv out. Forward plus
         # backward: q, k, v, w, mask in; dq, dk, dv out.
-        bwd_bms, bwd_by = bound(4 * qb + 4 * kb + qb // d + mb, 10 * work)
-        both_bms, _ = bound(3 * qb + 4 * kb + mb, 14 * work)
+        bwd_bytes, both_bytes = 4 * qb + 4 * kb + qb // d + mb, 3 * qb + 4 * kb + mb
+        bwd_bms, bwd_by = bound(bwd_bytes, 3 * 10 * work, TF32_OPS_PER_S)
+        both_bms, _ = bound(both_bytes, 3 * 14 * work, TF32_OPS_PER_S)
+        bwd_simt, both_simt = bound(bwd_bytes, 10 * work)[0], bound(both_bytes, 14 * work)[0]
         log(f"[kernels] flash_attention {(b, n, m, h, d)} backward alone (di, then the dK / dV "
             f"and dQ kernels): {bwd['kernel']:.4f} ms, autograd through the plain version "
             f"{bwd['plain']:.4f} ms, through scaled_dot_product_attention {bwd['sdpa']:.4f} ms, "
-            f"bound {bwd_bms:.4f} ms ({bwd_by}: {10 * work / 1e9:.1f} GFLOP); forward plus "
-            f"backward {both['kernel']:.4f} ms, plain {both['plain']:.4f} ms, sdpa "
-            f"{both['sdpa']:.4f} ms, bound {both_bms:.4f} ms")
+            f"bound {bwd_bms:.4f} ms in 3xTF32 ({bwd_by}: 3 x {10 * work / 1e9:.1f} GFLOP), "
+            f"{bwd_simt:.4f} ms in fp32 SIMT; forward plus backward {both['kernel']:.4f} ms, "
+            f"plain {both['plain']:.4f} ms, sdpa {both['sdpa']:.4f} ms, bound {both_bms:.4f} ms "
+            f"in 3xTF32, {both_simt:.4f} ms in fp32 SIMT")
+        if i != 0:
+            rows["flash_attention_bwd"]["extra"].update(
+                d256_ms=bwd["kernel"], d256_plain_ms=bwd["plain"], d256_library_ms=bwd["sdpa"],
+                d256_bound_ms=bwd_bms, d256_fwd_bwd_ms=both["kernel"])
+            continue
         rows["flash_attention_bwd"] = dict(
             name="flash_attention_bwd", route="cuda",
             source="onepose_tpu_torch/csrc/flash_attention.cu",
@@ -1609,7 +1642,8 @@ def _kernels_flash(torch, timer):
                        max_abs_err_is="max |grad - plain| / max |plain grad| over dq, dk, dv",
                        shape=[b, n, m, h, d], fwd_bwd_ms=both["kernel"],
                        plain_fwd_bwd_ms=both["plain"], library_fwd_bwd_ms=both["sdpa"],
-                       fwd_bwd_bound_ms=both_bms))
+                       fwd_bwd_bound_ms=both_bms, bound_is="3 x flops at TF32_OPS_PER_S",
+                       simt_bound_ms=bwd_simt, fwd_bwd_simt_bound_ms=both_simt))
     rows["flash_attention"]["max_abs_err"] = max(fwd_errs)
     rows["flash_attention_bwd"]["max_abs_err"] = max(bwd_errs)
     return rows

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by vgg_stage.cu (K5) and
-// gats_block.cu (K4): mbarriers, the TMA unit's bulk copy (global ->
-// shared, completion counted on an mbarrier), shared-memory matrix
-// descriptors for the 128-byte swizzled K-major layout, and wgmma with A
-// in registers.
+// Hopper (sm_90a) building blocks shared by vgg_stage.cu (K5),
+// gats_block.cu (K4) and flash_attention.cu (K8, the tf32 part at the
+// end): mbarriers, the TMA unit's bulk copy (global -> shared, completion
+// counted on an mbarrier), shared-memory matrix descriptors for the
+// 128-byte swizzled K-major layout, and wgmma with A in registers.
 //
 // Weight layout (ops/kernels/_layout.py packs it on the host): a [N][K]
 // bf16 matrix is cut into K / 64 chunks of [N][64]; row n of a chunk is
@@ -19,6 +19,7 @@
 // t = lane % 4).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (a type only: nothing links against the driver library)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -179,6 +180,117 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], const uint32_t
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// --- tf32 (K8): operands are fp32 bit patterns; the tensor cores read only
+// the top 19 bits of each (sign, exponent, 10 mantissa bits: the low 13 are
+// ignored, as a probe on the H100 found for A in registers and B in shared
+// memory alike). The register operand A of m64nNk8 .tf32, per warp w of the
+// warpgroup: a0 = A[16w + g][t], a1 = A[16w + g + 8][t], a2 = A[16w + g][t + 4],
+// a3 = A[16w + g + 8][t + 4] (g = lane / 4, t = lane % 4); B is K-major in
+// shared memory (tf32 has no transpose), 32 values (128 bytes) a swizzled row,
+// a k-step of 8 values 32 bytes in: desc_b128 as for bf16. The accumulator
+// is laid out as for bf16 (see above).
+
+// x minus its tf32 part: the low part of the 3xTF32 split x = hi + lo, where
+// hi is x itself as the tensor cores read it. Exact in fp32.
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+
+// 4 bytes from global to shared memory, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes (st.shared, cp.async) before
+// later reads by the tensor cores (wgmma reads through the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// fence_regs for A fragments: keeps registers that an in-flight wgmma reads
+// from being reused before the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d[64 x 32] += a[64 x 8] (registers) * b[8 x 32] (shared memory, K-major,
+// 128-byte swizzle), tf32.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 64] += a[64 x 8] (registers) * b[8 x 64] (shared memory, K-major,
+// 128-byte swizzle), tf32.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The TMA unit copies the box at coordinates (c0, c1, c2, c3) of the 4-D
+// tensor that `map` describes into shared memory at dst (laid out, and
+// swizzled, as the map says; zeros where the box leaves the tensor);
+// completes on bar with the box's full size in bytes.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads) over n threads (a
+// multiple of 32): sync arrives and waits, arrive only arrives.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Moves registers between warpgroups of a block (setmaxnreg): a producer
+// warpgroup gives up registers, consumers take them. N is a multiple of 8.
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace hopper

@@ -7,10 +7,15 @@ onepose_tpu/models/common.py::_flash_softmax_attention (:119, the
 jax.experimental.pallas.ops.tpu.flash_attention: the forward
 `_flash_attention_impl` (flash_attention.py:589) and the backward pair
 `_flash_attention_bwd_dkv` (:941) and `_flash_attention_bwd_dq` (:1287),
-which a custom VJP joins there and `FlashAttention` here. Bound on the
-H100: operations, fp32 outside the tensor cores: 4 B H N M D flops
-forward (1.795 ms at [7, 4096, 4096, 4, 64], SuperGlue's heads at 4096
-keypoints in K7's chunks of 7 pairs), 10 B H N M D backward (4.49 ms).
+which a custom VJP joins there and `FlashAttention` here. Heads: JAX's
+route takes D <= 128 or D a multiple of 128 (flash_attention.py:455-463),
+and so does this one (`check_inputs`; D = 160 raises). Every product of
+the kernels runs on the tensor cores in 3xTF32 (wgmma .tf32; an fp32 x
+is tf32(x) + tf32(x - tf32(x)), three tf32 products for each fp32 one),
+so the bound on the H100 is 3 x the operations at 495 TFLOP/s: 4 B H N M
+D flops forward (0.585 ms at [7, 4096, 4096, 4, 64] with 80% valid keys,
+SuperGlue's heads at 4096 keypoints in K7's chunks of 7 pairs), 10 B H N
+M D backward (1.462 ms).
 
 The function, in JAX's [B, N, H, D] layout, fp32: scores (q . k) *
 sm_scale, masked keys plus MASK_VALUE (-0.7 * FLT_MAX, the library's
@@ -36,7 +41,6 @@ import torch
 from onepose_tpu_torch.ops.kernels import _build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-MAX_HEAD_DIM = 128  # the kernels stage a head of up to 128 channels
 launches = 0  # forward kernel launches since the last reset (ops.kernels.reset_launches)
 bwd_launches = 0  # backward kernel launches (dK / dV and dQ) since the last reset
 
@@ -61,16 +65,18 @@ def flash_attention_plain(
 
 
 def check_inputs(q, k, v, kv_mask) -> None:
-    """Raise ValueError unless q [B, N, H, D], k and v [B, M, H, D] with
-    D <= MAX_HEAD_DIM and kv_mask [B, M] bool or None (on every device)."""
+    """Raise ValueError unless q [B, N, H, D], k and v [B, M, H, D] with D
+    <= 128 or a multiple of 128 (JAX's condition) and kv_mask [B, M] bool
+    or None (on every device)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k and v must be [B, N|M, H, D]")
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dimension {d} > {MAX_HEAD_DIM}")
+    if not (d <= 128 or d % 128 == 0):
+        raise ValueError(f"flash_attention: head dimension {d} is neither <= 128 nor a multiple "
+                         "of 128")
     if kv_mask is not None and (kv_mask.dtype != torch.bool
                                 or tuple(kv_mask.shape) != (b, k.shape[1])):
         raise ValueError(f"flash_attention: kv_mask must be bool [{b}, {k.shape[1]}], got "

@@ -11,11 +11,21 @@ Tolerance 1e-5 absolute on the outputs and on the gradients of
 sum(out * w) (fp32 sums in another order); the rows and gradients of an
 example whose keys are all masked are exactly 0 on both sides.
 
-The CUDA kernels cannot run here; `_emulate` replays their tile schedule
-in torch (key tiles of 64 skipped when they hold no valid key, the online
-max and sum, the log-sum-exp with +inf on rows without a valid key, the
-backward's recomputed weights by key tile and query tile) against the
-plain version, on ragged shapes.
+Heads: JAX's route takes D <= 128 or a multiple of 128, and so does the
+port (D = 256 and 384 against JAX; D = 160 raises on both).
+
+The CUDA kernels cannot run here; `_emulate` replays their schedule in
+torch: every product in 3xTF32 as the tensor cores compute it (an fp32 x
+is hi + lo, hi = x with its 13 low mantissa bits dropped, as the tensor
+cores read an fp32 operand, lo = the rest, dropped likewise; three
+products hi.hi + hi.lo + lo.hi), key tiles of 64 in the forward with the
+online softmax in base 2 (a masked key -inf, a row without a valid key
+yet weighing its tile 0), each tile's P V added to the output in fp32,
+the log-sum-exp with +inf on rows without a valid key, and the
+backward's recomputed weights by tiles of 32 with each tile's products
+added in fp32. It is held to the plain version on ragged shapes and to
+JAX's route at the JAX test's shape, where one tf32 product instead of
+three misses the card's tolerance.
 """
 
 import jax
@@ -33,6 +43,8 @@ torch.set_num_threads(2)
 
 ATOL = 1e-5
 SHAPE = (2, 300, 260, 4, 64)  # [B, N, M, H, D]: tests/test_pallas_kernels.py's; pads to 512 in JAX
+# chip_smoke.py's tolerances for the kernels against the plain version on the card.
+FLASH_FWD_ABS, FLASH_BWD_REL = 2e-5, 1e-4
 
 
 def _draw(seed, b, n, m, h, d, masked=True):
@@ -114,6 +126,20 @@ def test_forward_cases_match_jax_flash_route(case):
     assert np.all(np.isfinite(got))
 
 
+@pytest.mark.parametrize("d", [256, 384])
+def test_wide_heads_match_jax_flash_route(d):
+    """JAX's route takes a head of any multiple of 128 above 128 channels,
+    and so does the port: forward and gradients, an empty example."""
+    q, k, v, mask, w = _draw(5, 2, 100, 90, 2, d)
+    want, want_grads = _jax_flash(q, k, v, mask, w)
+    got, grads = _port(q, k, v, mask, w)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.all(got[1] == 0) and np.abs(got[0]).max() > 0.1
+    for name, g, wg in zip("qkv", grads, want_grads):
+        np.testing.assert_allclose(g, wg, atol=ATOL, rtol=0, err_msg=f"d{name}")
+        assert np.all(g[1] == 0), f"d{name} of the masked example"
+
+
 def test_cpu_route_launches_nothing_and_wide_heads_raise():
     q, k, v, mask, w = (None if x is None else torch.from_numpy(x)
                         for x in _draw(3, 2, 20, 30, 2, 16))
@@ -129,51 +155,76 @@ def test_cpu_route_launches_nothing_and_wide_heads_raise():
         fa.flash_attention(q, k, v, mask[:, :5], 0.25)
 
 
-def _emulate(q, k, v, mask, scale, do, tile=64):
+def _tf32(x):
+    """x as the tensor cores read an fp32 operand: its 13 low mantissa bits dropped."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm(a, b, terms=3):
+    """a @ b (fp32, batched) as the kernels compute it: 3xTF32, hi.hi +
+    hi.lo + lo.hi with hi = tf32(x), lo = tf32(x - hi); or one tf32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return ah @ _tf32(b - bh) + _tf32(a - ah) @ bh + ah @ bh
+
+
+def _emulate(q, k, v, mask, scale, do, terms=3):
     """The CUDA kernels' schedule in torch: (o, lse, dq, dk, dv).
 
-    Forward: key tiles in order, each skipped where the example has no
-    valid key in it (`__syncthreads_or`), invalid scores -inf, the online
-    max and sum; o = acc / l and lse = m + log(l), or 0 and +inf where no
-    tile ran. Backward: per key tile (dK / dV) and per query tile (dQ),
-    p = exp(s - lse) on valid keys (0 past the tails and on +inf rows),
-    ds = p (dp - di), di = sum(o * do)."""
+    Forward: key tiles of 64 in order; scores in base 2 (s scale log2 e),
+    -inf on invalid keys; the online max and sum, a row whose max is still
+    -inf weighing the tile exp2(-inf - 0) = 0; each tile's P V (a fresh
+    accumulator) added to the rescaled output; o = acc / l and lse = m ln 2
+    + log(l), or 0 and +inf where no key was valid. Backward with di =
+    sum(o * do): the dK / dV kernel by query tiles of 32 and the dQ kernel
+    by key tiles of 32, p = exp2(s scale log2 e - lse log2 e) on valid keys
+    (0 past the tails and on +inf rows), ds = p (dp - di), each tile's
+    products added in fp32. Every product through `_mm` (`terms` tf32
+    products)."""
     b, n, h, d = q.shape
     m = k.shape[1]
     valid = torch.ones((b, m), dtype=torch.bool) if mask is None else mask
     qh, kh, vh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))  # [B, H, rows, D]
+    log2e = 1.4426950408889634
+    sl2 = torch.tensor(scale * log2e, dtype=torch.float32)
     m_run = torch.full((b, h, n), -torch.inf)
     l_run = torch.zeros((b, h, n))
     acc = torch.zeros((b, h, n, d))
-    for c0 in range(0, m, tile):
-        vt = valid[:, c0:c0 + tile]
-        run = vt.any(dim=1)[:, None, None]
-        s = torch.einsum("bhnd,bhmd->bhnm", qh, kh[:, :, c0:c0 + tile]) * scale
-        s = torch.where(vt[:, None, None, :], s, -torch.inf)
+    for c0 in range(0, m, 64):
+        cols = slice(c0, c0 + 64)
+        s = _mm(qh, kh[:, :, cols].transpose(-1, -2), terms)
+        s = torch.where(valid[:, None, None, cols], s * sl2, -torch.inf)
         m_new = torch.maximum(m_run, s.amax(dim=-1))
-        alpha = torch.exp(m_run - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l_run = torch.where(run, l_run * alpha + p.sum(dim=-1), l_run)
-        acc = torch.where(run[..., None], acc * alpha[..., None] + p @ vh[:, :, c0:c0 + tile], acc)
-        m_run = torch.where(run, m_new, m_run)
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m_run - m_use)
+        p = torch.exp2(s - m_use[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _mm(p, vh[:, :, cols], terms)
+        m_run = m_new
     ran = l_run > 0
     o = torch.where(ran[..., None], acc / l_run.clamp(min=1e-30)[..., None], 0.0)
-    lse = torch.where(ran, m_run + torch.log(l_run.clamp(min=1e-30)), torch.inf)
+    lse = torch.where(ran, m_run * 0.6931471805599453 + torch.log(l_run.clamp(min=1e-30)),
+                      torch.inf)
     di = (o * doh).sum(dim=-1)
+    lse2 = lse * log2e
+
+    def weights(rows, cols):
+        s = _mm(qh[:, :, rows], kh[:, :, cols].transpose(-1, -2), terms)
+        p = torch.where(valid[:, None, None, cols], torch.exp2(s * sl2 - lse2[:, :, rows, None]), 0.0)
+        dp = _mm(doh[:, :, rows], vh[:, :, cols].transpose(-1, -2), terms)
+        return p, p * (dp - di[:, :, rows, None])
+
     dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
-    for c0 in range(0, m, tile):
-        vt = valid[:, None, None, c0:c0 + tile]
-        if not bool(vt.any()):
-            continue
-        for n0 in range(0, n, tile):
-            rows, cols = slice(n0, n0 + tile), slice(c0, c0 + tile)
-            s = torch.einsum("bhnd,bhmd->bhnm", qh[:, :, rows], kh[:, :, cols]) * scale
-            p = torch.where(vt, torch.exp(s - lse[:, :, rows, None]), 0.0)
-            dp = torch.einsum("bhnd,bhmd->bhnm", doh[:, :, rows], vh[:, :, cols])
-            ds = p * (dp - di[:, :, rows, None])
-            dv[:, :, cols] += p.transpose(-1, -2) @ doh[:, :, rows]
-            dk[:, :, cols] += ds.transpose(-1, -2) @ qh[:, :, rows] * scale
-            dq[:, :, rows] += ds @ kh[:, :, cols] * scale
+    for n0 in range(0, n, 32):  # the dK / dV kernel's query tiles
+        rows = slice(n0, n0 + 32)
+        p, ds = weights(rows, slice(0, m))
+        dv += _mm(p.transpose(-1, -2), doh[:, :, rows], terms)
+        dk += _mm(ds.transpose(-1, -2), qh[:, :, rows], terms) * scale
+    for c0 in range(0, m, 32):  # the dQ kernel's key tiles
+        cols = slice(c0, c0 + 32)
+        _, ds = weights(slice(0, n), cols)
+        dq += _mm(ds, kh[:, :, cols], terms) * scale
     back = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731
     return back(o), lse.permute(0, 2, 1), back(dq), back(dk), back(dv)
 
@@ -182,9 +233,9 @@ def _emulate(q, k, v, mask, scale, do, tile=64):
 def test_tile_schedule_matches_plain(case):
     """The kernels' schedule against the plain version and its autograd:
     ragged N and M (tails of 6 and 2 rows), a whole key tile masked inside
-    a valid example (skipped), and masked keys whose scores (|s| up to
-    about 4e3, either sign) dwarf the valid ones': they must weigh 0 and
-    take no part in the row's max."""
+    a valid example (it changes nothing), and masked keys whose scores
+    (|s| up to about 4e3, either sign) dwarf the valid ones': they must
+    weigh 0 and take no part in the row's max."""
     b, n, m, h, d = 3, 70, 130, 2, 48
     q, k, v, mask, w = (torch.from_numpy(x) for x in _draw(4, b, n, m, h, d))
     if case == "masked_tile":
@@ -211,3 +262,36 @@ def test_tile_schedule_matches_plain(case):
         gone = ~mask[0]
         assert torch.equal(dk[0][gone], torch.zeros_like(dk[0][gone]))
         assert torch.equal(dv[0][gone], torch.zeros_like(dv[0][gone]))
+
+
+def test_three_tf32_products_meet_the_card_tolerance(main_case):
+    """At the JAX test's shape the replayed 3xTF32 schedule stays within
+    chip_smoke's tolerances of JAX's route, forward and gradients; one tf32
+    product for each fp32 one does not (its forward error is about 1e-3),
+    which is why the kernels take three."""
+    q, k, v, mask = (None if x is None else torch.tensor(x) for x in main_case["inputs"])
+    w = torch.tensor(main_case["w"])
+    scale = 1.0 / q.shape[-1] ** 0.5
+    want_o = torch.tensor(main_case["out"])
+    o, _, dq, dk, dv = _emulate(q, k, v, mask, scale, w)
+    assert float((o - want_o).abs().max()) <= FLASH_FWD_ABS
+    for name, got, want in zip("qkv", (dq, dk, dv), main_case["grads"]):
+        want = torch.tensor(want)
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        assert rel <= FLASH_BWD_REL, f"d{name}: {rel:.3e}"
+    o1 = _emulate(q, k, v, mask, scale, w, terms=1)[0]
+    assert float((o1 - want_o).abs().max()) > FLASH_FWD_ABS
+
+
+def test_phase_profiler_instruments_every_warp_specialised_kernel():
+    """scripts/profile_flash_phases.py finds its anchors in the kernel
+    source: four consumer phases in each warp-specialised kernel, three in
+    the producer's loop, and each kernel's counters go to its own row."""
+    import re
+
+    from onepose_tpu_torch.scripts import profile_flash_phases as phases
+
+    src = phases.instrumented_source()
+    assert len(re.findall(r"^\s*PHASE\(\d\)$", src, re.M)) == 4 * len(phases.KERNELS) + 3
+    for kid, name in enumerate(phases.KERNELS):
+        assert f"produce<{kid}>(" in src and f"PHASES_PUT({kid}, 0, 4)" in src, name
