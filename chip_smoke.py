@@ -171,7 +171,6 @@ PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", 
           "infer", "tracker", "demo", "multi", "bench", "sp_variants")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-TF32_OPS_PER_S = 495e12  # H100 SXM dense tf32 on the tensor cores (K8: 3 tf32 products an fp32 one)
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 NEG_INF = -1e9
 DEV = "cuda"
@@ -232,16 +231,23 @@ WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481))
 # (d_model 256, 4 heads) at the SfM budget of 4096 keypoints in K7's chunks
 # of 7 pairs, 80% valid keys; a ragged cross shape with example 1 fully
 # masked; a head of 256 channels (JAX's route takes multiples of 128 above
-# 128) with an empty example; a narrow head without a mask; the >8k budget
+# 128) with an empty example; the same production work split as 2 heads of
+# 128 and as 1 head of 256 (the wide kernels at the work of the first
+# shape, so the same bounds); a narrow head without a mask; the >8k budget
 # (forward only: the plain version's backward would hold several 4.3 GB
-# score tensors). The forward within FLASH_FWD_ABS of the plain version
-# (fp32 sums in another order, the products in 3xTF32); each gradient
-# within FLASH_BWD_REL x its max of autograd through it.
+# score tensors); the one-warpgroup kernels' heads, 384 channels and 98 (D
+# % 4 != 0), with an empty example. The tolerances are the kernel module's
+# CARD_FWD_ABS and CARD_BWD_REL.
 FLASH_SHAPES = ((7, 4096, 4096, 4, 64, "masked", True), (3, 300, 260, 4, 64, "one_empty", True),
-                (2, 1024, 1000, 2, 256, "one_empty", True), (2, 1000, 4096, 4, 32, "none", False),
-                (1, 16384, 16384, 4, 64, "masked", False))
-FLASH_TIMED = (0, 2, 4)  # the shapes timed: production, the 256-channel head, the widest
-FLASH_FWD_ABS, FLASH_BWD_REL = 2e-5, 1e-4
+                (2, 1024, 1000, 2, 256, "one_empty", True), (7, 4096, 4096, 2, 128, "masked", True),
+                (7, 4096, 4096, 1, 256, "masked", True), (2, 1000, 4096, 4, 32, "none", False),
+                (1, 16384, 16384, 4, 64, "masked", False),
+                (2, 1024, 1000, 2, 384, "one_empty", True), (3, 300, 260, 2, 98, "one_empty", True))
+# The shapes timed, by their label in the result row, and whether the plain
+# version is timed beside the kernels and SDPA (not at the production work
+# of the wide heads: it is no yardstick, and its time is the phase's).
+FLASH_TIMED = {0: ("", True), 2: ("d256", True), 3: ("prod_d128", False),
+               4: ("prod_d256", False), 6: ("wide", True), 7: ("d384", True)}
 SINKHORN_ITERS = 100
 STREAM_DRAWS = 6  # more draws of K7's production inputs, checked but not timed
 SINKHORN_ABS = 1e-3
@@ -415,30 +421,6 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tu
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-class Timer:
-    """Median device time of a call, each run after an L2 flush."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(64 * 2**20, dtype=torch.int32, device=DEV)  # 256 MB
-
-    def __call__(self, fn, reps: int = 20, warmup: int = 3) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-
 def _reset_peak(torch, phase: str, what: str) -> float:
     """torch.cuda.reset_peak_memory_stats() after a synchronize, logging what
     was allocated at the reset (GiB, returned): a peak read after it is
@@ -465,7 +447,7 @@ def phase_build():
         for line in text.splitlines():
             if "Function properties for" in line:
                 fn = line.split()[-1]  # the mangled name: template arguments as Li<n>E
-            elif "spill" in line:
+            elif "spill" in line or "C7520" in line:  # spills; wgmma serialised
                 log(f"[build] {name} {fn}: {line.strip()}")
             elif "Used" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -1483,24 +1465,30 @@ def _kernels_flash(torch, timer):
     entry point `masked_softmax_attention(..., use_flash=True)` under
     autograd at each of FLASH_SHAPES, TF32 off: the launches of a call
     (forward 1, backward 2; counts 0 just before, read just after), the
-    forward against the plain version (<= FLASH_FWD_ABS) and, where the
+    forward against the plain version (<= CARD_FWD_ABS) and, where the
     shape runs the backward, the q / k / v gradients of sum(out * w)
-    against autograd through it (<= FLASH_BWD_REL x max); an example with
-    no valid key gives exactly 0 in both; at the production shape a second
-    backward must equal the first bit for bit (no atomics). Times at the
-    FLASH_TIMED shapes (the backward's too but at the widest): the
-    kernels, the plain version, and F.scaled_dot_product_attention with the
-    same bool mask (the library yardstick, called nowhere in the package);
-    bounds at the tensor cores' tf32 rate, three tf32 products for each
-    fp32 one (the kernels' 3xTF32), and beside them the fp32-SIMT bound of
-    PR 18's kernels (the old yardstick), counting the valid keys only (a
-    masked key needs no work), and each tensor read or written once."""
+    against autograd through it (<= CARD_BWD_REL x max); an example with
+    no valid key gives exactly 0 in both; a second backward must equal the
+    first bit for bit (no atomics). Times at
+    the FLASH_TIMED shapes (the backward's too but at the widest): the
+    kernels, the plain version where FLASH_TIMED says so, and
+    F.scaled_dot_product_attention with the same bool mask (the library
+    yardstick, called nowhere in the package); bounds at the tensor cores'
+    tf32 rate, three tf32 products for each fp32 one (the kernels'
+    3xTF32), and beside them the fp32-SIMT bound of PR 18's kernels (the old
+    yardstick), counting the valid keys only (a masked key needs no work),
+    and each tensor read or written once. Heads of 65 to 128 channels and
+    of 256 run the wide kernels (csrc/flash_attention.cu), the others of up
+    to 64 the warp-specialised ones, and D % 4 != 0, misaligned tensors and
+    D >= 384 the one-warpgroup ones."""
     import torch.nn.functional as F
 
     from onepose_tpu_torch.models.common import masked_softmax_attention
     from onepose_tpu_torch.ops.kernels import flash_attention as fa
     from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
 
+    fwd_abs, bwd_rel, tf32_rate = fa.CARD_FWD_ABS, fa.CARD_BWD_REL, fa.TF32_OPS_PER_S
+    t_start = time.perf_counter()
     g = torch.Generator(device=DEV).manual_seed(18)
     none = dict.fromkeys(launch_counts(), 0)
     rows, fwd_errs, bwd_errs = {}, [], []
@@ -1525,9 +1513,9 @@ def _kernels_flash(torch, timer):
         line = (f"[kernels] flash_attention {(b, n, m, h, d)} mask {kind}: launches "
                 f"{ {key: c for key, c in counts.items() if c} } (want forward 1"
                 f"{', backward 2' if backward else ''}); forward max abs err {err:.3e} "
-                f"(<= {FLASH_FWD_ABS})")
-        ok = counts == want and err <= FLASH_FWD_ABS and bool(torch.isfinite(out).all())
-        if backward and i == 0:  # deterministic: a second backward, bit for bit
+                f"(<= {fwd_abs})")
+        ok = counts == want and err <= fwd_abs and bool(torch.isfinite(out).all())
+        if backward:  # deterministic: a second backward, bit for bit
             again = torch.autograd.grad(masked_softmax_attention(*leaves, mask, use_flash=True),
                                         leaves, w)
             same = all(torch.equal(a, c) for a, c in zip(grads, again))
@@ -1542,8 +1530,8 @@ def _kernels_flash(torch, timer):
                    for a, r in zip(grads, ref_grads)]
             bwd_errs.extend(rel)
             line += (f"; gradients max abs err / max abs: dq {rel[0]:.3e}, dk {rel[1]:.3e}, "
-                     f"dv {rel[2]:.3e} (<= {FLASH_BWD_REL})")
-            ok = ok and all(r <= FLASH_BWD_REL for r in rel)
+                     f"dv {rel[2]:.3e} (<= {bwd_rel})")
+            ok = ok and all(r <= bwd_rel for r in rel)
             ok = ok and all(bool(torch.isfinite(t).all()) for t in grads)
             del ins, ref_grads
         log(line + f"; examples without a valid key {empty}: output"
@@ -1555,6 +1543,8 @@ def _kernels_flash(torch, timer):
             path_counts = counts
         if i not in FLASH_TIMED:
             continue
+        label, time_plain = FLASH_TIMED[i]
+        at = f"{label}_" if label else ""
 
         # Times: the kernels, the plain version and SDPA on the same inputs.
         del leaves, grads, out, ref
@@ -1572,22 +1562,20 @@ def _kernels_flash(torch, timer):
         fns = {"kernel": lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, mask, scale),
                "plain": lambda q_, k_, v_: fa.flash_attention_plain(q_, k_, v_, mask, scale),
                "sdpa": sdpa}
+        if not time_plain:
+            del fns["plain"]
         reps = {"kernel": 5, "plain": 3, "sdpa": 5}
         with torch.no_grad():
             fwd = {key: timer(lambda f=f: f(q, k, v), reps=reps[key]) for key, f in fns.items()}
         fwd_bytes = 2 * qb + 2 * kb + mb  # q, k, v, mask in; o out
-        bms, by = bound(fwd_bytes, 3 * 4 * work, TF32_OPS_PER_S)
+        bms, by = bound(fwd_bytes, 3 * 4 * work, tf32_rate)
         simt_bms, _ = bound(fwd_bytes, 4 * work)
+        plain_fwd = f"plain {fwd['plain']:.4f} ms, " if time_plain else ""
         log(f"[kernels] flash_attention {(b, n, m, h, d)} forward: kernel {fwd['kernel']:.4f} "
-            f"ms, plain {fwd['plain']:.4f} ms, scaled_dot_product_attention {fwd['sdpa']:.4f} "
+            f"ms, {plain_fwd}scaled_dot_product_attention {fwd['sdpa']:.4f} "
             f"ms, bound {bms:.4f} ms in 3xTF32 ({by}: 3 x {4 * work / 1e9:.1f} GFLOP over the "
             f"{valid_keys} valid keys; {4 * n * m * h * d * b / 1e9:.1f} over all keys), "
             f"{simt_bms:.4f} ms in fp32 SIMT (the old yardstick)")
-        if i == len(FLASH_SHAPES) - 1:  # the widest shape: the forward only
-            rows["flash_attention"]["extra"].update(
-                wide_shape=[b, n, m, h, d], wide_ms=fwd["kernel"], wide_plain_ms=fwd["plain"],
-                wide_library_ms=fwd["sdpa"], wide_bound_ms=bms, wide_simt_bound_ms=simt_bms)
-            continue
         if i == 0:
             rows["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
@@ -1596,12 +1584,17 @@ def _kernels_flash(torch, timer):
                 ms=fwd["kernel"], plain_ms=fwd["plain"], library_ms=fwd["sdpa"], bound_ms=bms,
                 bound_by=by, launches=path_counts["flash_attention"],
                 extra=dict(reached_through="onepose_tpu/models/common.py:119",
-                           shape=[b, n, m, h, d], bound_is="3 x flops at TF32_OPS_PER_S",
+                           shape=[b, n, m, h, d], bound_is="3 x flops at 495 TFLOP/s",
                            simt_bound_ms=simt_bms))
         else:
             rows["flash_attention"]["extra"].update(
-                d256_shape=[b, n, m, h, d], d256_ms=fwd["kernel"], d256_plain_ms=fwd["plain"],
-                d256_library_ms=fwd["sdpa"], d256_bound_ms=bms)
+                {f"{at}shape": [b, n, m, h, d], f"{at}ms": fwd["kernel"],
+                 f"{at}library_ms": fwd["sdpa"], f"{at}bound_ms": bms,
+                 f"{at}launches": [counts["flash_attention"], counts["flash_attention_bwd"]],
+                 **({f"{at}plain_ms": fwd["plain"]} if time_plain else {}),
+                 **({f"{at}simt_bound_ms": simt_bms} if label == "wide" else {})})
+        if not backward:
+            continue
 
         # The backward alone (di and the dK / dV and dQ kernels), then
         # forward plus backward, each against the same through autograd.
@@ -1616,20 +1609,24 @@ def _kernels_flash(torch, timer):
         # q, k, v, o, do, lse, mask in; dq, dk, dv out. Forward plus
         # backward: q, k, v, w, mask in; dq, dk, dv out.
         bwd_bytes, both_bytes = 4 * qb + 4 * kb + qb // d + mb, 3 * qb + 4 * kb + mb
-        bwd_bms, bwd_by = bound(bwd_bytes, 3 * 10 * work, TF32_OPS_PER_S)
-        both_bms, _ = bound(both_bytes, 3 * 14 * work, TF32_OPS_PER_S)
+        bwd_bms, bwd_by = bound(bwd_bytes, 3 * 10 * work, tf32_rate)
+        both_bms, _ = bound(both_bytes, 3 * 14 * work, tf32_rate)
         bwd_simt, both_simt = bound(bwd_bytes, 10 * work)[0], bound(both_bytes, 14 * work)[0]
+        plain_bwd = (f", autograd through the plain version {bwd['plain']:.4f} ms" if time_plain
+                     else "")
+        plain_both = f", plain {both['plain']:.4f} ms" if time_plain else ""
         log(f"[kernels] flash_attention {(b, n, m, h, d)} backward alone (di, then the dK / dV "
-            f"and dQ kernels): {bwd['kernel']:.4f} ms, autograd through the plain version "
-            f"{bwd['plain']:.4f} ms, through scaled_dot_product_attention {bwd['sdpa']:.4f} ms, "
+            f"and dQ kernels): {bwd['kernel']:.4f} ms{plain_bwd}, through "
+            f"scaled_dot_product_attention {bwd['sdpa']:.4f} ms, "
             f"bound {bwd_bms:.4f} ms in 3xTF32 ({bwd_by}: 3 x {10 * work / 1e9:.1f} GFLOP), "
-            f"{bwd_simt:.4f} ms in fp32 SIMT; forward plus backward {both['kernel']:.4f} ms, "
-            f"plain {both['plain']:.4f} ms, sdpa {both['sdpa']:.4f} ms, bound {both_bms:.4f} ms "
+            f"{bwd_simt:.4f} ms in fp32 SIMT; forward plus backward {both['kernel']:.4f} ms"
+            f"{plain_both}, sdpa {both['sdpa']:.4f} ms, bound {both_bms:.4f} ms "
             f"in 3xTF32, {both_simt:.4f} ms in fp32 SIMT")
         if i != 0:
             rows["flash_attention_bwd"]["extra"].update(
-                d256_ms=bwd["kernel"], d256_plain_ms=bwd["plain"], d256_library_ms=bwd["sdpa"],
-                d256_bound_ms=bwd_bms, d256_fwd_bwd_ms=both["kernel"])
+                {f"{at}ms": bwd["kernel"], f"{at}library_ms": bwd["sdpa"],
+                 f"{at}bound_ms": bwd_bms, f"{at}fwd_bwd_ms": both["kernel"],
+                 **({f"{at}plain_ms": bwd["plain"]} if time_plain else {})})
             continue
         rows["flash_attention_bwd"] = dict(
             name="flash_attention_bwd", route="cuda",
@@ -1642,10 +1639,12 @@ def _kernels_flash(torch, timer):
                        max_abs_err_is="max |grad - plain| / max |plain grad| over dq, dk, dv",
                        shape=[b, n, m, h, d], fwd_bwd_ms=both["kernel"],
                        plain_fwd_bwd_ms=both["plain"], library_fwd_bwd_ms=both["sdpa"],
-                       fwd_bwd_bound_ms=both_bms, bound_is="3 x flops at TF32_OPS_PER_S",
+                       fwd_bwd_bound_ms=both_bms, bound_is="3 x flops at 495 TFLOP/s",
                        simt_bound_ms=bwd_simt, fwd_bwd_simt_bound_ms=both_simt))
     rows["flash_attention"]["max_abs_err"] = max(fwd_errs)
     rows["flash_attention_bwd"]["max_abs_err"] = max(bwd_errs)
+    log(f"[kernels] flash_attention: {len(FLASH_SHAPES)} shapes checked, {len(FLASH_TIMED)} "
+        f"timed, in {time.perf_counter() - t_start:.1f} s")
     return rows
 
 
@@ -3346,7 +3345,9 @@ def phase_train(torch, rows):
     import numpy as np
 
     t_phase = time.perf_counter()
-    _train_gats_grad(torch, Timer(torch), rows)
+    from onepose_tpu_torch.utils.profiling import FlushTimer
+
+    _train_gats_grad(torch, FlushTimer(DEV), rows)
 
     w = _world(np)
     anno_dir = _world_map(torch, np) / "anno"
@@ -5181,11 +5182,12 @@ def phase_bench(smi: str):
 
 # Phase sp_variants: the three front-end benchmarks at the scripts' shapes,
 # each with the kernels its forms must launch and its calls a window (the
-# modules' own ITERS); should the whole run near its time limit, cut these
-# counts first.
+# modules' own ITERS, but bench_sp_variants' 20 cut to 8 to keep the whole
+# run well inside its time limit); should it near the limit again, cut
+# these counts first.
 SP_VARIANT_SHAPE = dict(b=8, img=512)
 SP_VARIANTS = {"bench_sp_front": ({"nms", "vgg_stage"}, 50), "bench_sp_score": ({"nms"}, 50),
-               "bench_sp_variants": ({"nms", "vgg_stage"}, 20)}
+               "bench_sp_variants": ({"nms", "vgg_stage"}, 8)}
 SP_VARIANT_WINDOWS = 5
 
 
@@ -5248,35 +5250,44 @@ def main(argv=None) -> int:
     log("[env] TF32 off (cudnn and matmul) for the parity phases")
     smi = phase_build()  # every other phase needs the kernels
     rows = {}
+
+    def timed(phase, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        log(f"[time] phase {phase} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    from onepose_tpu_torch.utils.profiling import FlushTimer
+
     try:
         if "kernels" in phases:
-            rows = phase_kernels(torch, Timer(torch))
+            rows = timed("kernels", phase_kernels, torch, FlushTimer(DEV))
         if "ransac" in phases:
-            phase_ransac(torch)
+            timed("ransac", phase_ransac, torch)
         if "main" in phases:
-            phase_main(torch, rows)
+            timed("main", phase_main, torch, rows)
         if "pairs" in phases:
-            phase_pairs(torch, rows)
+            timed("pairs", phase_pairs, torch, rows)
         if "map" in phases:
-            phase_map(torch)
+            timed("map", phase_map, torch)
         if "cli" in phases:
-            phase_cli(torch)
+            timed("cli", phase_cli, torch)
         if "train" in phases:
-            phase_train(torch, rows)
+            timed("train", phase_train, torch, rows)
         if "detect" in phases:
-            phase_detect(torch, rows)
+            timed("detect", phase_detect, torch, rows)
         if "infer" in phases:
-            phase_infer(torch)
+            timed("infer", phase_infer, torch)
         if "tracker" in phases:
-            phase_tracker(torch)
+            timed("tracker", phase_tracker, torch)
         if "demo" in phases:
-            phase_demo(torch, rows)
+            timed("demo", phase_demo, torch, rows)
         if "multi" in phases:
-            phase_multi(torch, rows, args.multi_cards)
+            timed("multi", phase_multi, torch, rows, args.multi_cards)
         if "bench" in phases:
-            phase_bench(smi)
+            timed("bench", phase_bench, smi)
         if "sp_variants" in phases:
-            phase_sp_variants(smi)
+            timed("sp_variants", phase_sp_variants, smi)
     finally:
         if "root" in _WORLD:
             import shutil

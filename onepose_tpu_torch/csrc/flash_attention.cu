@@ -60,14 +60,23 @@
 // permuted inside each group of 8 (row 2t at position t, 2t + 1 at t + 4):
 // the product is unchanged.
 //
-// Two layouts of blocks, both with every product on the tensor cores:
-// - heads of up to 64 channels (the port's: SuperGlue's 4 x 64): a block of
-//   three warpgroups, two consumers of 64 rows each and a producer that
-//   copies and splits the other side's tiles for both, a stage ahead (see
-//   the "warp-specialised" section below);
-// - wider heads: a block of one warpgroup that does all of it in turn, its
-//   score tiles summing the head's 64-channel slices one at a time, so the
-//   scores are recomputed once an output slice (grid.y = H x slices).
+// Three layouts of blocks, all with every product on the tensor cores,
+// chosen by shape alone:
+// - heads of up to 64 channels (the port's: SuperGlue's 4 x 64), D % 4 ==
+//   0 and 16-byte aligned tensors: a block of three warpgroups, two
+//   consumers of 64 rows each and a producer that copies and splits the
+//   other side's tiles for both, a stage ahead (the "warp-specialised"
+//   section below);
+// - heads of 65 to 128 channels and of 256, D % 4 == 0, aligned: a block of
+//   three warpgroups again, whose two consumers share 64 rows and split the
+//   head's channels, a 64-channel slice each, and sum their partial score
+//   tiles in shared memory, so that each score tile is computed once; 256
+//   channels take a cluster of two such blocks (the "wide" section);
+// - the rest (D % 4 != 0, misaligned tensors, D = 384 and wider): a block of
+//   one warpgroup that does all of it in turn, its score tiles summing the
+//   head's 64-channel slices one at a time (in the forward each slice's
+//   partial a fresh accumulator, added in fp32), so the scores are
+//   recomputed once an output slice (grid.y = H x slices).
 // No wgmma sits behind a runtime condition, and every loop bound is a
 // kernel argument. There is no tile skip: a masked key's score is -inf by
 // a select, and a row whose running max is still -inf weighs its tile
@@ -525,7 +534,15 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
       if (c == ns - 1 && it + 1 < tiles)
         load_raw<T>(vs, vb + static_cast<size_t>(c0 + T) * stride, stride, M - c0 - T, os * kCW, D,
                     vec);
-      mma3_raw<T>(s, fh, fl, qs, ks, kl, w, g, t);
+      // Slice c's partial scores in a fresh accumulator, added in fp32: a
+      // chain over every slice piles up the tensor cores' truncation (2.4e-5
+      // in o at D = 384).
+      float sp[T / 2];
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) sp[i] = 0.f;
+      mma3_raw<T>(sp, fh, fl, qs, ks, kl, w, g, t);
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) s[i] += sp[i];
       __syncthreads();  // every warp is done with qs, ks and kl
       const int cn = c + 1 < ns ? c + 1 : 0, cc = c + 1 < ns ? c0 : c0 + T;
       if (c + 1 < ns || it + 1 < tiles) {  // the next slice's tiles
@@ -1098,6 +1115,683 @@ flash_bwd_dq_ws(const float* __restrict__ q, const __grid_constant__ CUtensorMap
   store_acc(dq + qoff, acc, sc2, nq, stride, 0, D, w, g, t);
 }
 
+// --- Heads of 65 to 128 channels and of 256 (D % 4 == 0, 16-byte aligned
+// tensors): warp-specialised blocks that compute each score tile once.
+//
+// A block owns 64 rows and a window of 128 channels (two 64-channel
+// slices); a head of 256 channels takes a cluster of two blocks, one a
+// window. Three warpgroups: two consumers that share the block's rows,
+// consumer c owning slice c (its own tile of the rows, its output channels),
+// and a producer that stages the other side's tiles of both slices, two
+// stages, as above (TMA tensor maps, lo and transposed tiles). A consumer
+// computes the partial score tile over its slice (and the partial dP in the
+// backward), puts it in shared memory and, once every slice's is in, adds
+// the others: (its block's two) + (the other block's two), the same sum in
+// every consumer bit for bit (fp32 addition commutes), so each holds the
+// whole tile, takes the same softmax (or weights) and runs its products over
+// its slice. Every score tile is computed once, a slice a consumer, and the
+// products are the bound's: forward 2 (S, P V), backward 4 + 3 as above.
+// The two blocks of a cluster add their own pairs first, then push the pair
+// sum into each other's shared memory through the cluster's shared window
+// (st.async, 8 KB a tile each way), counted in bytes on an mbarrier of the
+// receiving block.
+//
+// The tf32 wgmma costs nearly the same at N = 16 and 32, so the score
+// products read their B tiles as pair tiles (raw rows and lo rows side by
+// side, `pair_at`): hi . [raw | lo] is one wgmma of 2N columns, lo . raw
+// another, two a k-step instead of three. A tile's mask bytes or lse / di
+// are loaded a tile ahead. Key tiles of 32 in the forward, query (dK / dV)
+// and key (dQ) tiles of 16 in the backward, whose transposed tiles [64][16]
+// take the 64-byte swizzle. Shared memory, one block an SM:
+//   forward: q raw 32 KB, 2 stages of 2 slices of a k pair, v raw and v^T
+//            hi + lo 160, partials and the pushed sums 32: 224 KB
+//   dK / dV: k and v raw 64 KB, 2 stages of 2 slices of q and do pairs and
+//            q^T, do^T hi + lo 128, partials and sums 32: 224 KB
+//   dQ:      q and do raw 64 KB, 2 stages of 2 slices of k and v pairs and
+//            k^T hi + lo 96, partials and sums 32: 192 KB
+// scripts/profile_flash_phases.py times their phases too; PERF.md has the
+// numbers.
+
+constexpr int kWideFwdTile = 32, kWideBwdTile = 16;
+constexpr int kWideCW = 2 * kCW;  // channels a block
+constexpr int kWideBars = 32;     // mbarriers: landed[2], met[2]
+constexpr size_t kFwdWideSmem =
+    (2 * kRows * kCW + 20 * kWideFwdTile * kCW + 4 * kRows * kWideFwdTile) * sizeof(float) +
+    kAlign + kWideBars;
+constexpr size_t kDkvWideSmem =
+    (4 * kRows * kCW + 32 * kWideBwdTile * kCW + 8 * kRows * kWideBwdTile) * sizeof(float) +
+    kAlign + kWideBars;
+constexpr size_t kDqWideSmem =
+    (4 * kRows * kCW + 24 * kWideBwdTile * kCW + 8 * kRows * kWideBwdTile) * sizeof(float) +
+    kAlign + kWideBars;
+// setmaxnreg in dK / dV: 2 x 216 + 72 = 3 x 168 (its consumers hold dK, dV
+// and a score tile's hi . [raw | lo] product at once, and spilled at 208;
+// the forward and dQ keep 208 and 88: dQ spilled at 216 and 72).
+constexpr int kWideConsumerRegs = 216, kWideProducerRegs = 72;
+// Named barriers: full[stage] (the producer and both consumers, 384
+// threads), empty[stage] and the consumers' (kBarConsumers) as above.
+__device__ __forceinline__ int bar_wide_full(int s) { return 1 + s; }
+
+// The mbarriers, in the last kWideBars bytes of the block's shared memory
+// (see `landed`): landed[2] (the producer's TMA copies), met[2] (a cluster's
+// partials, by tile parity).
+__device__ __forceinline__ uint64_t* wide_bars(unsigned char* smem, size_t bytes) {
+  return reinterpret_cast<uint64_t*>(smem + bytes - kWideBars);
+}
+
+// A pair tile: a raw tile [ROWS][64] and its lo part, interleaved by
+// 32-channel chunk (chunk c's ROWS raw rows, then its ROWS lo rows, each
+// swizzled as a raw tile), so that one wgmma of 2 x ROWS columns reads both
+// as B. Float offset of (row r, channel c) of the raw part; the lo part's
+// is ROWS x 32 further.
+template <int ROWS>
+__device__ __forceinline__ int pair_at(int r, int c) {
+  return (c >> 5) * 2 * ROWS * 32 + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// The lo part of a pair tile from its raw part (split_lo, chunk by chunk).
+template <int ROWS>
+__device__ __forceinline__ void split_lo_pair(float* pair) {
+  constexpr int kChunk = ROWS * 32 / 4;  // float4s of one chunk's rows
+#pragma unroll
+  for (int k = 0; k < ROWS * kCW / 4 / kThreads; ++k) {
+    const int i = (threadIdx.x & (kThreads - 1)) + k * kThreads;
+    float4* x = reinterpret_cast<float4*>(pair) + (i / kChunk) * 2 * kChunk + i % kChunk;
+    float4 y = *x;
+    y.x = hopper::tf32_lo(y.x);
+    y.y = hopper::tf32_lo(y.y);
+    y.z = hopper::tf32_lo(y.z);
+    y.w = hopper::tf32_lo(y.w);
+    x[kChunk] = y;
+  }
+}
+
+// Float offset of (row r, channel c) in a transposed tile [kCW][16] in the
+// 64-byte swizzle: row c holds 16 positions (r at its position as in
+// trans_at), 16-byte group j of the row at j ^ (c / 2) % 4.
+__device__ __forceinline__ int trans16_at(int r, int c) {
+  const int p = (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
+  return c * 16 + ((((p >> 2) ^ (c >> 1)) & 3) << 2) + (p & 3);
+}
+
+// The wide kernels read a tile's mask bytes (key columns c0 + 8j + 2t (+ 1),
+// 0 past M) and lse / di (query columns n0 + 8j + 2t (+ 1), +inf and 0 past
+// N) a tile ahead, raw, and test or scale them where they are used: the
+// loads then land during the tile before instead of stalling its start.
+template <int T>
+__device__ __forceinline__ void column_mask(uint8_t (&mk)[T / 8][2],
+                                            const uint8_t* __restrict__ mask, int b, int M, int c0,
+                                            int t) {
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int v0 = 0; v0 < 2; ++v0) {
+      const int c = c0 + 8 * j + 2 * t + v0;
+      mk[j][v0] = c >= M ? 0 : mask == nullptr ? 1 : mask[static_cast<size_t>(b) * M + c];
+    }
+}
+
+template <int T>
+__device__ __forceinline__ void column_raw(float (&lse_c)[T / 8][2], float (&di_c)[T / 8][2],
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ di, int b, int n0, int N,
+                                           int H, int h, int t) {
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int v0 = 0; v0 < 2; ++v0) {
+      const int n = n0 + 8 * j + 2 * t + v0;
+      const size_t at = (static_cast<size_t>(b) * N + n) * H + h;
+      lse_c[j][v0] = n < N ? lse[at] : CUDART_INF_F;
+      di_c[j][v0] = n < N ? di[at] : 0.f;
+    }
+}
+
+// split_trans for the raw part of a pair tile of 16 rows, into trans16_at tiles: thread i
+// takes rows 8a + e + 4v and 8a + e + 4v + 2 (consecutive positions) by
+// channels 4c4 .. + 3 (a, e, v bits 0, 1, 2 of i; c4 the rest).
+__device__ __forceinline__ void split_trans16(float* hi, float* lo, const float* raw) {
+  const int i = threadIdx.x & (kThreads - 1);
+  const int r = 8 * (i & 1) + ((i >> 1) & 1) + 4 * ((i >> 2) & 1), c = (i >> 3) << 2;
+  const float4 x0 = *reinterpret_cast<const float4*>(raw + pair_at<16>(r, c));
+  const float4 x1 = *reinterpret_cast<const float4*>(raw + pair_at<16>(r + 2, c));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 y = j == 0   ? make_float2(x0.x, x1.x)
+                     : j == 1 ? make_float2(x0.y, x1.y)
+                     : j == 2 ? make_float2(x0.z, x1.z)
+                              : make_float2(x0.w, x1.w);
+    const int at = trans16_at(r, c + j);
+    *reinterpret_cast<float2*>(hi + at) = y;
+    *reinterpret_cast<float2*>(lo + at) = make_float2(hopper::tf32_lo(y.x), hopper::tf32_lo(y.y));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_tf32: N is 16, 32 or 64");
+  if constexpr (N == 64) {
+    hopper::wgmma_m64n64k8_tf32(d, a, desc);
+  } else if constexpr (N == 32) {
+    hopper::wgmma_m64n32k8_tf32(d, a, desc);
+  } else {
+    hopper::wgmma_m64n16k8_tf32(d, a, desc);
+  }
+}
+
+// d[64 x N] = A . B over one 64-channel slice in 3xTF32: A the block's raw
+// [64][64] tile of the slice (fragments read and split as in mma3_raw; hi
+// and lo are scratch), B a pair tile of N rows. A k-step takes two wgmmas:
+// hi . [B raw | B lo] into e (2N columns: a wgmma costs nearly the same
+// at N and 2N for N <= 32), lo . B raw into d; then d = (hi.lo + lo.hi) +
+// hi.hi in fp32. Returns with the wgmmas complete.
+template <int N>
+__device__ __forceinline__ void slice_scores(float (&d)[N / 2], uint32_t (&hi)[8][4],
+                                             uint32_t (&lo)[8][4], const float* a_raw,
+                                             const float* b_pair, int w, int g, int t) {
+  const uint32_t bp = hopper::smem_u32(b_pair);
+  const int r0 = 16 * w + g;
+  float e[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) e[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  hopper::fence_regs(d);
+  hopper::fence_regs(e);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float x[4] = {a_raw[raw_at<kRows>(r0, 8 * s + t)],
+                        a_raw[raw_at<kRows>(r0 + 8, 8 * s + t)],
+                        a_raw[raw_at<kRows>(r0, 8 * s + t + 4)],
+                        a_raw[raw_at<kRows>(r0 + 8, 8 * s + t + 4)]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[s][i] = __float_as_uint(x[i]);
+      lo[s][i] = __float_as_uint(hopper::tf32_lo(x[i]));
+    }
+  }
+  hopper::wg_fence();
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const uint64_t desc = hopper::desc_b128(bp + (s >> 2) * 2 * N * 128 + (s & 3) * 32);
+    wgmma_tf32<2 * N>(e, hi[s], desc);
+    wgmma_tf32<N>(d, lo[s], desc);
+  }
+  hopper::wg_commit();
+  hopper::wg_wait<0>();
+  hopper::fence_regs(d);
+  hopper::fence_regs(e);
+  hopper::fence_regs(hi);
+  hopper::fence_regs(lo);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      d[4 * j + i] = (e[4 * (j + N / 8) + i] + d[4 * j + i]) + e[4 * j + i];
+}
+
+// d[64 x 64] += A . B in 3xTF32 over T positions: A in registers (P or dS,
+// from acc_frags), B a transposed tile [64][T] and its lo tile (the 128-byte
+// swizzle, or the 64-byte one for T = 16). Returns with the wgmmas complete.
+template <int T>
+__device__ __forceinline__ void slice_product(float (&d)[32], uint32_t (&hi)[T / 8][4],
+                                              uint32_t (&lo)[T / 8][4], const float* b_hi,
+                                              const float* b_lo) {
+  const uint32_t bh = hopper::smem_u32(b_hi), bl = hopper::smem_u32(b_lo);
+  hopper::fence_regs(d);
+  hopper::wg_fence();
+#pragma unroll
+  for (int s = 0; s < T / 8; ++s) {
+    const uint32_t off = (s >> 2) * kCW * 128 + (s & 3) * 32;
+    const uint64_t dh = T == 16 ? hopper::desc_b64(bh + off) : hopper::desc_b128(bh + off);
+    const uint64_t dl = T == 16 ? hopper::desc_b64(bl + off) : hopper::desc_b128(bl + off);
+    hopper::wgmma_m64n64k8_tf32(d, hi[s], dh);
+    hopper::wgmma_m64n64k8_tf32(d, hi[s], dl);
+    hopper::wgmma_m64n64k8_tf32(d, lo[s], dh);
+  }
+  hopper::wg_commit();
+  hopper::wg_wait<0>();
+  hopper::fence_regs(d);
+  hopper::fence_regs(hi);
+  hopper::fence_regs(lo);
+}
+
+// The partial score tiles of tile `it`. Consumer wg puts its NP fragments
+// (NV values each) in its part of `parts` (value 4k + e of thread lt at
+// float4 k x 128 + lt), and once both consumers have, adds the other's: x =
+// own + other, the same in both. The next tile writes the parts again only
+// after both consumers have passed its full barrier, so one part a
+// consumer does. With CL = 2 each consumer then pushes half of its pair
+// sum (float4s k of its half) into the other block's `recv[it % 2]` by
+// st.async, whose bytes complete on that block's met[it % 2] (thread 0
+// of each block arms its own with the kPart x 16 bytes it awaits), and x +=
+// this block's recv once they are in: (the block's pair) + (the other
+// block's pair), the same sum in both blocks. A block writes recv[it % 2]
+// again two tiles on, after the other block's pushes of the tile between
+// have landed, so after its reads.
+template <int CL, int NP, int NV>
+__device__ __forceinline__ void sum_partials(float (&x)[NP][NV], float* parts, float* recv,
+                                             uint64_t* met, int it, int wg, int rank) {
+  constexpr int kPart = NP * NV / 4 * kThreads;  // float4s of one consumer's partials
+  const int lt = threadIdx.x & (kThreads - 1);
+  float4* mine = reinterpret_cast<float4*>(parts) + wg * kPart;
+  const float4* other = reinterpret_cast<const float4*>(parts) + (wg ^ 1) * kPart;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < NV / 4; ++k)
+      mine[(p * NV / 4 + k) * kThreads + lt] =
+          make_float4(x[p][4 * k], x[p][4 * k + 1], x[p][4 * k + 2], x[p][4 * k + 3]);
+  hopper::bar_sync(kBarConsumers, 2 * kThreads);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < NV / 4; ++k) {
+      const float4 y = other[(p * NV / 4 + k) * kThreads + lt];
+      x[p][4 * k] += y.x;
+      x[p][4 * k + 1] += y.y;
+      x[p][4 * k + 2] += y.z;
+      x[p][4 * k + 3] += y.w;
+    }
+  if constexpr (CL == 2) {
+    static_assert(NV % 8 == 0, "sum_partials: each consumer pushes half of a thread's float4s");
+    const float4* in = reinterpret_cast<const float4*>(recv) + (it & 1) * kPart;
+    const uint32_t out = hopper::cluster_addr(in, rank ^ 1);
+    uint64_t* bar = met + (it & 1);
+    const uint32_t peer_bar = hopper::cluster_addr(bar, rank ^ 1);
+    if (threadIdx.x == 0) hopper::mbar_expect_tx(bar, kPart * sizeof(float4));
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int k = 0; k < NV / 4; ++k)
+        if (k / (NV / 8) == wg)  // a constant index into x: a runtime one puts x on the stack
+          hopper::st_async4(out + ((p * NV / 4 + k) * kThreads + lt) * sizeof(float4),
+                            make_float4(x[p][4 * k], x[p][4 * k + 1], x[p][4 * k + 2],
+                                        x[p][4 * k + 3]),
+                            peer_bar);
+    hopper::mbar_wait(bar, (it >> 1) & 1);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int k = 0; k < NV / 4; ++k) {
+        const float4 y = in[(p * NV / 4 + k) * kThreads + lt];
+        x[p][4 * k] += y.x;
+        x[p][4 * k + 1] += y.y;
+        x[p][4 * k + 2] += y.z;
+        x[p][4 * k + 3] += y.w;
+      }
+  }
+}
+
+// Thread 0 initialises the mbarriers; with CL > 1 the cluster's blocks meet
+// so that no block arrives on another's before it is initialised.
+template <int CL>
+__device__ __forceinline__ void wide_start(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    hopper::mbar_init(bars + 1, 1);
+    hopper::mbar_init(bars + 2, 1);  // thread 0's expect_tx; the bytes from the other block
+    hopper::mbar_init(bars + 3, 1);
+    hopper::fence_mbar_init();
+  }
+  if constexpr (CL > 1) {
+    hopper::cluster_sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// With CL > 1 no block leaves while another may still read its partials.
+template <int CL>
+__device__ __forceinline__ void wide_end() {
+  if constexpr (CL > 1) hopper::cluster_sync();
+}
+
+// Thread 0 of the producer: the TMA copies of tile `it` (T rows of batch b,
+// head h) of each map, the block's two slices, into dst[map][slice]: raw
+// tiles, or the raw parts of pair tiles where pair[map] (32-channel chunks
+// 2 x T rows apart).
+template <int T, int NM>
+__device__ __forceinline__ void tma_wide(const CUtensorMap* const (&maps)[NM],
+                                         float* const (&dst)[NM][2], const bool (&pair)[NM],
+                                         int rank, int it, int h, int b, uint64_t* bar) {
+  hopper::mbar_expect_tx(bar, NM * 2 * T * kCW * sizeof(float));
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+      for (int j = 0; j < kCW / 32; ++j)
+        hopper::tma_load_4d(dst[i][sl] + j * (pair[i] ? 2 : 1) * T * 32, maps[i],
+                            rank * kWideCW + sl * kCW + 32 * j, h, it * T, b, bar);
+}
+
+// The producer's loop, as `produce` with one full barrier for both consumers.
+template <typename Load, typename Split>
+__device__ __forceinline__ void produce_wide(int tiles, uint64_t* landed, Load load, Split split) {
+  const bool lead = threadIdx.x == 2 * kThreads;
+  if (lead) {
+    if (tiles > 0) load(0);
+    if (tiles > 1) load(1);
+  }
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it & 1;
+    if (it >= 2) {
+      hopper::bar_sync(bar_empty(s), kWsThreads);  // tile it - 2 is done
+      if (lead) load(it);
+    }
+    hopper::mbar_wait(landed + s, (it >> 1) & 1);  // tile it's rows are in
+    split(it);
+    hopper::fence_proxy_async();
+    hopper::bar_arrive(bar_wide_full(s), kWsThreads);
+  }
+}
+
+// Forward: grid (CL x ceil(N / 64), H, B), clusters of CL blocks (the
+// head's windows) on one 64-query tile of (b, h).
+template <int CL>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_wide(const float* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+               float* __restrict__ o, float* __restrict__ lse, int N, int M, int H, int D,
+               float scale) {
+  constexpr int T = kWideFwdTile, kTile = T * kCW, kSlice = 5 * kTile, kStage = 2 * kSlice;
+  extern __shared__ unsigned char smem_raw[];
+  float* qs = align1024(smem_raw);       // [2][64][64] raw: the rows, a slice a consumer
+  float* stages = qs + 2 * kRows * kCW;  // per stage and slice: k pair [T][64] x 2, v raw,
+                                         // v^T hi [64][T], v^T lo
+  float* parts = stages + 2 * kStage;    // the score partials (sum_partials): 2 x [64 x T]
+  float* recv = parts + 2 * kRows * T;   // the other block's pair sums (CL = 2): 2 x [64 x T]
+  uint64_t* bars = wide_bars(smem_raw, kFwdWideSmem);
+  const int tid = threadIdx.x, wg = tid >> 7, h = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x % CL, n0 = blockIdx.x / CL * kRows;
+  const size_t stride = static_cast<size_t>(H) * D;
+  const int tiles = (M + T - 1) / T;
+  wide_start<CL>(bars);
+
+  if (wg == 2) {  // the producer
+    hopper::regs_dealloc<kProducerRegs>();
+    const CUtensorMap* const ma = &tk;  // the parameters' own addresses (see flash_fwd_ws)
+    const CUtensorMap* const mb = &tv;
+    produce_wide(
+        tiles, bars,
+        [=](int it) {
+          float* st = stages + (it & 1) * kStage;
+          const CUtensorMap* const maps[2] = {ma, mb};
+          float* const dst[2][2] = {{st, st + kSlice}, {st + 2 * kTile, st + kSlice + 2 * kTile}};
+          const bool pair[2] = {true, false};
+          tma_wide<T>(maps, dst, pair, rank, it, h, b, bars + (it & 1));
+        },
+        [=](int it) {
+          float* st = stages + (it & 1) * kStage;
+#pragma unroll
+          for (int sl = 0; sl < 2; ++sl) {
+            float* x = st + sl * kSlice;
+            split_lo_pair<T>(x);
+            split_trans<T>(x + 3 * kTile, x + 4 * kTile, x + 2 * kTile);
+          }
+        });
+  } else {  // a consumer: the 64 queries, slice os of the head
+    hopper::regs_alloc<kConsumerRegs>();
+    const int w = (tid >> 5) & 3, g = (tid & 31) >> 2, t = tid & 3, os = rank * 2 + wg;
+    const int nq = min(kRows, N - n0);
+    const float sl2 = scale * kLog2e;
+    float* qw = qs + wg * kRows * kCW;
+    load_raw<kRows>(qw, q + (static_cast<size_t>(b) * N + n0) * stride + h * D, stride, nq,
+                    os * kCW, D, true, q);
+    hopper::cp_async_wait_all();
+    hopper::bar_sync(kBarConsumers, 2 * kThreads);
+
+    float acc[32], m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    uint32_t fh[8][4], fl[8][4];
+    uint8_t mk[T / 8][2];
+    column_mask<T>(mk, mask, b, M, 0, t);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it & 1;
+      const float* st = stages + s * kStage + wg * kSlice;
+      bool valid[T / 8][2];
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) valid[j][0] = mk[j][0] != 0, valid[j][1] = mk[j][1] != 0;
+      column_mask<T>(mk, mask, b, M, (it + 1) * T, t);  // the next tile's
+      float sc[1][T / 2];
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) sc[0][i] = 0.f;
+      hopper::bar_sync(bar_wide_full(s), kWsThreads);
+      slice_scores<T>(sc[0], fh, fl, qw, st, w, g, t);
+      sum_partials<CL>(sc, parts, recv, bars + 2, it, wg, rank);
+      float alpha[2];
+      online_softmax<T>(sc[0], valid, sl2, m_run, l_run, alpha);
+      float part[32];  // the tile's P V: a fresh accumulator, added in fp32
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      uint32_t ph[T / 8][4], pl[T / 8][4];
+      acc_frags<T / 8>(ph, pl, sc[0]);
+      slice_product<T>(part, ph, pl, st + 3 * kTile, st + 4 * kTile);
+      if (it + 2 < tiles) hopper::bar_arrive(bar_empty(s), kWsThreads);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], part[i]);
+    }
+    finish_forward(o, lse, acc, m_run, l_run, b, n0, nq, N, H, D, h, os, stride, w, g, t);
+  }
+  wide_end<CL>();
+}
+
+// dK and dV: grid (CL x ceil(M / 64), H, B); the clusters' blocks own a
+// 64-key tile of (b, h), looping over the query tiles.
+template <int CL>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkv_wide(const __grid_constant__ CUtensorMap tq, const float* __restrict__ k,
+                   const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                   const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                   const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv,
+                   int N, int M, int H, int D, float scale) {
+  constexpr int T = kWideBwdTile, kTile = T * kCW, kSlice = 8 * kTile, kStage = 2 * kSlice;
+  extern __shared__ unsigned char smem_raw[];
+  float* ks = align1024(smem_raw);       // [2][64][64] raw k, a slice a consumer
+  float* vs = ks + 2 * kRows * kCW;      //                 v
+  float* stages = vs + 2 * kRows * kCW;  // per stage and slice: q pair [T][64] x 2, do pair,
+                                         // q^T hi [64][T], q^T lo, do^T hi, do^T lo
+  float* parts = stages + 2 * kStage;    // s and dp partials (sum_partials): 2 x 2 x [64 x T]
+  float* recv = parts + 4 * kRows * T;   // the other block's pair sums (CL = 2): 2 x 2 x [64 x T]
+  uint64_t* bars = wide_bars(smem_raw, kDkvWideSmem);
+  const int tid = threadIdx.x, wg = tid >> 7, h = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x % CL, m0 = blockIdx.x / CL * kRows;
+  const size_t stride = static_cast<size_t>(H) * D;
+  const int tiles = (N + T - 1) / T;
+  wide_start<CL>(bars);
+
+  if (wg == 2) {  // the producer
+    hopper::regs_dealloc<kWideProducerRegs>();
+    const CUtensorMap* const ma = &tq;
+    const CUtensorMap* const mb = &tdo;
+    produce_wide(
+        tiles, bars,
+        [=](int it) {
+          float* st = stages + (it & 1) * kStage;
+          const CUtensorMap* const maps[2] = {ma, mb};
+          float* const dst[2][2] = {{st, st + kSlice}, {st + 2 * kTile, st + kSlice + 2 * kTile}};
+          const bool pair[2] = {true, true};
+          tma_wide<T>(maps, dst, pair, rank, it, h, b, bars + (it & 1));
+        },
+        [=](int it) {
+          float* st = stages + (it & 1) * kStage;
+#pragma unroll
+          for (int sl = 0; sl < 2; ++sl) {
+            float* x = st + sl * kSlice;
+            split_lo_pair<T>(x);
+            split_lo_pair<T>(x + 2 * kTile);
+            split_trans16(x + 4 * kTile, x + 5 * kTile, x);
+            split_trans16(x + 6 * kTile, x + 7 * kTile, x + 2 * kTile);
+          }
+        });
+  } else {  // a consumer: the 64 keys, slice os of the head
+    hopper::regs_alloc<kWideConsumerRegs>();
+    const int w = (tid >> 5) & 3, g = (tid & 31) >> 2, t = tid & 3, os = rank * 2 + wg;
+    const int nk = min(kRows, M - m0);
+    const size_t koff = (static_cast<size_t>(b) * M + m0) * stride + h * D;
+    const float sl2 = scale * kLog2e;
+    const bool kvalid[2] = {key_valid(mask, b, M, m0 + 16 * w + g),
+                            key_valid(mask, b, M, m0 + 16 * w + g + 8)};
+    float* kw = ks + wg * kRows * kCW;
+    float* vw = vs + wg * kRows * kCW;
+    load_raw<kRows>(kw, k + koff, stride, nk, os * kCW, D, true, k);
+    load_raw<kRows>(vw, v + koff, stride, nk, os * kCW, D, true, v);
+    hopper::cp_async_wait_all();
+    hopper::bar_sync(kBarConsumers, 2 * kThreads);
+
+    float acc_k[32], acc_v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+    uint32_t fh[8][4], fl[8][4];
+    float lse_n[T / 8][2], di_n[T / 8][2];
+    column_raw<T>(lse_n, di_n, lse, di, b, 0, N, H, h, t);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it & 1;
+      const float* st = stages + s * kStage + wg * kSlice;
+      float lse_c[T / 8][2], di_c[T / 8][2];  // as column_stats
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+        for (int v0 = 0; v0 < 2; ++v0) {
+          lse_c[j][v0] = lse_n[j][v0] * kLog2e;
+          di_c[j][v0] = di_n[j][v0];
+        }
+      column_raw<T>(lse_n, di_n, lse, di, b, (it + 1) * T, N, H, h, t);  // the next tile's
+      float sd[2][T / 2];  // s^T, dp^T
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) sd[0][i] = sd[1][i] = 0.f;
+      hopper::bar_sync(bar_wide_full(s), kWsThreads);
+      slice_scores<T>(sd[0], fh, fl, kw, st, w, g, t);
+      slice_scores<T>(sd[1], fh, fl, vw, st + 2 * kTile, w, g, t);
+      sum_partials<CL>(sd, parts, recv, bars + 2, it, wg, rank);
+      dkv_weights<T>(sd[0], sd[1], kvalid, lse_c, di_c, sl2);
+      // Each tile's products into a fresh accumulator, added in fp32.
+      uint32_t ph[T / 8][4], pl[T / 8][4];
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      acc_frags<T / 8>(ph, pl, sd[0]);
+      slice_product<T>(part, ph, pl, st + 6 * kTile, st + 7 * kTile);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        acc_v[i] += part[i];
+        part[i] = 0.f;
+      }
+      acc_frags<T / 8>(ph, pl, sd[1]);
+      slice_product<T>(part, ph, pl, st + 4 * kTile, st + 5 * kTile);
+      if (it + 2 < tiles) hopper::bar_arrive(bar_empty(s), kWsThreads);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_k[i] += part[i];
+    }
+    const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
+    store_acc(dv + koff, acc_v, one, nk, stride, os * kCW, D, w, g, t);
+    store_acc(dk + koff, acc_k, sc, nk, stride, os * kCW, D, w, g, t);
+  }
+  wide_end<CL>();
+}
+
+// dQ: grid (CL x ceil(N / 64), H, B); the clusters' blocks own a 64-query
+// tile of (b, h), looping over the key tiles.
+template <int CL>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dq_wide(const float* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+                  const float* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ di, float* __restrict__ dq, int N, int M, int H,
+                  int D, float scale) {
+  constexpr int T = kWideBwdTile, kTile = T * kCW, kSlice = 6 * kTile, kStage = 2 * kSlice;
+  extern __shared__ unsigned char smem_raw[];
+  float* qs = align1024(smem_raw);        // [2][64][64] raw q, a slice a consumer
+  float* dos = qs + 2 * kRows * kCW;      //                 do
+  float* stages = dos + 2 * kRows * kCW;  // per stage and slice: k pair [T][64] x 2, v pair,
+                                          // k^T hi [64][T], k^T lo
+  float* parts = stages + 2 * kStage;    // s and dp partials (sum_partials): 2 x 2 x [64 x T]
+  float* recv = parts + 4 * kRows * T;   // the other block's pair sums (CL = 2): 2 x 2 x [64 x T]
+  uint64_t* bars = wide_bars(smem_raw, kDqWideSmem);
+  const int tid = threadIdx.x, wg = tid >> 7, h = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x % CL, n0 = blockIdx.x / CL * kRows;
+  const size_t stride = static_cast<size_t>(H) * D;
+  const int tiles = (M + T - 1) / T;
+  wide_start<CL>(bars);
+
+  if (wg == 2) {  // the producer
+    hopper::regs_dealloc<kProducerRegs>();
+    const CUtensorMap* const ma = &tk;
+    const CUtensorMap* const mb = &tv;
+    produce_wide(
+        tiles, bars,
+        [=](int it) {
+          float* st = stages + (it & 1) * kStage;
+          const CUtensorMap* const maps[2] = {ma, mb};
+          float* const dst[2][2] = {{st, st + kSlice}, {st + 2 * kTile, st + kSlice + 2 * kTile}};
+          const bool pair[2] = {true, true};
+          tma_wide<T>(maps, dst, pair, rank, it, h, b, bars + (it & 1));
+        },
+        [=](int it) {
+          float* st = stages + (it & 1) * kStage;
+#pragma unroll
+          for (int sl = 0; sl < 2; ++sl) {
+            float* x = st + sl * kSlice;
+            split_lo_pair<T>(x);
+            split_lo_pair<T>(x + 2 * kTile);
+            split_trans16(x + 4 * kTile, x + 5 * kTile, x);
+          }
+        });
+  } else {  // a consumer: the 64 queries, slice os of the head
+    hopper::regs_alloc<kConsumerRegs>();
+    const int w = (tid >> 5) & 3, g = (tid & 31) >> 2, t = tid & 3, os = rank * 2 + wg;
+    const int nq = min(kRows, N - n0);
+    const size_t qoff = (static_cast<size_t>(b) * N + n0) * stride + h * D;
+    const float sl2 = scale * kLog2e;
+    float lse_r[2], di_r[2];
+    row_stats(lse_r, di_r, lse, di, b, n0, N, H, h, w, g);
+    float* qw = qs + wg * kRows * kCW;
+    float* dow = dos + wg * kRows * kCW;
+    load_raw<kRows>(qw, q + qoff, stride, nq, os * kCW, D, true, q);
+    load_raw<kRows>(dow, dout + qoff, stride, nq, os * kCW, D, true, dout);
+    hopper::cp_async_wait_all();
+    hopper::bar_sync(kBarConsumers, 2 * kThreads);
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    uint32_t fh[8][4], fl[8][4];
+    uint8_t mk[T / 8][2];
+    column_mask<T>(mk, mask, b, M, 0, t);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it & 1;
+      const float* st = stages + s * kStage + wg * kSlice;
+      bool valid[T / 8][2];
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) valid[j][0] = mk[j][0] != 0, valid[j][1] = mk[j][1] != 0;
+      column_mask<T>(mk, mask, b, M, (it + 1) * T, t);  // the next tile's
+      float sd[2][T / 2];  // s, dp
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) sd[0][i] = sd[1][i] = 0.f;
+      hopper::bar_sync(bar_wide_full(s), kWsThreads);
+      slice_scores<T>(sd[0], fh, fl, qw, st, w, g, t);
+      slice_scores<T>(sd[1], fh, fl, dow, st + 2 * kTile, w, g, t);
+      sum_partials<CL>(sd, parts, recv, bars + 2, it, wg, rank);
+      dq_weights<T>(sd[0], sd[1], valid, lse_r, di_r, sl2);
+      uint32_t dh[T / 8][4], dl[T / 8][4];
+      float part[32];  // a fresh accumulator, added in fp32
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      acc_frags<T / 8>(dh, dl, sd[1]);
+      slice_product<T>(part, dh, dl, st + 4 * kTile, st + 5 * kTile);
+      if (it + 2 < tiles) hopper::bar_arrive(bar_empty(s), kWsThreads);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    }
+    const float sc2[2] = {scale, scale};
+    store_acc(dq + qoff, acc, sc2, nq, stride, os * kCW, D, w, g, t);
+  }
+  wide_end<CL>();
+}
+
 constexpr size_t kFwdSmem = (2 * kRows * kCW + 4 * kFwdTile * kCW) * sizeof(float) + kAlign;
 constexpr size_t kDkvSmem = (2 * kRows * kCW + 8 * kBwdTile * kCW) * sizeof(float) + kAlign;
 constexpr size_t kDqSmem = (2 * kRows * kCW + 6 * kBwdTile * kCW) * sizeof(float) + kAlign;
@@ -1153,6 +1847,37 @@ bool warp_specialised(int N, int M, int D, std::initializer_list<const void*> te
   return ok;
 }
 
+// Heads above 64 channels that the wide warp-specialised kernels take, with
+// rows the TMA unit can copy: 64 < D <= 128 (a block a 64-row tile) or D =
+// 256 (a cluster of two). Returns the cluster size, or 0 for another route.
+int wide_cluster(int N, int M, int D, std::initializer_list<const void*> tensors) {
+  int cl = D > kCW && D <= kWideCW ? 1 : D == 2 * kWideCW ? 2 : 0;
+  if (D % 4 != 0 || N <= 0 || M <= 0) cl = 0;
+  for (const void* t : tensors) cl = reinterpret_cast<uintptr_t>(t) % 16 == 0 ? cl : 0;
+  return cl;
+}
+
+// Launches a wide kernel: grid (cl x 64-row tiles, H, B), clusters of cl blocks.
+template <auto Kernel>
+cudaError_t launch_wide(size_t smem, int rows, int cl, int H, int B, cudaStream_t stream,
+                        void** args) {
+  const cudaError_t err = hopper::allow_smem<Kernel>(static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = cl;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl * ((rows + kRows - 1) / kRows), H, B);
+  cfg.blockDim = dim3(kWsThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(Kernel), args);
+}
+
 template <auto Kernel>
 cudaError_t launch(size_t smem, int rows, int per, int threads, int H, int D, int B,
                    cudaStream_t stream, void** args) {
@@ -1186,6 +1911,14 @@ extern "C" int flash_attention_fwd_launch(const float* q, const float* k, const 
       return err;
     void* args[] = {&q, &tk, &tv, &mask, &o, &lse, &N, &M, &H, &D, &scale};
     err = launch<flash_fwd_ws>(kFwdWsSmem, N, kWsRows, kWsThreads, H, D, B, stream, args);
+  } else if (const int cl = wide_cluster(N, M, D, {q, k, v})) {
+    CUtensorMap tk, tv;
+    if ((err = make_map(&tk, k, B, M, H, D, kWideFwdTile)) != cudaSuccess ||
+        (err = make_map(&tv, v, B, M, H, D, kWideFwdTile)) != cudaSuccess)
+      return err;
+    void* args[] = {&q, &tk, &tv, &mask, &o, &lse, &N, &M, &H, &D, &scale};
+    err = cl == 1 ? launch_wide<flash_fwd_wide<1>>(kFwdWideSmem, N, 1, H, B, stream, args)
+                  : launch_wide<flash_fwd_wide<2>>(kFwdWideSmem, N, 2, H, B, stream, args);
   } else {
     void* args[] = {&q, &k, &v, &mask, &o, &lse, &N, &M, &H, &D, &scale};
     err = launch<flash_fwd>(kFwdSmem, N, kRows, kThreads, H, D, B, stream, args);
@@ -1210,6 +1943,14 @@ extern "C" int flash_attention_bwd_dkv_launch(const float* q, const float* k, co
       return err;
     void* args[] = {&tq, &k, &v, &mask, &tdo, &lse, &di, &dk, &dv, &N, &M, &H, &D, &scale};
     err = launch<flash_bwd_dkv_ws>(kDkvWsSmem, M, kWsRows, kWsThreads, H, D, B, stream, args);
+  } else if (const int cl = wide_cluster(N, M, D, {q, k, v, dout})) {
+    CUtensorMap tq, tdo;
+    if ((err = make_map(&tq, q, B, N, H, D, kWideBwdTile)) != cudaSuccess ||
+        (err = make_map(&tdo, dout, B, N, H, D, kWideBwdTile)) != cudaSuccess)
+      return err;
+    void* args[] = {&tq, &k, &v, &mask, &tdo, &lse, &di, &dk, &dv, &N, &M, &H, &D, &scale};
+    err = cl == 1 ? launch_wide<flash_bwd_dkv_wide<1>>(kDkvWideSmem, M, 1, H, B, stream, args)
+                  : launch_wide<flash_bwd_dkv_wide<2>>(kDkvWideSmem, M, 2, H, B, stream, args);
   } else {
     void* args[] = {&q, &k, &v, &mask, &dout, &lse, &di, &dk, &dv, &N, &M, &H, &D, &scale};
     err = launch<flash_bwd_dkv>(kDkvSmem, M, kRows, kThreads, H, D, B, stream, args);
@@ -1233,6 +1974,14 @@ extern "C" int flash_attention_bwd_dq_launch(const float* q, const float* k, con
       return err;
     void* args[] = {&q, &tk, &tv, &mask, &dout, &lse, &di, &dq, &N, &M, &H, &D, &scale};
     err = launch<flash_bwd_dq_ws>(kDqWsSmem, N, kWsRows, kWsThreads, H, D, B, stream, args);
+  } else if (const int cl = wide_cluster(N, M, D, {q, k, v, dout})) {
+    CUtensorMap tk, tv;
+    if ((err = make_map(&tk, k, B, M, H, D, kWideBwdTile)) != cudaSuccess ||
+        (err = make_map(&tv, v, B, M, H, D, kWideBwdTile)) != cudaSuccess)
+      return err;
+    void* args[] = {&q, &tk, &tv, &mask, &dout, &lse, &di, &dq, &N, &M, &H, &D, &scale};
+    err = cl == 1 ? launch_wide<flash_bwd_dq_wide<1>>(kDqWideSmem, N, 1, H, B, stream, args)
+                  : launch_wide<flash_bwd_dq_wide<2>>(kDqWideSmem, N, 2, H, B, stream, args);
   } else {
     void* args[] = {&q, &k, &v, &mask, &dout, &lse, &di, &dq, &N, &M, &H, &D, &scale};
     err = launch<flash_bwd_dq>(kDqSmem, N, kRows, kThreads, H, D, B, stream, args);

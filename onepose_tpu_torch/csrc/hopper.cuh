@@ -225,6 +225,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// Descriptor of a K-major SWIZZLE_64B tile at shared address `addr` (512-byte
+// aligned, plus 32 bytes per k-step): rows of 64 bytes whose 16-byte group j
+// of row r sits at j ^ (r / 2) % 4, 8-row groups 512 bytes apart (SBO = 32 x
+// 16 bytes), the leading offset unused (1).
+__device__ __forceinline__ uint64_t desc_b64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
+// d[64 x 16] += a[64 x 8] (registers) * b[8 x 16] (shared memory, K-major,
+// 128-byte swizzle), tf32.
+__device__ __forceinline__ void wgmma_m64n16k8_tf32(float (&d)[8], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d[64 x 32] += a[64 x 8] (registers) * b[8 x 32] (shared memory, K-major,
 // 128-byte swizzle), tf32.
 __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], const uint32_t (&a)[4],
@@ -280,6 +302,33 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// --- Thread block clusters (K8's D = 256 kernels): a block writes another
+// block's shared memory through the cluster's shared window.
+
+// The address in the cluster's shared window of `p` (this block's shared
+// memory) in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// Stores 16 bytes into another block's shared memory (addr a cluster_addr)
+// asynchronously; their arrival counts 16 bytes of completed transactions
+// on that block's mbarrier at `bar` (a cluster_addr), as a TMA copy does.
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Every thread of every block of the cluster meets here (divergent warps allowed).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Moves registers between warpgroups of a block (setmaxnreg): a producer

@@ -152,14 +152,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _libs[name] = lib
+            lib = _libs[name] = bind(library_path(name), name)
         return lib
+
+
+def bind(path: Path, name: str) -> ctypes.CDLL:
+    """Load the shared library at `path` and give its C entry points the
+    types of `csrc/<name>.cu`'s (a copy of that source built elsewhere
+    binds the same way)."""
+    lib = ctypes.CDLL(str(path))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -23,6 +23,16 @@ DEFAULT_MASK_VALUE), softmax over the keys, times v; every row of an
 example whose keys are all masked is exactly 0, and so are its gradients
 (JAX zeroes those rows after its kernel).
 
+The kernels, chosen by shape alone in the C entry points: heads of up to
+64 channels run warp-specialised blocks whose two consumer warpgroups own
+64 rows each; heads of 65 to 128 channels and of 256 run the wide
+warp-specialised blocks, whose two consumers share 64 rows and split the
+head's channels (a cluster of two blocks for 256), each score tile
+computed once; the rest (D % 4 != 0, tensors not 16-byte aligned, D = 384
+and wider) run one warpgroup a 64-channel slice, recomputing the scores
+for each slice. A refused launch raises (`_build.check`); there is no
+fallback.
+
 `flash_attention` runs `flash_attention_plain` only on CPU tensors. On
 CUDA tensors it launches the forward kernel, through `FlashAttention`
 when autograd records: its forward saves the inputs, the output and each
@@ -41,6 +51,11 @@ import torch
 from onepose_tpu_torch.ops.kernels import _build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# The kernels against the plain version on the card (fp32 sums in another
+# order, the products in 3xTF32): the forward within CARD_FWD_ABS, each
+# gradient within CARD_BWD_REL x its largest magnitude.
+CARD_FWD_ABS, CARD_BWD_REL = 2e-5, 1e-4
+TF32_OPS_PER_S = 495e12  # H100 SXM dense tf32 on the tensor cores: the kernels' bound
 launches = 0  # forward kernel launches since the last reset (ops.kernels.reset_launches)
 bwd_launches = 0  # backward kernel launches (dK / dV and dQ) since the last reset
 

@@ -11,7 +11,8 @@ cover; `host_syncs` lists where a block made the host wait for the card;
 `card_line` is the card's name and power limit as nvidia-smi prints
 them, which every measurement of the card is printed beside;
 `time_windows` times a call by CUDA events in windows of calls and
-reports the median window and the spread.
+reports the median window and the spread; `FlushTimer` times single calls,
+each after an L2 flush, and reports the median.
 """
 
 from __future__ import annotations
@@ -102,21 +103,27 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_busy(fn) -> dict | None:
+def device_busy(fn, tries: int = 3) -> dict | None:
     """Run fn() once under torch.profiler (CUDA activity) and synchronize:
     {kernels, kernel_ms, span_ms, share}, the CUDA kernels' count, their
     summed time, the span from the first kernel's start to the last one's
     end, and kernel_ms / span_ms; None if the profiler recorded no kernel
-    (then the share is not measured)."""
+    (then the share is not measured).
+    CUPTI now and then hands back no activity for a short window of
+    kernels, so a trace with no kernel is taken again, up to `tries` runs
+    of fn() in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    kernels = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    else:
         return None
     kernel_ms = sum(r.elapsed_us() for r in kernels) / 1e3
     span_ms = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3
@@ -184,3 +191,26 @@ def time_windows(fn, device: torch.device, iters: int, windows: int, warmup: int
         per_call.append(ms / iters)
     return {"ms": statistics.median(per_call), "min_ms": min(per_call), "max_ms": max(per_call),
             "windows": per_call}
+
+
+class FlushTimer:
+    """Median device time (ms) of single calls of fn(), each run after a
+    256 MB write that flushes the L2, between CUDA events."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)  # 256 MB
+
+    def __call__(self, fn, reps: int = 20, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)

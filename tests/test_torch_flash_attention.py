@@ -23,9 +23,12 @@ online softmax in base 2 (a masked key -inf, a row without a valid key
 yet weighing its tile 0), each tile's P V added to the output in fp32,
 the log-sum-exp with +inf on rows without a valid key, and the
 backward's recomputed weights by tiles of 32 with each tile's products
-added in fp32. It is held to the plain version on ragged shapes and to
-JAX's route at the JAX test's shape, where one tf32 product instead of
-three misses the card's tolerance.
+added in fp32. Heads of 65 to 128 channels and of 256 take the wide
+kernels' schedule: key tiles of 32 forward and 16 backward, each score
+tile summed from 64-channel slices' partials in pairs. It is held to the
+plain version on ragged shapes and to JAX's route at the JAX test's
+shape, where one tf32 product instead of three misses the card's
+tolerance.
 """
 
 import jax
@@ -43,8 +46,8 @@ torch.set_num_threads(2)
 
 ATOL = 1e-5
 SHAPE = (2, 300, 260, 4, 64)  # [B, N, M, H, D]: tests/test_pallas_kernels.py's; pads to 512 in JAX
-# chip_smoke.py's tolerances for the kernels against the plain version on the card.
-FLASH_FWD_ABS, FLASH_BWD_REL = 2e-5, 1e-4
+# The tolerances that chip_smoke.py holds the kernels to against the plain version on the card.
+FLASH_FWD_ABS, FLASH_BWD_REL = fa.CARD_FWD_ABS, fa.CARD_BWD_REL
 
 
 def _draw(seed, b, n, m, h, d, masked=True):
@@ -126,10 +129,10 @@ def test_forward_cases_match_jax_flash_route(case):
     assert np.all(np.isfinite(got))
 
 
-@pytest.mark.parametrize("d", [256, 384])
+@pytest.mark.parametrize("d", [96, 128, 256, 384])
 def test_wide_heads_match_jax_flash_route(d):
-    """JAX's route takes a head of any multiple of 128 above 128 channels,
-    and so does the port: forward and gradients, an empty example."""
+    """JAX's route takes a head of up to 128 channels or of any multiple of
+    128, and so does the port: forward and gradients, an empty example."""
     q, k, v, mask, w = _draw(5, 2, 100, 90, 2, d)
     want, want_grads = _jax_flash(q, k, v, mask, w)
     got, grads = _port(q, k, v, mask, w)
@@ -169,21 +172,46 @@ def _mm(a, b, terms=3):
     return ah @ _tf32(b - bh) + _tf32(a - ah) @ bh + ah @ bh
 
 
+def _wide(d):
+    """Whether a head of d channels takes the wide kernels (65 to 128
+    channels, or 256; the others' schedules differ only in tile sizes)."""
+    return 64 < d <= 128 or d == 256
+
+
+def _scores(a, b, terms, wide):
+    """a @ b^T over the channels as the kernels sum it: one product, or (the
+    wide kernels) a partial product a 64-channel slice, the slices added in
+    pairs (a block's two), then the pairs (a cluster's two blocks); a slice
+    past D is zeros and adds nothing."""
+    if not wide:
+        return _mm(a, b.transpose(-1, -2), terms)
+    parts = [_mm(a[..., c:c + 64], b[..., c:c + 64].transpose(-1, -2), terms)
+             for c in range(0, a.shape[-1], 64)]
+    pairs = [parts[i] + parts[i + 1] if i + 1 < len(parts) else parts[i]
+             for i in range(0, len(parts), 2)]
+    return pairs[0] if len(pairs) == 1 else pairs[0] + pairs[1]
+
+
 def _emulate(q, k, v, mask, scale, do, terms=3):
     """The CUDA kernels' schedule in torch: (o, lse, dq, dk, dv).
 
-    Forward: key tiles of 64 in order; scores in base 2 (s scale log2 e),
-    -inf on invalid keys; the online max and sum, a row whose max is still
-    -inf weighing the tile exp2(-inf - 0) = 0; each tile's P V (a fresh
-    accumulator) added to the rescaled output; o = acc / l and lse = m ln 2
-    + log(l), or 0 and +inf where no key was valid. Backward with di =
-    sum(o * do): the dK / dV kernel by query tiles of 32 and the dQ kernel
-    by key tiles of 32, p = exp2(s scale log2 e - lse log2 e) on valid keys
-    (0 past the tails and on +inf rows), ds = p (dp - di), each tile's
-    products added in fp32. Every product through `_mm` (`terms` tf32
-    products)."""
+    Forward: key tiles of 64 in order (32 for the wide kernels); scores in
+    base 2 (s scale log2 e), -inf on invalid keys; the online max and sum, a
+    row whose max is still -inf weighing the tile exp2(-inf - 0) = 0; each
+    tile's P V (a fresh accumulator) added to the rescaled output; o = acc /
+    l and lse = m ln 2 + log(l), or 0 and +inf where no key was valid.
+    Backward with di = sum(o * do): the dK / dV kernel by query tiles of 32
+    and the dQ kernel by key tiles of 32 (16 for the wide kernels), p =
+    exp2(s scale log2 e - lse log2 e) on valid keys (0 past the tails and on
+    +inf rows), ds = p (dp - di), each tile's products added in fp32. In the
+    wide kernels every consumer of a row tile holds the whole score (and dp)
+    tile, summed from the slices' partials by `_scores`, and takes the same
+    softmax, so one P (one dS) serves every slice's products. Every product
+    through `_mm` (`terms` tf32 products)."""
     b, n, h, d = q.shape
     m = k.shape[1]
+    wide = _wide(d)
+    fwd_tile, bwd_tile = (32, 16) if wide else (64, 32)
     valid = torch.ones((b, m), dtype=torch.bool) if mask is None else mask
     qh, kh, vh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))  # [B, H, rows, D]
     log2e = 1.4426950408889634
@@ -191,9 +219,9 @@ def _emulate(q, k, v, mask, scale, do, terms=3):
     m_run = torch.full((b, h, n), -torch.inf)
     l_run = torch.zeros((b, h, n))
     acc = torch.zeros((b, h, n, d))
-    for c0 in range(0, m, 64):
-        cols = slice(c0, c0 + 64)
-        s = _mm(qh, kh[:, :, cols].transpose(-1, -2), terms)
+    for c0 in range(0, m, fwd_tile):
+        cols = slice(c0, c0 + fwd_tile)
+        s = _scores(qh, kh[:, :, cols], terms, wide)
         s = torch.where(valid[:, None, None, cols], s * sl2, -torch.inf)
         m_new = torch.maximum(m_run, s.amax(dim=-1))
         m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
@@ -210,19 +238,19 @@ def _emulate(q, k, v, mask, scale, do, terms=3):
     lse2 = lse * log2e
 
     def weights(rows, cols):
-        s = _mm(qh[:, :, rows], kh[:, :, cols].transpose(-1, -2), terms)
+        s = _scores(qh[:, :, rows], kh[:, :, cols], terms, wide)
         p = torch.where(valid[:, None, None, cols], torch.exp2(s * sl2 - lse2[:, :, rows, None]), 0.0)
-        dp = _mm(doh[:, :, rows], vh[:, :, cols].transpose(-1, -2), terms)
+        dp = _scores(doh[:, :, rows], vh[:, :, cols], terms, wide)
         return p, p * (dp - di[:, :, rows, None])
 
     dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
-    for n0 in range(0, n, 32):  # the dK / dV kernel's query tiles
-        rows = slice(n0, n0 + 32)
+    for n0 in range(0, n, bwd_tile):  # the dK / dV kernel's query tiles
+        rows = slice(n0, n0 + bwd_tile)
         p, ds = weights(rows, slice(0, m))
         dv += _mm(p.transpose(-1, -2), doh[:, :, rows], terms)
         dk += _mm(ds.transpose(-1, -2), qh[:, :, rows], terms) * scale
-    for c0 in range(0, m, 32):  # the dQ kernel's key tiles
-        cols = slice(c0, c0 + 32)
+    for c0 in range(0, m, bwd_tile):  # the dQ kernel's key tiles
+        cols = slice(c0, c0 + bwd_tile)
         _, ds = weights(slice(0, n), cols)
         dq += _mm(ds, kh[:, :, cols], terms) * scale
     back = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731
@@ -236,7 +264,21 @@ def test_tile_schedule_matches_plain(case):
     a valid example (it changes nothing), and masked keys whose scores
     (|s| up to about 4e3, either sign) dwarf the valid ones': they must
     weigh 0 and take no part in the row's max."""
-    b, n, m, h, d = 3, 70, 130, 2, 48
+    _check_schedule(case, 48)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("case", ["ragged", "masked_tile", "large_scores"])
+def test_wide_tile_schedule_matches_plain(case, d):
+    """The wide kernels' schedule (slices' partial scores summed in pairs,
+    key tiles of 32 forward and 16 backward, fresh accumulators) against
+    the plain version and its autograd, in the cases above: keys 64 to 127
+    masked are whole tiles of both, and |s| reaches about 1e3 at D 256."""
+    _check_schedule(case, d)
+
+
+def _check_schedule(case, d):
+    b, n, m, h = 3, 70, 130, 2
     q, k, v, mask, w = (torch.from_numpy(x) for x in _draw(4, b, n, m, h, d))
     if case == "masked_tile":
         mask[0, 64:128] = False
@@ -285,13 +327,32 @@ def test_three_tf32_products_meet_the_card_tolerance(main_case):
 
 def test_phase_profiler_instruments_every_warp_specialised_kernel():
     """scripts/profile_flash_phases.py finds its anchors in the kernel
-    source: four consumer phases in each warp-specialised kernel, three in
-    the producer's loop, and each kernel's counters go to its own row."""
+    source: four consumer phases in each D <= 64 kernel and five (the
+    partials' sum too) in each wide one, three in each producer loop
+    (`produce`, `produce_wide`), and each kernel's counters go to its own
+    row."""
     import re
 
     from onepose_tpu_torch.scripts import profile_flash_phases as phases
 
     src = phases.instrumented_source()
-    assert len(re.findall(r"^\s*PHASE\(\d\)$", src, re.M)) == 4 * len(phases.KERNELS) + 3
+    wide = [name for name in phases.KERNELS if name.endswith("_wide")]
+    assert len(wide) == 3
+    assert len(re.findall(r"^\s*PHASE\(\d\)$", src, re.M)) == (
+        4 * (len(phases.KERNELS) - len(wide)) + 5 * len(wide) + 2 * 3)
     for kid, name in enumerate(phases.KERNELS):
-        assert f"produce<{kid}>(" in src and f"PHASES_PUT({kid}, 0, 4)" in src, name
+        producer = "produce_wide" if name in wide else "produce"
+        assert f"{producer}<{kid}>(" in src and f"PHASES_PUT({kid}, 0, 5)" in src, name
+
+
+@pytest.mark.parametrize("script", ["profile_flash_phases", "compare_flash_builds"])
+def test_flash_scripts_refuse_the_cpu(script):
+    """The phase profiler and the two-build comparison time the card: on the
+    CPU each main stops before building anything."""
+    import importlib
+
+    module = importlib.import_module(f"onepose_tpu_torch.scripts.{script}")
+    argv = ["--device", "cpu"] + (["--build", "a=x", "--build", "b=y"]
+                                  if script == "compare_flash_builds" else [])
+    with pytest.raises(SystemExit, match="card"):
+        module.main(argv)

@@ -53,7 +53,8 @@ MODULES = (
     "onepose_tpu_torch.scripts.bench_mixed_attention, onepose_tpu_torch.scripts.profile_sp_layers, "
     "onepose_tpu_torch.scripts.profile_superpoint_parts, onepose_tpu_torch.scripts.demo_pipeline, "
     "onepose_tpu_torch.models.superpoint_variants, onepose_tpu_torch.scripts.bench_sp_front, "
-    "onepose_tpu_torch.scripts.bench_sp_score, onepose_tpu_torch.scripts.bench_sp_variants"
+    "onepose_tpu_torch.scripts.bench_sp_score, onepose_tpu_torch.scripts.bench_sp_variants, "
+    "onepose_tpu_torch.scripts.profile_flash_phases, onepose_tpu_torch.scripts.compare_flash_builds"
 )
 
 
