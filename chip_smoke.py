@@ -18,8 +18,10 @@ Phases, each printing its lines before the last:
      iteration; K7's sweep rate, in fp32 and with bf16 storage); NMS also
      on plateau inputs and at radii 10 and 12 (its large-radius entry),
      the dual-softmax head also with planted ties, through its masked
-     entry and at two shapes too wide for shared memory; K7's wide entry
-     (rows wider than 14848 columns) at 16385 and 20481 columns; then the
+     entry and at two shapes too wide for shared memory; K7's wide entries
+     (rows wider than 14848 columns): the cluster entry at 16385, 20481 and
+     40961 columns, the first two timed in turns against the two-sweep
+     entry, and the two-sweep entry at 131073; then the
      gradients of NMS and the VGG stage (the autograd.Functions Nms and
      VggStage: the kernel forward, the plain VJP recomputed) at the
      production shapes, against autograd through their plain versions on
@@ -224,9 +226,13 @@ MATCH_THRESHOLD = 0.0
 SINKHORN_SHAPES = ((16, 1025, 1025), (3, 301, 257), (2, 1201, 1201), (2, 301, 2401))
 STREAM_SHAPES = ((7, 4097, 4097), (5, 3000, 2049), (2, 700, 4401), (1, 1000, 9001),
                  (1, 1500, 13001))
-# K7's wide entry (rows wider than its widest instantiation, 14848
-# columns), taken on an explicit kernel request: 16384 and 20480 keypoints.
-WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481))
+# K7's wide entries (rows wider than its widest instantiation, 14848
+# columns), taken on an explicit kernel request: the cluster entry at 16384
+# and 20480 keypoints (clusters of 2, both timed against the two-sweep
+# entry) and, cheaper, at 40960 (a cluster of 3); the two-sweep entry above
+# 8 x 14848 columns.
+WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481), (1, 1025, 40961), (1, 257, 131073))
+WIDE_COMPARED = 2  # the first WIDE_SHAPES, timed against the two-sweep entry in the same call
 # K8 flash attention [B, N, M, H, D, mask, backward too]: SuperGlue's heads
 # (d_model 256, 4 heads) at the SfM budget of 4096 keypoints in K7's chunks
 # of 7 pairs, 80% valid keys; a ragged cross shape with example 1 fully
@@ -236,13 +242,15 @@ WIDE_SHAPES = ((1, 16385, 16385), (1, 20481, 20481))
 # shape, so the same bounds); a narrow head without a mask; the >8k budget
 # (forward only: the plain version's backward would hold several 4.3 GB
 # score tensors); the one-warpgroup kernels' heads, 384 channels and 98 (D
-# % 4 != 0), with an empty example. The tolerances are the kernel module's
-# CARD_FWD_ABS and CARD_BWD_REL.
+# % 4 != 0), with an empty example, and 512 and 1024 channels (ROADMAP
+# C22: their backward summed the slices' partial scores in one chain). The
+# tolerances are the kernel module's CARD_FWD_ABS and CARD_BWD_REL.
 FLASH_SHAPES = ((7, 4096, 4096, 4, 64, "masked", True), (3, 300, 260, 4, 64, "one_empty", True),
                 (2, 1024, 1000, 2, 256, "one_empty", True), (7, 4096, 4096, 2, 128, "masked", True),
                 (7, 4096, 4096, 1, 256, "masked", True), (2, 1000, 4096, 4, 32, "none", False),
                 (1, 16384, 16384, 4, 64, "masked", False),
-                (2, 1024, 1000, 2, 384, "one_empty", True), (3, 300, 260, 2, 98, "one_empty", True))
+                (2, 1024, 1000, 2, 384, "one_empty", True), (3, 300, 260, 2, 98, "one_empty", True),
+                (2, 1024, 1000, 1, 512, "one_empty", True), (2, 1024, 1000, 1, 1024, "one_empty", True))
 # The shapes timed, by their label in the result row, and whether the plain
 # version is timed beside the kernels and SDPA (not at the production work
 # of the wide heads: it is no yardstick, and its time is the phase's).
@@ -793,22 +801,14 @@ def _block_ops(b, n2, n3, L, c, h=4):
 
 def _kernel_breakdown(torch, fn, calls=3) -> dict:
     """{CUDA kernel name: (launches, device ms)} per call of fn, from
-    torch.profiler over `calls` calls after a warm-up."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler over `calls` calls after a warm-up (`cuda_trace`: an
+    empty trace is taken again, then fails the phase)."""
+    from onepose_tpu_torch.utils.profiling import cuda_trace
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, ms = out.get(e.name, (0, 0.0))
-            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
-    return {k: (n // calls, ms / calls) for k, (n, ms) in out.items()}
+    trace = cuda_trace(lambda: [fn() for _ in range(calls)])
+    return {k: (n // calls, ms / calls) for k, (n, ms) in trace.by_name().items()}
 
 
 def _graph_ms(torch, timer, fn) -> float:
@@ -966,8 +966,12 @@ def _kernels_sinkhorn(torch, timer, g):
     below 0.2 (thousands of competitors at scale 8). K7 also with bf16
     storage (the plain version rounds the coupling the same way), and in
     fp32 at its production shape on STREAM_DRAWS more draws (a generator
-    each), where near ties turn up. Bounds count the exponentials at EXP_PER_S (2 per coupling entry
-    per iteration) and each input byte once."""
+    each), where near ties turn up. K7's wide entries at WIDE_SHAPES (the
+    cluster entry up to 8 x 14848 columns, the two-sweep entry above), and
+    at the first WIDE_COMPARED of them the two-sweep entry launched through
+    its C entry point in the same call, checked and timed beside the
+    cluster entry. Bounds count the exponentials at EXP_PER_S (2 per
+    coupling entry per iteration) and each input byte once."""
     from onepose_tpu_torch.models.superglue import extract_matches
     from onepose_tpu_torch.ops.kernels import launch_counts, sinkhorn, sinkhorn_stream
 
@@ -1020,33 +1024,58 @@ def _kernels_sinkhorn(torch, timer, g):
             fail(f"the {name} kernel differs from its plain version")
         if draw:
             continue
-        prod = shape == {"sinkhorn": SINKHORN_SHAPES, "sinkhorn_stream": STREAM_SHAPES,
-                         "sinkhorn_stream_wide": WIDE_SHAPES}[name][0]
-        if not prod:
-            log(f"[kernels] {name} {shape} {store}: kernel {timer(kern, reps=3):.4f} ms at "
-                f"iters={SINKHORN_ITERS}")
+        wide = name == "sinkhorn_stream_wide"
+        entry = sinkhorn_stream.entry(shape[2])
+        shapes = {"sinkhorn": SINKHORN_SHAPES, "sinkhorn_stream": STREAM_SHAPES,
+                  "sinkhorn_stream_wide": WIDE_SHAPES}[name]
+        prod = shape == shapes[0]
+        compared = wide and shape in WIDE_SHAPES[:WIDE_COMPARED]
+        if compared:
+            two = lambda iters=SINKHORN_ITERS: _two_sweep(torch, c, mu, nu, iters, cdt)  # noqa: E731
+            ut, vt = two()
+            torch.cuda.synchronize()
+            err_t = max(float((ut - ur).abs()[vm0].max()), float((vt - vr).abs()[vm1].max()))
+            log(f"[kernels] {name} {shape} {store}: the two-sweep entry (C entry point, same "
+                f"inputs) max abs err on valid slots {err_t:.3e} (<= {SINKHORN_ABS})")
+            if not err_t <= SINKHORN_ABS:
+                fail("the two-sweep entry differs from the plain version")
+        if not (prod or compared):
+            log(f"[kernels] {name} {shape} {store} ({entry.replace('_', '-')} entry): kernel "
+                f"{timer(kern, reps=3):.4f} ms at iters={SINKHORN_ITERS}")
             continue
         b, m, n = shape
-        one = timer(lambda: call(1), reps=10)
-        ms = timer(kern, reps=10)
-        plain_ms = timer(ref, reps=3, warmup=1)
+        one = timer(lambda: call(1), reps=10 if prod else 3)
+        ms = timer(kern, reps=10 if prod else 3)
         per_iter = (ms - one) / (SINKHORN_ITERS - 1)
         key = name if cdt is None else f"{name}_bf16"
-        k = {"sinkhorn": "K6", "sinkhorn_stream": "K7"}.get(name, "K7 wide entry")
+        k = {"sinkhorn": "K6", "sinkhorn_stream": "K7"}.get(name, f"K7 {entry.replace('_', '-')} entry")
         line = (f"[kernels] {key} ({k}) {shape} {store}: kernel {ms:.4f} ms at iters="
                 f"{SINKHORN_ITERS}, {one:.4f} ms at iters=1: {per_iter * 1e3:.2f} us per "
-                f"iteration, {one - per_iter:.4f} ms fixed; plain {plain_ms:.4f} ms")
+                f"iteration, {one - per_iter:.4f} ms fixed")
+        if prod:
+            plain_ms = timer(ref, reps=3, warmup=1)
+            line += f"; plain {plain_ms:.4f} ms"
         if name != "sinkhorn":
             # The design's floor: one sweep of the stored coupling per
-            # iteration (two for the wide entry, whose second pass may
+            # iteration (two for the two-sweep entry, whose second pass may
             # miss L2).
-            sweeps = 2 if name == "sinkhorn_stream_wide" else 1
+            sweeps = 2 if entry == "two_sweep" else 1
             sweep = b * m * sinkhorn_stream.row_pitch(n) * (2 if cdt is not None else 4)
             line += (f"; sweeps of {sweep / 1e6:.1f} MB at {sweep / per_iter / 1e9:.3f} TB/s per "
                      f"iteration, {sweep * SINKHORN_ITERS / ms / 1e9:.3f} TB/s over the call; "
                      f"{sweeps} sweep(s) per iteration at {HBM_BYTES_PER_S / 1e12:.2f} TB/s would "
                      f"take {sweeps * sweep * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        if compared:
+            # The two-sweep entry in turns with the cluster entry: cluster,
+            # two-sweep, two-sweep, cluster.
+            t2 = [timer(two, reps=3) for _ in range(2)]
+            ms2 = timer(kern, reps=3)
+            floor = 2 * sweep * SINKHORN_ITERS / HBM_BYTES_PER_S * 1e3
+            line += (f"; in turns: cluster {ms:.4f} / {ms2:.4f} ms, two-sweep {t2[0]:.4f} / "
+                     f"{t2[1]:.4f} ms (its floor, two sweeps: {floor:.3f} ms)")
         log(line)
+        if not prod:
+            continue
         n_bytes = 4 * (b * m * n + 2 * b * (m + n))
         bms, by = bound(n_bytes, 2 * b * m * n * SINKHORN_ITERS, EXP_PER_S)
         rows[key] = dict(
@@ -1057,6 +1086,29 @@ def _kernels_sinkhorn(torch, timer, g):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
             bound_by=by)
     return rows
+
+
+def _two_sweep(torch, c, mu, nu, iters, cdt):
+    """K7's two-sweep entry on any width, through its C entry point (the
+    wrapper takes it only above 8 x 14848 columns): (u, v)."""
+    from onepose_tpu_torch.ops.kernels import _build, sinkhorn_stream
+
+    b, m, n = c.shape
+    stored = sinkhorn_stream.stored_coupling(c, cdt)
+    lib = _build.load("sinkhorn_stream")
+    p = sinkhorn_stream.two_sweep_plan(
+        b, m, _build.resident_blocks(lib, "sinkhorn_stream_wide_max_blocks"))
+    f32 = dict(dtype=torch.float32, device=c.device)
+    u, v = torch.empty(b, m, **f32), torch.empty(b, n, **f32)
+    part, vbuf = torch.empty(b * p.blocks_per_pair * 2 * n, **f32), torch.empty(b * n, **f32)
+    ctr = torch.zeros(b, dtype=torch.int32, device=c.device)
+    P = _build.ptr
+    err = lib.sinkhorn_stream_wide_launch(
+        P(stored), int(cdt is not None), P(mu), P(nu), P(u), P(v), P(part), P(vbuf), P(ctr), b, m,
+        n, stored.shape[2], int(iters), p.rows, p.blocks_per_pair, p.pairs_per_wave,
+        _build.stream(c.device))
+    _build.check(lib, err, "sinkhorn_stream two-sweep entry")
+    return u, v
 
 
 def _kernels_serving(torch, timer):
@@ -2057,40 +2109,27 @@ def _stage_times(torch, pipe, imgs, K, anno, draws, reps=5) -> dict:
 
 def _stage_launches(torch, pipe, imgs, K, anno, draws) -> dict:
     """(kernel launches, device ms) of each stage of one PosePipeline call,
-    each stage under its own torch.profiler (CUDA activity)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    each stage under its own torch.profiler (CUDA activity; `cuda_trace`)."""
+    from onepose_tpu_torch.utils.profiling import cuda_trace
 
     out = {}
     with torch.inference_mode():
         for name, call in _stages(torch, pipe, imgs, K, anno, draws):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            out[name] = (len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+            trace = cuda_trace(call)
+            out[name] = (len(trace.kernels), trace.kernel_ms)
     return out
 
 
 def _device_busy(torch, label, pipe, imgs, K, anno, draws, calls=3) -> None:
     """Kernel time, kernel count and device busy share of PosePipeline calls
-    under torch.profiler (CUDA activity), and the kernels taking most time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    under torch.profiler (CUDA activity; `cuda_trace`), and the kernels
+    taking most time."""
+    from onepose_tpu_torch.utils.profiling import cuda_trace
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            pipe(imgs, K, anno, draws=draws)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    trace = cuda_trace(lambda: [pipe(imgs, K, anno, draws=draws) for _ in range(calls)])
+    kernels, wall = trace.kernels, trace.wall_ms / calls
+    busy = trace.kernel_ms / calls
+    by_name = {k: ms / calls for k, (_, ms) in trace.by_name().items()}
     log(f"[main] profiler, {label}, per call: {len(kernels) // calls} kernel launches, "
         f"{busy:.2f} ms of device time in {wall:.2f} ms wall under the profiler: device busy "
         f"{100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%")
@@ -2146,18 +2185,13 @@ def _pair_stages(torch, model, feats, pairs):
 
 def _profile_stages(torch, stages) -> dict:
     """(kernel launches, device ms) of each stage, each under its own
-    torch.profiler (CUDA activity)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (CUDA activity; `cuda_trace`)."""
+    from onepose_tpu_torch.utils.profiling import cuda_trace
 
     out = {}
     for name, call in stages:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        out[name] = (len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+        trace = cuda_trace(call)
+        out[name] = (len(trace.kernels), trace.kernel_ms)
     return out
 
 
@@ -2197,7 +2231,8 @@ def _pairs_wide_request(torch, rows):
     """(c) An explicit Sinkhorn kernel request above K7's widest row:
     SuperGlue's log_sinkhorn at WIDE_SHAPES[0] (16384 keypoints a side, a
     planted assignment) with sinkhorn_kernel=True and with bf16 storage
-    launches K7's wide entry once each; the default mode takes the plain
+    launches K7's wide entry (at this width its cluster entry) once each,
+    counted as sinkhorn_stream_wide; the default mode takes the plain
     scan and launches nothing, as before. The kernel route's matches equal
     the scan's but on near ties (`_near_tie_mismatches`, with the largest
     difference of the log-assignment on valid slots as the error); bf16
@@ -2455,16 +2490,13 @@ class _StageClock:
             sync()
             t0 = time.perf_counter()
             if self.profile and self.cuda and name in self.DEVICE:
-                from torch.autograd import DeviceType
-                from torch.profiler import ProfilerActivity, profile
+                from onepose_tpu_torch.utils.profiling import cuda_trace
 
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    out = fn(*a, **k)
-                    sync()
-                kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                res = []
+                trace = cuda_trace(lambda: res.append(fn(*a, **k)))
+                out = res[-1]
                 n, ms = self.dev.get(name, (0, 0.0))
-                self.dev[name] = (n + len(kern),
-                                  ms + sum(e.time_range.elapsed_us() for e in kern) / 1e3)
+                self.dev[name] = (n + len(trace.kernels), ms + trace.kernel_ms)
             else:
                 out = fn(*a, **k)
                 sync()
@@ -3278,14 +3310,12 @@ def _train_step_breakdown(torch, index: str):
     the map's dataset: synchronized host ms of its parts (forward and loss,
     backward, optimizer; median of 5 steps), then torch.profiler over 3
     steps: CUDA kernels, device ms, busy share and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from onepose_tpu_torch.data.dataset import GATsSPGDataset, batch_iterator
     from onepose_tpu_torch.models.gats_spg import GATsSPG
     from onepose_tpu_torch.train import loop
     from onepose_tpu_torch.train import train_step as ts
     from onepose_tpu_torch.utils.precision import fp32_matmuls
+    from onepose_tpu_torch.utils.profiling import cuda_trace
 
     ds = GATsSPGDataset(index, num_leaf=TRAIN["num_leaf"], shape2d=TRAIN["shape2d"],
                         shape3d=TRAIN["shape3d"], seed=0)
@@ -3317,17 +3347,10 @@ def _train_step_breakdown(torch, index: str):
     host.update({"optimizer update": statistics.median(opt[1::2]),
                  "accumulation": statistics.median(opt[2::2])})
     calls = 4  # two optimizer updates under accumulate 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    trace = cuda_trace(lambda: [step(state, batch) for _ in range(calls)])
+    kernels, wall = trace.kernels, trace.wall_ms / calls
+    busy = trace.kernel_ms / calls
+    by_name = {k: ms / calls for k, (_, ms) in trace.by_name().items()}
     log(f"[train] one micro-step at batch {TRAIN['batch_size']}, host ms (synchronized, median "
         f"of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
         + f"; profiler over "
@@ -3945,25 +3968,22 @@ def _tracker_syncs(torch, trk, frame, K) -> list:
 
 def _tracker_profile(torch, trk, frame, K, calls=3) -> tuple:
     """(CUDA kernels, device ms, wall ms) per tracked frame under
-    torch.profiler, each call from the same state, and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (`cuda_trace`), each call from the same state, and the
+    top kernels."""
+    from onepose_tpu_torch.utils.profiling import cuda_trace
 
     saved = (trk.state, trk._frame_count, trk._use_motion_cnt)
     _, image, kp, ds, m, _ = frame
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(calls):
             trk.state, trk._frame_count, trk._use_motion_cnt = saved
             trk.track(image, kp, ds, m, K)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
+
+    trace = cuda_trace(run)
     trk.state, trk._frame_count, trk._use_motion_cnt = saved
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    kernels, wall = trace.kernels, trace.wall_ms / calls
+    by_name = {k: ms / calls for k, (_, ms) in trace.by_name().items()}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return len(kernels) // calls, busy, wall, top

@@ -74,9 +74,9 @@
 //   channels take a cluster of two such blocks (the "wide" section);
 // - the rest (D % 4 != 0, misaligned tensors, D = 384 and wider): a block of
 //   one warpgroup that does all of it in turn, its score tiles summing the
-//   head's 64-channel slices one at a time (in the forward each slice's
-//   partial a fresh accumulator, added in fp32), so the scores are
-//   recomputed once an output slice (grid.y = H x slices).
+//   head's 64-channel slices one at a time (each slice's partial S, and
+//   dP in the backward, a fresh accumulator, added in fp32), so the scores
+//   are recomputed once an output slice (grid.y = H x slices).
 // No wgmma sits behind a runtime condition, and every loop bound is a
 // kernel argument. There is no tile skip: a masked key's score is -inf by
 // a select, and a row whose running max is still -inf weighs its tile
@@ -629,8 +629,16 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k, const fl
       }
       hopper::fence_proxy_async();
       __syncthreads();
-      mma3_raw<T>(st, fh, fl, ks, qs, ql, w, g, t);
-      mma3_raw<T>(dpt, fh, fl, vs, dos, dol, w, g, t);
+      // Slice c's partial S^T and dP^T, each in a fresh accumulator added
+      // in fp32, as in the forward (C22: a chain over every slice read
+      // 5.0e-5 of the gradients' max from float64 at D = 1024).
+      float sp[T / 2], dpp[T / 2];
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) sp[i] = dpp[i] = 0.f;
+      mma3_raw<T>(sp, fh, fl, ks, qs, ql, w, g, t);
+      mma3_raw<T>(dpp, fh, fl, vs, dos, dol, w, g, t);
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) st[i] += sp[i], dpt[i] += dpp[i];
       __syncthreads();  // every warp is done with ks, vs, qs, ql, dos and dol
       const int cn = c + 1 < ns ? c + 1 : 0, nn = c + 1 < ns ? n0 : n0 + T;
       if (c + 1 < ns || it + 1 < tiles) {  // the next slice's tiles
@@ -719,8 +727,15 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const flo
       if (c == os) split_trans<T>(kth, ktl, ks);
       hopper::fence_proxy_async();
       __syncthreads();
-      mma3_raw<T>(s, fh, fl, qs, ks, kl, w, g, t);
-      mma3_raw<T>(dp, fh, fl, dos, vs, vl, w, g, t);
+      // Slice c's partial S and dP, each in a fresh accumulator added in
+      // fp32 (C22, see dK / dV).
+      float sp[T / 2], dpp[T / 2];
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) sp[i] = dpp[i] = 0.f;
+      mma3_raw<T>(sp, fh, fl, qs, ks, kl, w, g, t);
+      mma3_raw<T>(dpp, fh, fl, dos, vs, vl, w, g, t);
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) s[i] += sp[i], dp[i] += dpp[i];
       __syncthreads();  // every warp is done with qs, dos, ks, kl, vs and vl
       const int cn = c + 1 < ns ? c + 1 : 0, cc = c + 1 < ns ? c0 : c0 + T;
       if (c + 1 < ns || it + 1 < tiles) {  // the next slice's tiles

@@ -304,8 +304,9 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// --- Thread block clusters (K8's D = 256 kernels): a block writes another
-// block's shared memory through the cluster's shared window.
+// --- Thread block clusters (K8's D = 256 kernels, K7's cluster entry): a
+// block writes another block's shared memory through the cluster's shared
+// window.
 
 // The address in the cluster's shared window of `p` (this block's shared
 // memory) in the block of cluster rank `rank`.
@@ -323,6 +324,15 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float4 v, uint32_t bar)
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
       "[%5];\n" ::"r"(addr),
       "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// The same for 8 bytes (addr 8-byte aligned).
+__device__ __forceinline__ void st_async2(uint32_t addr, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(v.x), "f"(v.y), "r"(bar)
       : "memory");
 }
 

@@ -92,7 +92,7 @@ sinkhorn_resident(const float* __restrict__ c, const float* __restrict__ mu,
             if (ok[r]) u_out[static_cast<size_t>(b) * M + r0 + i0 + r] = U[r] * kLn2;
       }
       cs.merge_groups(merge, N, g, G);
-      if (g == 0) cs.store(part_b + static_cast<size_t>(k) * 2 * N, N);
+      if (g == 0) cs.store(part_b + static_cast<size_t>(k) * 2 * N, N, N);
       pair_barrier(ctr + b, target += cpp);
       reduce_slice(part_b, cpp, N, j0, j1, nu + static_cast<size_t>(b) * N, vb,
                    last ? v_out + static_cast<size_t>(b) * N : nullptr);

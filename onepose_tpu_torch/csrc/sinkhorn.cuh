@@ -191,7 +191,7 @@ struct Columns {
   // time, with a block barrier (id 1) around each.
   __device__ __forceinline__ void merge_groups(float* buf, int N, int g, int groups) {
     for (int src = groups - 1; src > 0; --src) {
-      if (g == src) store(buf, N);
+      if (g == src) store(buf, N, N);
       named_sync(1, kThreads);
       if (g == 0) {
 #pragma unroll
@@ -207,33 +207,32 @@ struct Columns {
     }
   }
 
-  // The accumulators as one partial [max row of N, sum row of N].
-  __device__ __forceinline__ void store(float* pm, int N) const {
+  // The accumulators of the N columns as one partial: maxima at pm, sums
+  // `ld` floats after them.
+  __device__ __forceinline__ void store(float* pm, int N, int ld) const {
 #pragma unroll
     for (int k = 0; k < KC; ++k)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = col(k, e);
-        if (j < N) pm[j] = m[k][e], pm[N + j] = s[k][e];
+        if (j < N) pm[j] = m[k][e], pm[ld + j] = s[k][e];
       }
-    if (t < tail) pm[tail_col()] = mt, pm[N + tail_col()] = st;
+    if (t < tail) pm[tail_col()] = mt, pm[ld + tail_col()] = st;
   }
 };
 
-// One step of a group over RS rows (row r at rows[r], pitch ld, valid if
-// ok[r], the valid rows first; mu2 already in base 2): U[r] = mu2[r] -
-// lse2_j(C2[r, j] + v[j]), then the rows are folded into the columns'
-// accumulators. `red` is the block's exchange, `parity` alternates between
-// a group's steps, `wg` is the group's first warp, `bar` its named barrier.
-// The loads take no branch: a chunk past the row reads the row's last
-// chunk, the tail column of a thread without one reads column N - 1, and
-// v = -inf there makes them count for nothing in u; their accumulators
-// are never stored. An invalid row reads a valid one.
+// The group's log-sum-exp (base 2) of C2[r, j] + v[j] over its columns for
+// RS rows (row r at rows[r], pitch ld), side by side: on return every lane
+// holds each row's (M, S), the max and the sum of exponentials scaled to
+// it. `red` is the block's exchange, `parity` alternates between a group's
+// steps, `wg` is the group's first warp, `bar` its named barrier. The loads
+// take no branch: a chunk past the row reads the row's last chunk, the tail
+// column of a thread without one reads column N - 1, and v = -inf there
+// makes them count for nothing.
 template <typename T, int W, int KC, int RS>
-__device__ __forceinline__ void row_step(Columns<W, KC>& cs, const T* const (&rows)[RS],
-                                         const bool (&ok)[RS], const float (&mu2)[RS], int N,
-                                         int ld, float2* red, int parity, int wg, int bar,
-                                         float (&U)[RS]) {
+__device__ __forceinline__ void row_lse(const Columns<W, KC>& cs, const T* const (&rows)[RS], int N,
+                                        int ld, float2* red, int parity, int wg, int bar,
+                                        float (&M)[RS], float (&S)[RS]) {
   static_assert(RS <= kMaxRowsPerStep && W <= kMaxWarps, "the exchange holds this step");
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) - wg;
   float2* slot = red + (parity * kMaxWarps + wg) * kMaxRowsPerStep;
@@ -287,27 +286,39 @@ __device__ __forceinline__ void row_step(Columns<W, KC>& cs, const T* const (&ro
   named_sync(bar, 32 * W);
   // Every aligned run of W lanes reads the W warps' (max, sum) and merges
   // them in a tree, so every lane holds the row's total.
-  float M[RS], S[RS];
+  float Mp[RS];
 #pragma unroll
   for (int r = 0; r < RS; ++r) {
     const float2 p = slot[(lane % W) * kMaxRowsPerStep + r];
-    M[r] = p.x, S[r] = p.y;
+    Mp[r] = p.x, S[r] = p.y;
   }
-  float Mw[RS];
 #pragma unroll
-  for (int r = 0; r < RS; ++r) Mw[r] = M[r];
+  for (int r = 0; r < RS; ++r) M[r] = Mp[r];
 #pragma unroll
   for (int off = W / 2; off > 0; off >>= 1)
 #pragma unroll
-    for (int r = 0; r < RS; ++r) Mw[r] = fmaxf(Mw[r], __shfl_xor_sync(0xffffffffu, Mw[r], off));
+    for (int r = 0; r < RS; ++r) M[r] = fmaxf(M[r], __shfl_xor_sync(0xffffffffu, M[r], off));
 #pragma unroll
-  for (int r = 0; r < RS; ++r) S[r] = M[r] == kEmpty ? 0.f : S[r] * ex2(M[r] - Mw[r]);
+  for (int r = 0; r < RS; ++r) S[r] = Mp[r] == kEmpty ? 0.f : S[r] * ex2(Mp[r] - M[r]);
 #pragma unroll
   for (int off = W / 2; off > 0; off >>= 1)
 #pragma unroll
     for (int r = 0; r < RS; ++r) S[r] += __shfl_xor_sync(0xffffffffu, S[r], off);
+}
+
+// One step of a group over RS rows (valid if ok[r], the valid rows first;
+// mu2 already in base 2; the rest as row_lse): U[r] = mu2[r] -
+// lse2_j(C2[r, j] + v[j]), then the rows are folded into the columns'
+// accumulators. An invalid row reads a valid one.
+template <typename T, int W, int KC, int RS>
+__device__ __forceinline__ void row_step(Columns<W, KC>& cs, const T* const (&rows)[RS],
+                                         const bool (&ok)[RS], const float (&mu2)[RS], int N,
+                                         int ld, float2* red, int parity, int wg, int bar,
+                                         float (&U)[RS]) {
+  float M[RS], S[RS];
+  row_lse<T, W, KC, RS>(cs, rows, N, ld, red, parity, wg, bar, M, S);
 #pragma unroll
-  for (int r = 0; r < RS; ++r) U[r] = mu2[r] - (Mw[r] + lg2(S[r]));
+  for (int r = 0; r < RS; ++r) U[r] = mu2[r] - (M[r] + lg2(S[r]));
   // The fold reads the rows again from shared memory.
   cs.fold_rows(rows, ok, ld, N, U);
 }

@@ -174,7 +174,9 @@ def _flash_softmax_attention(q, k, v, kv_mask, sm_scale):
     key mask, fp32, in the [B, N|M, H, D] layout (nothing transposed).
     Rows whose keys are all masked are zeroed, as the JAX flash route does
     (the plain path returns the mean of v there), and so are their
-    gradients. The head dimension is at most 128 (ValueError above)."""
+    gradients. The head dimension is at most 128 or a multiple of 128, as
+    JAX's flash route takes (`flash_attention.check_inputs`; ValueError
+    otherwise)."""
     q, k, v = (x.float().contiguous() for x in (q, k, v))
     mask = None if kv_mask is None else kv_mask.contiguous()
     return flash_attention(q, k, v, mask, sm_scale)

@@ -26,7 +26,8 @@ the device's own SM count. Rows wider than K7's widest instantiation
 (`sinkhorn.max_columns`) take the plain scan on any device when neither a
 kernel (sinkhorn_kernel True) nor bf16 storage was asked for, as the JAX
 package takes its scan above its guard only in its default mode; asked
-for, they go to K7's wide entry, as the JAX package runs its streamed
+for, they go to K7's wide entries (its cluster entry up to 8 x 14848
+columns, its two-sweep entry above), as the JAX package runs its streamed
 kernel there. Each wrapper runs its plain version for CPU tensors.
 """
 
@@ -107,7 +108,7 @@ def log_sinkhorn(
     m, n = couplings.shape[1:]
     # Rows wider than K7's widest instantiation take the scan by default, as
     # the JAX package's do above its guard; asked for a kernel (kernel True
-    # or stream_bf16), they go to K7's wide entry.
+    # or stream_bf16), they go to K7's wide entries.
     too_wide = n > sinkhorn.max_columns(_build.variants("sinkhorn_stream"))
     if kernel is False or (too_wide and kernel is None and not stream_bf16):
         u, v = sinkhorn.sinkhorn_potentials_plain(couplings, log_mu, log_nu, iters)

@@ -30,8 +30,9 @@ kernels, counted as `flash_attention_bwd`.
 `gats_block` counts one launch per call of its wrapper, which runs the
 block as a sequence of 33 CUDA kernels. `sinkhorn` and `sinkhorn_stream`
 each run all their iterations in one cooperative launch; the streamed
-kernel's wide entry (rows wider than 14848 columns) counts its own
-launches, as `sinkhorn_stream_wide`. `dual_softmax`
+kernel's two wide entries (rows wider than 14848 columns: the cluster
+entry up to 118784, the two-sweep entry above) count their launches
+together, as `sinkhorn_stream_wide`. `dual_softmax`
 counts one per call: a cooperative launch after a memset of its scratch.
 `score_path` counts one per call: one CUDA kernel up to radius 9, five
 above.

@@ -67,6 +67,8 @@ SIGNATURES = {
         "sinkhorn_stream_launch": ([_P, _I] + [_P] * 7 + [_I] * 13 + [_P], _I),
         "sinkhorn_stream_wide_max_blocks": ([], _I),
         "sinkhorn_stream_wide_launch": ([_P, _I] + [_P] * 7 + [_I] * 8 + [_P], _I),
+        "sinkhorn_stream_cluster_max_clusters": ([_I] * 3, _I),
+        "sinkhorn_stream_cluster_launch": ([_P, _I] + [_P] * 7 + [_I] * 14 + [_P], _I),
     },
     "flash_attention": {
         "flash_attention_fwd_launch": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
@@ -102,19 +104,20 @@ def library_path(name: str) -> Path:
 
 
 @lru_cache(maxsize=None)
-def variants(name: str) -> dict[tuple[int, int], int]:
-    """The instantiations that `csrc/<name>.cu` lists in its X-macro
-    `VARIANTS`, as X(W, KC, RS): (warps a group, chunks a thread) -> rows a
-    group step. The source's pick() expands the same list, so a plan that
-    chooses from this table names only a compiled kernel."""
+def variants(name: str, macro: str = "VARIANTS") -> dict[tuple[int, int], int]:
+    """The instantiations that `csrc/<name>.cu` lists in its X-macro `macro`
+    (VARIANTS, or K7's CLUSTER_VARIANTS), as X(W, KC, RS): (warps a group,
+    chunks a thread) -> rows a group step. The source's pick functions
+    expand the same lists, so a plan that chooses from this table names
+    only a compiled kernel."""
     text = (CSRC / f"{name}.cu").read_text()
-    found = re.search(r"^#define VARIANTS\(X\)((?:.*\\\n)*.*)$", text, re.M)
+    found = re.search(rf"^#define {macro}\(X\)((?:.*\\\n)*.*)$", text, re.M)
     if found is None:
-        raise RuntimeError(f"csrc/{name}.cu defines no VARIANTS(X) list")
+        raise RuntimeError(f"csrc/{name}.cu defines no {macro}(X) list")
     table = {(int(w), int(kc)): int(rs)
              for w, kc, rs in re.findall(r"X\((\d+),\s*(\d+),\s*(\d+)\)", found.group(1))}
     if not table:
-        raise RuntimeError(f"csrc/{name}.cu: VARIANTS(X) lists no instantiation")
+        raise RuntimeError(f"csrc/{name}.cu: {macro}(X) lists no instantiation")
     return table
 
 

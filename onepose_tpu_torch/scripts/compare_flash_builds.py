@@ -13,7 +13,8 @@ the builds), TF32 off:
   gradient within CARD_BWD_REL x its max (`ops/kernels/flash_attention.py`'s
   tolerances, which chip_smoke.py holds the package to); beside them, the
   forward's and the plain version's distance from the plain version in
-  float64, a witness of which of the two an error belongs to;
+  float64, and the same for each gradient (relative to its max), a witness
+  of which of the two an error belongs to;
 - then, in turns over the builds in order and back (A, B, B, A), the
   forward and the backward alone (di = sum(o * do), then the dK / dV and
   the dQ kernels), and scaled_dot_product_attention's forward and
@@ -125,13 +126,22 @@ def check(lib, q, k, v, w, mask) -> dict:
     ref = fa.flash_attention_plain(*ins, mask, scale)
     ref_grads = torch.autograd.grad(ref, ins, w)
     ref = ref.detach()
-    ref64 = fa.flash_attention_plain(q.double(), k.double(), v.double(), mask, scale)
+    ins64 = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    ref64 = fa.flash_attention_plain(*ins64, mask, scale)
+    grads64 = torch.autograd.grad(ref64, ins64, w.double())
+    ref64 = ref64.detach()
     fwd = float((o - ref).abs().max())
-    rel = [float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
-           for a, r in zip(grads, ref_grads)]
+
+    def rel_to(got, want):
+        return [float((a.double() - r.double()).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for a, r in zip(got, want)]
+
+    rel = rel_to(grads, ref_grads)
     return {"fwd_max_abs_err": fwd, "grad_rel_err": rel,
             "fwd_f64_err": float((o.double() - ref64).abs().max()),
             "plain_f64_err": float((ref.double() - ref64).abs().max()),
+            "grad_f64_rel_err": rel_to(grads, grads64),
+            "plain_grad_f64_rel_err": rel_to(ref_grads, grads64),
             "ok": fwd <= fa.CARD_FWD_ABS and max(rel) <= fa.CARD_BWD_REL}
 
 
@@ -158,7 +168,9 @@ def run(libs: dict[str, ctypes.CDLL], device: torch.device, shapes=SHAPES, windo
             log(f"[check] {name} {shape}: forward {c['fwd_max_abs_err']:.3e}, gradients "
                 f"{', '.join(f'{r:.3e}' for r in c['grad_rel_err'])} -> "
                 f"{'ok' if c['ok'] else 'DISAGREES'}; from float64: forward "
-                f"{c['fwd_f64_err']:.3e}, plain version {c['plain_f64_err']:.3e}")
+                f"{c['fwd_f64_err']:.3e}, plain version {c['plain_f64_err']:.3e}; gradients "
+                f"from float64 {', '.join(f'{r:.3e}' for r in c['grad_f64_rel_err'])}, plain "
+                f"version {', '.join(f'{r:.3e}' for r in c['plain_grad_f64_rel_err'])}")
         amask = mask[:, None, None, :]
 
         def sdpa(q_, k_, v_):

@@ -5,9 +5,12 @@ tock accumulator with the same `report()` keys; with `sync=True` each
 stage boundary waits for the card (`torch.cuda.synchronize()`, where the
 JAX package drains its effects). `device_trace` records a `torch.profiler`
 trace of CPU and CUDA activity and exports it to `log_dir` (Chrome trace
-format, viewable in TensorBoard or Perfetto). `device_busy` sums the CUDA
-kernel time of a block under torch.profiler over the span the kernels
-cover; `host_syncs` lists where a block made the host wait for the card;
+format, viewable in TensorBoard or Perfetto). `cuda_trace` runs a block
+under torch.profiler and returns its CUDA kernels (by name, device ms, the
+span they cover) and its host ms, taking an empty trace again and raising
+if every try came back empty; `device_busy` sums the CUDA kernel time of a
+block over the span the kernels cover (through `cuda_trace`);
+`host_syncs` lists where a block made the host wait for the card;
 `card_line` is the card's name and power limit as nvidia-smi prints
 them, which every measurement of the card is printed beside;
 `time_windows` times a call by CUDA events in windows of calls and
@@ -25,6 +28,7 @@ import time
 import traceback
 import warnings
 from collections import defaultdict
+from typing import NamedTuple
 
 import torch
 
@@ -103,32 +107,76 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+class EmptyTrace(RuntimeError):
+    """torch.profiler recorded no CUDA kernel in any try of a block."""
+
+
+class CudaTrace(NamedTuple):
+    """The CUDA kernels torch.profiler recorded in one run of a block, as
+    (name, start us, end us), and that run's host ms (the block and its
+    synchronize, under the profiler)."""
+
+    kernels: list
+    wall_ms: float
+    tries: int  # runs of the block it took to record a kernel
+
+    @property
+    def kernel_ms(self) -> float:
+        return sum(end - start for _, start, end in self.kernels) / 1e3
+
+    @property
+    def span_ms(self) -> float:
+        """From the first kernel's start to the last one's end."""
+        return (max(e for _, _, e in self.kernels) - min(s for _, s, _ in self.kernels)) / 1e3
+
+    def by_name(self) -> dict[str, tuple[int, float]]:
+        """{kernel name: (launches, device ms)}."""
+        out: dict[str, tuple[int, float]] = {}
+        for name, start, end in self.kernels:
+            n, ms = out.get(name, (0, 0.0))
+            out[name] = (n + 1, ms + (end - start) / 1e3)
+        return out
+
+
+def cuda_trace(fn, tries: int = 3, cpu: bool = True) -> CudaTrace:
+    """Run fn() once under torch.profiler (CPU and CUDA activity; CUDA alone
+    with cpu=False), the card synchronized before and after, and return its
+    CUDA kernels and host ms. CUPTI now and then hands back no activity for
+    a window of kernels, so a trace with no kernel is taken again, up to
+    `tries` runs of fn() in all; EmptyTrace if every one was empty (a block
+    that launches nothing cannot be told from a lost trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    for run in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            return CudaTrace(kernels, wall_ms, run)
+    raise EmptyTrace(f"torch.profiler recorded no CUDA kernel in {tries} runs of the block")
+
+
 def device_busy(fn, tries: int = 3) -> dict | None:
     """Run fn() once under torch.profiler (CUDA activity) and synchronize:
     {kernels, kernel_ms, span_ms, share}, the CUDA kernels' count, their
     summed time, the span from the first kernel's start to the last one's
     end, and kernel_ms / span_ms; None if the profiler recorded no kernel
-    (then the share is not measured).
-    CUPTI now and then hands back no activity for a short window of
-    kernels, so a trace with no kernel is taken again, up to `tries` runs
-    of fn() in all."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
-    else:
+    in `tries` runs (`cuda_trace`; then the share is not measured)."""
+    try:
+        t = cuda_trace(fn, tries, cpu=False)
+    except EmptyTrace:
         return None
-    kernel_ms = sum(r.elapsed_us() for r in kernels) / 1e3
-    span_ms = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3
-    return {"kernels": len(kernels), "kernel_ms": kernel_ms, "span_ms": span_ms,
-            "share": kernel_ms / span_ms}
+    return {"kernels": len(t.kernels), "kernel_ms": t.kernel_ms, "span_ms": t.span_ms,
+            "share": t.kernel_ms / t.span_ms}
 
 
 def host_syncs(fn) -> list[str]:

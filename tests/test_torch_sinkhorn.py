@@ -13,6 +13,8 @@ so that the blocking is held to the plain version before it runs on the
 card.
 """
 
+import random
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,13 +123,23 @@ def _warp_of_column(n, threads, lanes):
     return owner // lanes
 
 
-def _row_u(x, warp_of, warps, mu2):
-    """row_step: per-warp max and sum of exponentials, one exchange; base 2."""
-    mw = torch.full((warps,), EMPTY).scatter_reduce(0, warp_of, x, "amax")
+def _row_lse(x, warp_of, warps):
+    """row_lse over the last axis of x (a row, or rows side by side): per-warp
+    max and sum of exponentials, one exchange; (M, S) in base 2."""
+    rows = x.reshape(-1, x.shape[-1])
+    idx = warp_of.expand(rows.shape[0], -1)
+    mw = torch.full((rows.shape[0], warps), EMPTY).scatter_reduce(1, idx, rows, "amax")
     sh = torch.where(mw == EMPTY, 0.0, mw)
-    sw = torch.zeros(warps).scatter_add(0, warp_of, torch.exp2(x - sh[warp_of]))
-    M = mw.max()
-    S = torch.where(mw == EMPTY, 0.0, sw * torch.exp2(mw - M)).sum()
+    sw = torch.zeros(rows.shape[0], warps).scatter_add(1, idx,
+                                                       torch.exp2(rows - sh.gather(1, idx)))
+    M = mw.amax(1)
+    S = torch.where(mw == EMPTY, 0.0, sw * torch.exp2(mw - M[:, None])).sum(1)
+    return M.reshape(x.shape[:-1]), S.reshape(x.shape[:-1])
+
+
+def _row_u(x, warp_of, warps, mu2):
+    """row_step: row_lse, then u; base 2."""
+    M, S = _row_lse(x, warp_of, warps)
     return mu2 - (M + torch.log2(S))
 
 
@@ -344,8 +356,8 @@ def test_fits_smem_and_plans():
     assert sinkhorn_stream.plan(1, 9000, 9000, 132)[-2:] == (16, 5)  # one row a step
     # One group of 16 warps has no merge buffer: 3 stages of one fp32 row.
     assert sinkhorn_stream.ring(14848) == (1, 3, 3 * (4 * 14848 + 16) + 1024)
-    # One more column takes the wide entry, which has no VARIANTS layout.
-    assert isinstance(sinkhorn_stream.plan(1, 9000, 14849, 132), sinkhorn_stream.WidePlan)
+    # One more column takes the cluster entry, which has no VARIANTS layout.
+    assert isinstance(sinkhorn_stream.plan(1, 9000, 14849, 132), sinkhorn_stream.ClusterPlan)
     with pytest.raises(ValueError, match="columns"):
         sinkhorn_stream.layout(14849)
     # Rows wider than K6's widest go to K7, even when few.
@@ -361,7 +373,7 @@ def test_plans_take_only_compiled_variants(kernel, esize, widest):
     group, chunks a thread) is an instantiation the source compiles (its
     VARIANTS list, which pick() expands), in shared memory, and every
     instantiation serves some width; one more column has no instantiation
-    (K6's plan and K7's layout raise; K7's plan is its wide entry's)."""
+    (K6's plan and K7's layout raise; K7's plan is its cluster entry's)."""
     from onepose_tpu_torch.ops.kernels import _build
 
     table = _build.variants(kernel)
@@ -385,7 +397,29 @@ def test_plans_take_only_compiled_variants(kernel, esize, widest):
             sinkhorn_stream.layout(widest + 1)
     if kernel == "sinkhorn_stream":
         assert isinstance(sinkhorn_stream.plan(2, 300, widest + 1, 132, esize),
-                          sinkhorn_stream.WidePlan)
+                          sinkhorn_stream.ClusterPlan)
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+def test_cluster_plans_take_only_compiled_variants(esize):
+    """Every width of the cluster entry (14849 to 8 x 14848 columns, every
+    7th and the ends) plans slices whose layout the source's
+    CLUSTER_VARIANTS compiles, whose ring holds MIN_STAGES whole steps in
+    shared memory, whose last slice is not empty and whose slices start
+    16 bytes aligned; every cluster instantiation serves some width."""
+    table = _build.variants("sinkhorn_stream", "CLUSTER_VARIANTS")
+    assert "CLUSTER_VARIANTS(CASE)" in (_build.CSRC / "sinkhorn_stream.cu").read_text()
+    widest = sinkhorn_stream.widest()
+    seen = set()
+    for n in sorted(set(range(widest + 1, 8 * widest + 1, 7)) | {widest + 1, 8 * widest}):
+        p = sinkhorn_stream.plan(1, 300, n, 132, esize)
+        assert isinstance(p, sinkhorn_stream.ClusterPlan), n
+        assert p.slice_cols % sinkhorn_stream.PITCH == 0 and p.slice_cols <= widest, n
+        assert 0 < n - (p.cluster - 1) * p.slice_cols <= p.slice_cols, n
+        assert (16, p.chunks) in table and p.stage_rows % table[16, p.chunks] == 0, n
+        assert p.stages >= sinkhorn_stream.MIN_STAGES and p.smem <= sinkhorn.SMEM_PER_BLOCK, n
+        seen.add((16, p.chunks))
+    assert seen == set(table)
 
 
 def test_stored_coupling_pads_rows_to_16_bytes():
@@ -475,29 +509,51 @@ def test_log_sinkhorn_routing(monkeypatch, fits, stream_bf16, kernel, want):
 
 def test_streamed_plan_takes_the_wide_entry_above_its_widest():
     """Up to K7's widest instantiation (14848 columns) the plan is the
-    VARIANTS entry's; above it, at any width, the wide entry's (WidePlan):
-    WIDE_ROWS-row steps over as many blocks as the card holds, the pairs in
-    waves. No width raises."""
+    VARIANTS entry's; above it, up to 8 x 14848 columns, the cluster
+    entry's (ClusterPlan): CL, the fewest blocks whose slices fit the
+    widest row, each slice a multiple of 8 columns but the last, as many
+    clusters a pair as the card holds (max_clusters, or max_blocks // CL),
+    the pairs in waves; wider, the two-sweep entry's (WidePlan):
+    WIDE_ROWS-row steps over as many blocks as the card holds. No width
+    raises."""
     widest = sinkhorn.max_columns(_build.variants("sinkhorn_stream"))
     assert widest == sinkhorn_stream.widest() == 14848
-    assert isinstance(sinkhorn_stream.plan(1, 100, widest, 132), sinkhorn_stream.Plan)
-    for n in (widest + 1, 16385, 18901, 20481, 65537):
+    want = {14848: ("variants", None), 14849: ("cluster", (2, 7432)),
+            16385: ("cluster", (2, 8200)), 20481: ("cluster", (2, 10248)),
+            29697: ("cluster", (3, 9904)), 65537: ("cluster", (5, 13112)),
+            118784: ("cluster", (8, 14848)), 118785: ("two_sweep", None)}
+    types = {"variants": sinkhorn_stream.Plan, "cluster": sinkhorn_stream.ClusterPlan,
+             "two_sweep": sinkhorn_stream.WidePlan}
+    for n, (route, split) in want.items():
+        assert sinkhorn_stream.entry(n) == route, n
         for esize in (4, 2):
-            p = sinkhorn_stream.plan(1, n, n, 132, esize)
-            assert isinstance(p, sinkhorn_stream.WidePlan), n
-            assert p.blocks_per_pair == 132 and p.pairs_per_wave == 1
-            assert p.rows * p.blocks_per_pair >= n > (p.rows - 1) * p.blocks_per_pair
-    assert sinkhorn_stream.plan(1, 16385, 16385, 132) == (132, 125, 1)
-    assert sinkhorn_stream.plan(1, 20481, 20481, 132) == (132, 156, 1)
-    # Few rows: one block a WIDE_ROWS step; many pairs: waves.
-    assert sinkhorn_stream.plan(1, 20, 15000, 132) == (3, 7, 1)
-    assert sinkhorn_stream.plan(300, 20, 15000, 132) == (1, 20, 132)
-    assert sinkhorn_stream.plan(3, 1000, 15000, 132) == (44, 23, 3)
+            p = sinkhorn_stream.plan(1, 20000, n, 132, esize)
+            assert isinstance(p, types[route]), n
+            if route == "cluster":
+                assert (p.cluster, p.slice_cols) == split == sinkhorn_stream.cluster_split(n)
+                assert p.clusters_per_pair == 132 // p.cluster and p.pairs_per_wave == 1
+                assert p.rows * p.clusters_per_pair >= 20000
+    with pytest.raises(ValueError, match="blocks a cluster"):
+        sinkhorn_stream.cluster_split(118785)
+    # The card's count of resident clusters (66 of 2 on an H100): rows split
+    # over them; few rows: one cluster a stage; many pairs: waves.
+    assert sinkhorn_stream.plan(1, 16385, 16385, 132, max_clusters=66) == (
+        2, 8200, 2, 3, 66, 249, 1, 198032, 4)
+    assert sinkhorn_stream.plan(1, 20481, 20481, 132, max_clusters=66)[2:7] == (1, 5, 66, 311, 1)
+    assert sinkhorn_stream.plan(1, 1025, 40961, 132, max_clusters=39)[:7] == (
+        3, 13656, 1, 4, 39, 27, 1)
+    assert sinkhorn_stream.plan(1, 20, 15000, 132)[4:7] == (10, 2, 1)
+    assert sinkhorn_stream.plan(300, 20, 15000, 132)[4:7] == (1, 20, 66)
+    # The two-sweep entry: WIDE_ROWS-row steps over the card's blocks.
+    assert sinkhorn_stream.plan(1, 257, 131073, 132) == (33, 8, 1)
+    assert sinkhorn_stream.plan(1, 20481, 131073, 132) == (132, 156, 1)
+    assert sinkhorn_stream.plan(3, 1000, 131073, 132) == (44, 23, 3)
+    assert sinkhorn_stream.two_sweep_plan(1, 16385, 132) == (132, 125, 1)
 
 
-def _emulate_wide(c, mu, nu, iters, rows, *, threads=8, lanes=4, wide_rows=3,
+def _emulate_two_sweep(c, mu, nu, iters, rows, *, threads=8, lanes=4, wide_rows=3,
                   reduce_threads=16):
-    """The wide entry's schedule in torch, at a small thread count
+    """The two-sweep entry's schedule in torch, at a small thread count
     (`threads` a block, `lanes` a warp, `wide_rows` rows a step): blocks of
     `rows` rows a pair; thread t owns the 4-column chunks t, t + threads,
     ... of every row and walks them tile after tile. Pass 1: each thread's
@@ -559,8 +615,8 @@ def _emulate_wide(c, mu, nu, iters, rows, *, threads=8, lanes=4, wide_rows=3,
 
 
 @pytest.mark.parametrize("case", ["fp32", "bf16", "masked_side"])
-def test_wide_schedule_matches_plain(case):
-    """The wide entry's tile schedule against the plain version: 3 blocks
+def test_two_sweep_schedule_matches_plain(case):
+    """The two-sweep entry's tile schedule against the plain version: 3 blocks
     of 17, 17 and 11 rows, 3-row steps (the last of each block ragged), 61
     columns in two tiles of 32 (the second ragged, its last chunk masked
     but one column); fp32 and bf16 storage (the plain version rounds the
@@ -579,10 +635,194 @@ def test_wide_schedule_matches_plain(case):
         c, mu, nu, m0, m1 = map(torch.from_numpy, _problem(9, 2, 45, 61, scale=4.0))
     want = sinkhorn.sinkhorn_potentials_plain(c, mu, nu, ITERS, coupling_dtype=dtype)
     stored = c if dtype is None else c.to(dtype).float()
-    got = _emulate_wide(stored, mu, nu, ITERS, rows=17)
+    got = _emulate_two_sweep(stored, mu, nu, ITERS, rows=17)
     assert all(bool(torch.isfinite(t).all()) for t in got)
     _close_on(m0.numpy(), got[0], want[0])
     _close_on(m1.numpy(), got[1], want[1])
+
+
+def _emulate_wide(c, mu, nu, iters, rows, cl, s, *, stage_rows=2, rs=2, lanes=4, warps=2,
+                  reduce_threads=16, seed=0):
+    """The cluster entry's schedule in torch, at a small thread count (`lanes`
+    a warp, `warps` a block): clusters of `cl` blocks take `rows` rows of a
+    pair each, block q of a cluster the columns [q * s, q * s + s) (the last
+    slice up to n); stages of `stage_rows` rows, `rs` rows a step. The
+    blocks of a pair run as generators, interleaved at random (`seed`) but
+    for the kernel's waits. A(g): each step's rows' (max, sum) of C + v
+    over the block's slice (row_lse: per-warp, then across the warps; a step
+    past the stage's rows pushes empties), pushed into slot g % X_SLOTS of
+    every block of the cluster, itself included, which must have read that
+    slot's stage g - X_SLOTS already (asserted). B(g), one stage behind: once
+    every block's pushes of stage g are in, the CL partials of each row
+    merged in rank order into u, and the stage's rows folded into the
+    slice's column accumulators (one rescale a step). After an iteration's
+    rows, each block stores its slice's partial; the blocks of the same rank
+    meet, each reduces its share of the slice's columns (reduce_slice over
+    the clusters' partials), they meet again, and each reads back its
+    slice's v. Base 2 throughout. Returns (u, v, u_equal): u_equal says
+    that every block of each cluster computed each row's u bit for bit
+    alike."""
+    b, m, n = c.shape
+    xs = sinkhorn_stream.X_SLOTS
+    threads = lanes * warps
+    cpp = -(-m // rows)
+    bounds = [(q * s, min(n, (q + 1) * s)) for q in range(cl)]
+    assert bounds[-1][0] < n <= cl * s and stage_rows % rs == 0
+    warp_of = [_warp_of_column(j1 - j0, threads, lanes) for j0, j1 in bounds]
+    u2, v2 = torch.zeros(b, m), torch.zeros(b, n)
+    mu2, nu2 = mu * L2E, nu * L2E
+    pick = random.Random(seed)
+    u_equal = True
+    for p in range(b):
+        if iters <= 0:
+            continue
+        c2 = c[p] * L2E
+        part = torch.stack([torch.full((n,), EMPTY), torch.zeros(n)]).repeat(cpp, 1, 1)
+        vbuf = torch.zeros(n)
+        met = {}  # (rank, iteration, barrier) -> blocks arrived
+        us = {}  # row -> the u each block of its cluster computed
+        boxes = {(k, q): dict(xbuf=torch.zeros(xs, cl, stage_rows, 2), arrived=[0] * xs,
+                              consumed=0) for k in range(cpp) for q in range(cl)}
+
+        def block(k, q):
+            r0, r1 = k * rows, min(m, (k + 1) * rows)
+            j0, j1 = bounds[q]
+            spi = -(-(r1 - r0) // stage_rows) if r1 > r0 else 0
+            cols = -(-(j1 - j0) // cpp)
+            ja, jb = j0 + min(j1 - j0, k * cols), j0 + min(j1 - j0, (k + 1) * cols)
+            box, g = boxes[k, q], 0
+            v = torch.zeros(j1 - j0)
+            for it in range(iters):
+                acc = [torch.full((j1 - j0,), EMPTY), torch.zeros(j1 - j0)]
+                for step in range(spi + 1):
+                    if step < spi:  # A(g + step)
+                        st = g + step
+                        row0 = r0 + step * stage_rows
+                        nr = min(stage_rows, r1 - row0)
+                        for i0 in range(0, stage_rows, rs):
+                            if i0 < nr:  # an invalid row of a valid step reads row 0
+                                idx = [row0 + (i if i < nr else 0) for i in range(i0, i0 + rs)]
+                                vals = torch.stack(_row_lse(c2[idx, j0:j1] + v, warp_of[q],
+                                                            warps), 1)
+                            else:
+                                vals = torch.tensor([[EMPTY, 0.0]] * rs)
+                            for peer in range(cl):
+                                pb = boxes[k, peer]
+                                assert pb["consumed"] >= st - xs + 1, "a slot overwritten unread"
+                                pb["xbuf"][st % xs, q, i0:i0 + rs] = vals
+                                pb["arrived"][st % xs] += rs
+                            yield
+                    if step > 0:  # B(g + step - 1)
+                        st = g + step - 1
+                        x = st % xs
+                        while box["arrived"][x] < cl * stage_rows:
+                            yield
+                        box["arrived"][x] = 0
+                        row0 = r0 + (step - 1) * stage_rows
+                        nr = min(stage_rows, r1 - row0)
+                        M, S = torch.full((nr,), EMPTY), torch.zeros(nr)
+                        for peer in range(cl):  # rank order
+                            pm = box["xbuf"][x, peer, :nr]
+                            M, S = _merge(M, S, pm[:, 0], pm[:, 1])
+                        ui = mu2[p, row0:row0 + nr] - (M + torch.log2(S))
+                        for i in range(nr):
+                            us.setdefault(row0 + i, []).append(ui[i])
+                        if q == 0 and it == iters - 1:
+                            u2[p, row0:row0 + nr] = ui
+                        for i0 in range(0, nr, rs):
+                            idx = range(i0, min(nr, i0 + rs))
+                            acc = list(_fold(*acc, [c2[row0 + i, j0:j1] + ui[i] for i in idx]))
+                        box["consumed"] = st + 1
+                        yield
+                g += spi
+                part[k, 0, j0:j1], part[k, 1, j0:j1] = acc
+                for bar in (0, 1):
+                    key = (q, it, bar)
+                    met[key] = met.get(key, 0) + 1
+                    while met[key] < cpp:
+                        yield
+                    if bar == 0 and jb > ja:
+                        M, S = _reduce_slice(part[:, 0], part[:, 1], ja, jb, reduce_threads)
+                        vbuf[ja:jb] = nu2[p, ja:jb] - (M + torch.log2(S))
+                v = vbuf[j0:j1].clone()
+            if it == iters - 1:
+                v2[p, j0:j1] = v
+
+        runs = [block(k, q) for k in range(cpp) for q in range(cl)]
+        for _ in range(10 ** 6):
+            if not runs:
+                break
+            run = pick.choice(runs)
+            try:
+                next(run)
+            except StopIteration:
+                runs.remove(run)
+        assert not runs, "the schedule did not finish"
+        for vals in us.values():
+            for j in range(0, len(vals), cl):  # each iteration's u from the cl blocks
+                u_equal &= all(torch.equal(vals[j], w) for w in vals[j:j + cl])
+    return u2 * LN2, v2 * LN2, u_equal
+
+
+def _wide_problem(case):
+    """The inputs of `test_wide_schedule_matches_plain`'s cases."""
+    if case in ("masked_side", "dustbin"):
+        n = 60 if case == "masked_side" else 64
+        rng = np.random.default_rng(8)
+        scores = torch.from_numpy(rng.normal(size=(2, 44, n)).astype(np.float32))
+        m0 = torch.from_numpy(rng.random((2, 44)) < 0.8)
+        if case == "masked_side":
+            m0 = torch.zeros(2, 44, dtype=torch.bool)
+        m1 = torch.from_numpy(rng.random((2, n)) < 0.8)
+        c, mu, nu, _ = superglue.sinkhorn_problem(scores, torch.tensor(1.0), m0, m1)
+        ones = torch.ones(2, 1, dtype=torch.bool)
+        return c, mu, nu, torch.cat([m0, ones], 1), torch.cat([m1, ones], 1)
+    c, mu, nu, m0, m1 = map(torch.from_numpy, _problem(9, 2, 45, 61, scale=4.0))
+    return c, mu, nu, m0, m1
+
+
+# case -> (iterations, storage, widest row of the replay, rows a cluster,
+# stage rows, rows a step).
+WIDE_CASES = {
+    # 61 columns over a widest row of 24: clusters of 3 blocks, slices of
+    # 24, 24 and 13 columns; 45 rows in clusters of 17, 17 and 11 rows,
+    # stages of 4 (the last of each cluster ragged), 2 rows a step.
+    "fp32": (ITERS, None, 24, 17, 4, 2),
+    "bf16": (ITERS, torch.bfloat16, 24, 17, 4, 2),
+    # log_sinkhorn's problem with no valid keypoint on side 0.
+    "masked_side": (ITERS, None, 24, 17, 4, 2),
+    # The dustbin column alone in the last of 5 slices (65 = 4 x 16 + 1
+    # columns over a widest row of 16); one row a step, stages of 3, 30
+    # iterations.
+    "dustbin": (30, None, 16, 12, 3, 1),
+    # No iteration (u = v = 0) and one.
+    "iters0": (0, None, 24, 17, 4, 2),
+    "iters1": (1, None, 24, 17, 4, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_schedule_matches_plain(monkeypatch, case):
+    """The cluster entry's schedule (`_emulate_wide`) against the plain
+    version, with the widest row shrunk so that a few dozen columns make a
+    cluster (`cluster_split` picks CL and the slices, as on the card): fp32
+    and bf16 storage (the plain version rounds the coupling the same way),
+    a fully masked side 0 (every output finite), the dustbin column in the
+    last slice, 0 and 1 iterations; every block of a cluster computes the
+    same u bit for bit."""
+    iters, dtype, widest, rows, stage_rows, rs = WIDE_CASES[case]
+    c, mu, nu, m0, m1 = _wide_problem(case)
+    monkeypatch.setattr(sinkhorn_stream, "widest", lambda: widest)
+    cl, s = sinkhorn_stream.cluster_split(c.shape[2])
+    assert (cl, s) == ((5, 16) if case == "dustbin" else (3, 24))
+    want = sinkhorn.sinkhorn_potentials_plain(c, mu, nu, iters, coupling_dtype=dtype)
+    stored = c if dtype is None else c.to(dtype).float()
+    u, v, u_equal = _emulate_wide(stored, mu, nu, iters, rows, cl, s, stage_rows=stage_rows,
+                                  rs=rs, seed=len(case))
+    assert u_equal
+    assert all(bool(torch.isfinite(t).all()) for t in (u, v))
+    _close_on(m0.numpy(), u, want[0])
+    _close_on(m1.numpy(), v, want[1])
 
 
 @pytest.mark.parametrize("sms", [132, 114])
