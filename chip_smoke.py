@@ -70,22 +70,24 @@ Phases, each printing its lines before the last:
      ms per stage, the device stages' launches and device ms, peak memory
      and seconds; the full-width triangulation and a reduced scene's
      run_mapping on the card against the CPU;
-  7. the `map` command (python -m onepose_tpu_torch map, through its main()
-     in the process) on a rendered 160-frame orbit sequence written as PNG
-     files, at configs/map.yaml's width with random weights from a seed
-     written as msgpack checkpoints: (a) matcher=nn on every frame (every
-     artifact on disk and consistent, K1 once per batch of 8 frames and no
-     other kernel), (b) matcher=superglue on the first 48 frames (K7 once
-     per chunk of 7 pairs), stage_s and peak memory of each; then the
+  7. the `map` command (python -m onepose_tpu_torch map --config
+     configs/map.yaml, through its main() in the process) on a rendered
+     160-frame orbit sequence written as PNG files, with random weights
+     from a seed written as msgpack checkpoints in place of the files the
+     preset names: (a) with matcher=nn on every frame (every artifact on
+     disk and consistent, K1 once per batch of 8 frames and no other
+     kernel), (b) the preset's superglue at 4096 keypoints on the first 48
+     frames (K7 once per chunk of 7 pairs), stage_s and peak memory of
+     each; then the
      card against the CPU on 12 frames (the extracted keypoints by overlap,
      the map's counts), and the decoder that load_gray used; then the host
      commands: convert of seeded reference-layout weights, infer reading
      those files against infer reading their conversion, parse-scan,
      video2img and merge-anno;
-  8. the `train` command (python -m onepose_tpu_torch train, in the
-     process) on map (a)'s 160 frames at configs/train_gats_spg.yaml's
-     width (batch 8, accumulate 2, 1000 keypoint slots, 2000 x 8 points,
-     the shipped matcher), random init from a seed: (a) the GATs kernel
+  8. the `train` command (python -m onepose_tpu_torch train --config
+     configs/train_gats_spg.yaml, in the process) on map (a)'s 160 frames
+     (batch 8, accumulate 2, 1000 keypoint slots, 2000 x 8 points, the
+     shipped matcher), random init from a seed: (a) the GATs kernel
      with its gradient (autograd.Function: kernel forward, plain
      recompute) against the plain version at [8, 2000, 8, 256], 20% of the
      leaves masked, and the backward's time beside the forward's; (b) 2
@@ -95,7 +97,12 @@ Phases, each printing its lines before the last:
      and infer serving a batch with the trained checkpoint; (c) 3
      micro-steps on the card and the CPU from one checkpoint, the losses
      within 1e-4 relative;
-  9. detect and infer as commands (phases detect, infer);
+  9. detect and infer as commands (phases detect, infer) through
+     configs/detect.yaml, configs/infer_gt_box.yaml and
+     configs/infer_detect_box.yaml; infer's mixed-object roster
+     (infer_gt_box.yaml batch_objects=true) on two objects mapped on the
+     card, against the per-sequence route and, on one batch that holds
+     both objects, against the CPU;
  10. the BA tracker (phase tracker) at demo's width (1000 keypoint slots,
      window 10, capacity 4096, 128 hypotheses) on a planted 24-frame orbit
      at 512 x 512: every pose within 5 cm / 5 degrees of the ground truth,
@@ -103,7 +110,8 @@ Phases, each printing its lines before the last:
      frame, host syncs (and their source lines), CUDA kernels and busy
      share of a frame, peak
      memory, and the card against the CPU on the same frames and draws;
- 11. the demo command (phase demo) on phase detect's full frames against
+ 11. the demo command (phase demo, configs/demo.yaml) on phase detect's
+     full frames against
      phase cli's map: without tracking and with it (K1 / K2 / K3 launches
      a matcher frame and a tracked frame, stage times, peak memory, the
      video), and the route of the first frames on the card against the CPU;
@@ -122,8 +130,10 @@ Phases, each printing its lines before the last:
      the data-parallel train step, a block's equal at N3 2000 and 4000 and
      each kind at its closed form; `--multi-cards N` runs (b) and A17 as
      one NCCL rank on each of N cards instead;
- 13. the repository's measurement entry points (phase bench), each run as
-     a subprocess under its own time limit and its last line checked:
+ 13. the repository's measurement entry points (phase bench), each its
+     main() in this process (demo_pipeline, which starts a process a
+     command, in its own process under a time limit) at a cut depth, and
+     its last line checked:
      `python -m onepose_tpu_torch.bench` (bench.py's four keys, a finite
      positive frames/s, the kernel launches of one call), the stage
      roofline `onepose_tpu_torch.scripts.roofline_audit --sweep` (five
@@ -289,18 +299,23 @@ MAP_ORACLE = dict(median_m=1e-3, max_m=5e-3, min_points=2000)
 # the map's coordinates are tenths of a metre.
 MAP_CARD_CPU_ABS = 1e-4
 PAIR_RUNS = 2  # timed match_pairs calls per setting, in turns (on, off, off, on)
+# The shipped presets: the commands' runs below take their widths from
+# `--config configs/<file>.yaml` (`_preset_argv`), with on top only paths,
+# weights (the files the presets name are not in the repo: random weights
+# from a seed, written as msgpack checkpoints), the depth cuts and the
+# random-weights thresholds stated here, and the I/O keys the card's
+# machine needs (cache=false without h5py; per-image annotations as npz).
+CONFIGS = ROOT / "configs"
 # Phase cli: `python -m onepose_tpu_torch map` in the process (its main()),
-# on a rendered orbit sequence written as PNG files, with configs/map.yaml's
-# values but its weight files (the repo holds none): random weights from a
-# seed, written as msgpack checkpoints. (a) matcher=nn on every frame; (b)
-# matcher=superglue on the first CLI_SG_FRAMES frames (a depth cut: a chunk
-# of 7 pairs takes about 0.41 s at 4096 keypoints, PERF.md section 5);
-# per-image annotations as npz (the json writer costs about a second a
-# frame at 4096 x 256; the card-against-CPU runs write json).
+# on a rendered orbit sequence written as PNG files, at configs/map.yaml:
+# (a) that preset with matcher=nn on every frame (the weight-free matcher:
+# the map the later phases read); (b) the preset as it stands (superglue)
+# on the first CLI_SG_FRAMES frames (a depth cut: a chunk of 7 pairs takes
+# about 0.41 s at 4096 keypoints, PERF.md section 5); per-image
+# annotations as npz (the json writer costs about a second a frame at 4096
+# x 256; the card-against-CPU runs write json).
 CLI_SCENE = dict(frames=160, img=512, points=2000, blob=11, focal=1800.0, cube=0.2,
                  win=(10.0, 30.0), noise=(0.1, 0.05))
-CLI_MAP = dict(max_keypoints=4096, keypoint_threshold=0.005, num_covis=10, max_points3d=2500,
-               num_leaf=8, det_type="GT_box")
 CLI_SG_FRAMES = 48
 # Random weights: no SuperGlue score clears 0.7, so every mutual maximum
 # counts (as phase pairs does); epipolar verification keeps the consistent ones.
@@ -326,17 +341,17 @@ CLI_COUNT_REL = 0.1
 # (15 reference views against one frame, 1000 keypoints each side).
 NMS_FULL_FRAME = (1, 1440, 1920)
 SINKHORN_DETECT = (15, 1001, 1001)
-# Phase detect: `python -m onepose_tpu_torch detect` in the process, the DB
-# from phase cli's 160-frame orbit (512 x 512 crops), the queries full
-# 1440 x 1920 frames of the same object from viewpoints a quarter step
-# round from the DB's; (a) detector_matcher=nn on DETECT_FRAMES frames,
-# (b) superglue on DETECT_SG_FRAMES (a depth cut: SuperGlue's GNN takes
-# about 0.1 s a frame), then the card against the CPU on DETECT_SMALL
+# Phase detect: `python -m onepose_tpu_torch detect --config
+# configs/detect.yaml` in the process, the DB from phase cli's 160-frame
+# orbit (512 x 512 crops), the queries full 1440 x 1920 frames of the same
+# object from viewpoints a quarter step round from the DB's; (a) the
+# preset (detector_matcher nn) on DETECT_FRAMES frames, (b)
+# detector_matcher=superglue on top of it on DETECT_SG_FRAMES (a depth
+# cut: SuperGlue's GNN takes about 0.1 s a frame), then the card against the CPU on DETECT_SMALL
 # (an 8-frame DB, a depth cut: the CPU extracts it). The query frames are
 # written at zlib level 1 (level 6 took 6 s for 24 frames).
 DETECT_FRAMES = 24
 DETECT_SG_FRAMES = 8
-DETECT = dict(n_ref_views=15, max_keypoints=1000, crop_size=512)
 DETECT_HW = (1440, 1920)
 QUERY_SUBS = ("color_full", "poses_ba")  # what a query sequence holds besides intrinsics.txt
 DETECT_SMALL = dict(db_frames=8, frames=2)
@@ -346,26 +361,37 @@ DETECT_BOX_PX = 1.0  # card against CPU
 # side of the implied box by up to about a pixel.
 DETECT_IMPLIED_PX = 1.5
 # Phase infer: `python -m onepose_tpu_torch infer` in the process at the
-# shipped width (batch 8, 1000 keypoints, shape3d 2000, 8 leaves, 4 blocks
-# at d_model 256) on phase cli's 160 frames and map and on phase detect's
-# crops; the card against the CPU on INFER_SMALL frames; the planted
+# presets' width (batch 8, 1000 keypoints, shape3d 2000, 8 leaves; the
+# shipped matcher: 4 blocks at d_model 256): configs/infer_gt_box.yaml on
+# phase cli's 160 frames and map, configs/infer_detect_box.yaml on phase
+# detect's crops; the roster (infer_gt_box.yaml batch_objects=true) of
+# phase cli's sequence and a second object (ROSTER_FRAMES frames of
+# `_cli_scene` under seed ROSTER_SEED, a depth cut from 160) against the
+# per-sequence route, both with the random-weights match threshold
+# MATCH_THRESHOLD; the card against the CPU on INFER_SMALL frames and on a
+# roster of ROSTER_SMALL frames a sequence (half the batch, so that its one
+# batch holds frames of both objects); the planted
 # oracle (tests/test_cli.py:663) at production width through the feature
 # route: INFER_ORACLE frames of 512 x 512, 1000 points with a unit
 # descriptor each on a jittered 10^3 grid (spacing 1.8 cm, far above map's
 # 1 mm merge), mapped by run_mapping on the card.
 INFER_SMALL = 8
 INFER_POSE_ABS = 1e-3
+ROSTER_FRAMES = 48
+ROSTER_SEED = 4
+ROSTER_SMALL = 4
 INFER_ORACLE = dict(frames=48, grid=10, cube=0.16, jitter=0.003, focal=500.0, img=512,
                     radius=0.6)
-# Phase train: `python -m onepose_tpu_torch train` in the process at the
-# values of configs/train_gats_spg.yaml (batch 8, accumulate 2, shape2d
-# 1000, shape3d 2000, 8 leaves; the shipped matcher: 4 blocks at d_model
-# 256) on phase cli's map (a), 160 frames: 2 epochs (a depth cut from 10),
-# then a third resumed from ckpt_1; infer takes the trained checkpoint.
+# Phase train: `python -m onepose_tpu_torch train --config
+# configs/train_gats_spg.yaml` in the process (batch 8, accumulate 2,
+# shape2d 1000, shape3d 2000, 8 leaves; the shipped matcher: 4 blocks at
+# d_model 256) on phase cli's map (a), 160 frames: TRAIN_EPOCHS epochs (a
+# depth cut from the preset's 10), then one more resumed from the last
+# checkpoint; infer takes the trained checkpoint.
 # (a) K2's gradient at its training shape, 20% of the leaves masked; (c)
 # TRAIN_SMALL micro-steps on the card and the CPU from one checkpoint at
 # full width, at a batch the CPU takes in seconds.
-TRAIN = dict(batch_size=8, accumulate=2, shape2d=1000, shape3d=2000, num_leaf=8, epochs=2)
+TRAIN_EPOCHS = 2
 TRAIN_GATS = (8, 2000, 8, 256)
 # The backward recomputes the plain version, so the gradients are autograd's
 # through it on the same inputs; cuBLAS may split a sum differently between
@@ -398,17 +424,17 @@ TRACKER = dict(img=512, points=1000, frames=24, desc=256, focal=960.0, cube=0.25
 TRACKER_ORACLE = dict(max_cm=5.0, max_deg=5.0, fine_deg=1.0)
 TRACKER_CARD_CPU_ABS = 5e-3
 TRACKER_COUNT_REL = 0.03
-# Phase demo: `python -m onepose_tpu_torch demo` in the process at the
-# shipped width (1000 keypoints, 512 crops, shape3d 2000, 8 leaves, the
-# gats matcher with K1 / K2 / K3), the DB phase cli's 160 crops and map
-# (a), the frames phase detect's 24 full 1440 x 1920 ones (a depth cut).
-# (a) without tracking; (b) with tracking, a keyframe every 5 frames and
-# redetect_inliers 0: random weights give the matcher no inlier (no score
-# clears 0.2), so at the shipped 8 every frame would re-detect and none be
-# tracked; at 0 the route is the keyframe cadence. Then the route and
+# Phase demo: `python -m onepose_tpu_torch demo --config configs/demo.yaml`
+# in the process (1000 keypoints, 512 crops, shape3d 2000, 8 leaves, 8
+# reference views, the gats matcher with K1 / K2 / K3), the DB phase cli's
+# 160 crops and map (a), the frames phase detect's 24 full 1440 x 1920 ones
+# (a depth cut). (a) the preset (no tracking); (b) with tracking, a
+# keyframe every 5 frames and redetect_inliers 0: random weights give the
+# matcher no inlier (no score clears 0.2), so at the preset's 8 every
+# frame would re-detect and none be tracked; at 0 the route is the
+# keyframe cadence. Then the route and
 # confidence of DEMO_SMALL's first frames on the card against the CPU (an
 # 8-crop DB, a depth cut: the CPU extracts it).
-DEMO = dict(max_keypoints=1000, crop_size=512, shape3d=2000, num_leaf=8)
 DEMO_RUNS = (("a", ()), ("b", ("use_tracking=true", "kf_interval=5", "redetect_inliers=0")))
 DEMO_SMALL = dict(db_frames=8, frames=6)
 
@@ -427,6 +453,28 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tu
     exp on the special-function units)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _preset(name: str) -> dict:
+    """configs/<name>.yaml as the file gives it (the widths a run takes)."""
+    import yaml
+
+    return yaml.safe_load((CONFIGS / f"{name}.yaml").read_text()) or {}
+
+
+def _preset_argv(command: str, preset: str, overrides: list, tag: str) -> list:
+    """argv of `python -m onepose_tpu_torch <command> --config
+    configs/<preset>.yaml <overrides>`, logged on a line of its own."""
+    log(f"[{tag}] {command} --config configs/{preset}.yaml, overrides {' '.join(overrides)}")
+    return [command, "--config", str(CONFIGS / f"{preset}.yaml"), *overrides]
+
+
+def _preset_kv(name: str, skip=()) -> list:
+    """configs/<name>.yaml's top-level values as K=V overrides, but the keys
+    in `skip` and nested ones (weights): for a command line that a script
+    builds without --config (A20's MAP_ARGS and DEMO_ARGS)."""
+    return [f"{k}={v if isinstance(v, str) else json.dumps(v)}"
+            for k, v in _preset(name).items() if k not in skip and not isinstance(v, dict)]
 
 
 def _reset_peak(torch, phase: str, what: str) -> float:
@@ -2837,19 +2885,20 @@ def _seeded_checkpoint(np, model, ckpt_dir: Path, seed: int) -> str:
     return save_checkpoint(str(ckpt_dir), {"params": tree}, 0)
 
 
-def _cli_map(torch, args, label):
-    """One `python -m onepose_tpu_torch map` in the process: (stats, the
-    kernels' launches in the run, peak device GiB, seconds)."""
+def _cli_map(torch, argv, label):
+    """One `python -m onepose_tpu_torch map ...` (argv from `_preset_argv`)
+    in the process: (stats, the kernels' launches in the run, peak device
+    GiB, seconds)."""
     from onepose_tpu_torch.__main__ import main as cli_main
     from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
 
-    out = Path(next(a.split("=", 1)[1] for a in args if a.startswith("out_dir=")))
-    dev = next(a.split("=", 1)[1] for a in args if a.startswith("device="))
+    out = Path(next(a.split("=", 1)[1] for a in argv if a.startswith("out_dir=")))
+    dev = next(a.split("=", 1)[1] for a in argv if a.startswith("device="))
     if dev != "cpu":
         _reset_peak(torch, "cli", f"map ({label})")
     reset_launches()  # this path's counts: 0 just before it, read just after
     t0 = time.perf_counter()
-    rc = cli_main(["map", *args])
+    rc = cli_main(argv)
     sec = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev != "cpu" else 0.0
@@ -2892,10 +2941,6 @@ def _cli_artifacts(np, out: Path, stats, box_half, label):
         f"planted box {ok}")
     if not ok:
         fail(f"map ({label}) wrote missing or inconsistent artifacts")
-
-
-def _cli_args() -> list:
-    return [f"{k}={v}" for k, v in CLI_MAP.items()]
 
 
 def _cli_stage_line(stats) -> str:
@@ -2964,11 +3009,11 @@ def _cli_card_vs_cpu(torch, np, root, seq, sp_ckpt):
         fail("the card's features disagree with the CPU's")
     stats = {}
     for dev in (DEV, "cpu"):
-        args = [f"data_dir={small}", f"out_dir={root / 'small' / dev}", *_cli_args(),
-                f"max_keypoints={CLI_SMALL['keypoints']}", "matcher=nn",
-                f"weights.superpoint={sp_ckpt}", f"cache={str(_has_h5py()).lower()}",
-                f"device={dev}"]
-        stats[dev], counts, _, sec = _cli_map(torch, args, f"card against CPU, {dev}")
+        argv = _preset_argv("map", "map", [
+            f"data_dir={small}", f"out_dir={root / 'small' / dev}",
+            f"max_keypoints={CLI_SMALL['keypoints']}", "matcher=nn",
+            f"weights.superpoint={sp_ckpt}", _cache_arg(), f"device={dev}"], "cli")
+        stats[dev], counts, _, sec = _cli_map(torch, argv, f"card against CPU, {dev}")
         _cli_artifacts(np, root / "small" / dev, stats[dev], CLI_SCENE["cube"] / 2 * 1.2,
                        f"card against CPU, {dev}")
         log(f"[cli] card against CPU, map on {dev}: {sec:.2f} s, launches {counts}")
@@ -3032,10 +3077,11 @@ def _world(np) -> dict:
     return _WORLD
 
 
-def _map_a_args(w) -> list:
-    return [f"data_dir={w['seq']}", f"out_dir={w['root'] / 'out_a'}", *_cli_args(), "matcher=nn",
-            f"weights.superpoint={w['sp_ckpt']}", _cache_arg(), "anno_format=npz",
-            f"device={DEV}"]
+def _map_nn_argv(seq: Path, out: Path, sp_ckpt: str, tag: str) -> list:
+    """map (a)'s argv: configs/map.yaml with the weight-free NN matcher."""
+    return _preset_argv("map", "map", [
+        f"data_dir={seq}", f"out_dir={out}", "matcher=nn", f"weights.superpoint={sp_ckpt}",
+        _cache_arg(), "anno_format=npz", f"device={DEV}"], tag)
 
 
 def _world_map(torch, np) -> Path:
@@ -3043,16 +3089,18 @@ def _world_map(torch, np) -> Path:
     when phase cli did not run."""
     w = _world(np)
     if "map_a" not in w:
-        stats, _, _, sec = _cli_map(torch, _map_a_args(w), "a")
+        stats, _, _, sec = _cli_map(
+            torch, _map_nn_argv(w["seq"], w["root"] / "out_a", w["sp_ckpt"], "world"), "a")
         log(f"[world] map (a) for the later phases: {stats['num_points3d']} points in {sec:.2f} s")
         w["map_a"] = w["root"] / "out_a"
     return w["map_a"]
 
 
 def phase_cli(torch):
-    """`python -m onepose_tpu_torch map` on the card, in the process, on a
-    rendered sequence: (a) matcher=nn at configs/map.yaml's width, (b)
-    matcher=superglue on the first frames, then the card against the CPU."""
+    """`python -m onepose_tpu_torch map --config configs/map.yaml` on the
+    card, in the process, on a rendered sequence: (a) with matcher=nn, (b)
+    the preset (superglue) on the first frames, then the card against the
+    CPU."""
     import numpy as np
 
     from onepose_tpu_torch.parallel.sfm_parallel import superglue_chunk
@@ -3066,9 +3114,9 @@ def phase_cli(torch):
     box_half = CLI_SCENE["cube"] / 2 * 1.2
     _cli_dlt_at_scale(torch, np)
 
-    # (a) matcher=nn, every frame.
+    # (a) configs/map.yaml with matcher=nn, every frame.
     out = w["map_a"] = root / "out_a"
-    stats, counts, peak, sec = _cli_map(torch, _map_a_args(w), "a")
+    stats, counts, peak, sec = _cli_map(torch, _map_nn_argv(seq, out, sp_ckpt, "cli"), "a")
     _cli_artifacts(np, out, stats, box_half, "a")
     batches = -(-CLI_SCENE["frames"] // 8)
     want = {k: (batches if k == "nms" else 0) for k in counts}
@@ -3084,18 +3132,20 @@ def phase_cli(torch):
     if counts != want:
         fail(f"map (a) launched {counts}, want {want}")
 
-    # (b) matcher=superglue on the first CLI_SG_FRAMES frames.
+    # (b) configs/map.yaml as it stands (superglue) on the first CLI_SG_FRAMES frames.
+    preset = _preset("map")
     sub = _cli_subsequence(seq, root / "sub", CLI_SG_FRAMES)
     out = root / "out_b"
-    stats, counts, peak, sec = _cli_map(torch, [
-        f"data_dir={sub}", f"out_dir={out}", *_cli_args(), "matcher=superglue",
-        f"match_threshold={CLI_SG_THRESHOLD}", f"weights.superpoint={sp_ckpt}",
-        f"weights.superglue={sg_ckpt}", cache, "anno_format=npz", f"device={DEV}"], "b")
+    stats, counts, peak, sec = _cli_map(torch, _preset_argv("map", "map", [
+        f"data_dir={sub}", f"out_dir={out}", f"match_threshold={CLI_SG_THRESHOLD}",
+        f"weights.superpoint={sp_ckpt}", f"weights.superglue={sg_ckpt}", cache,
+        "anno_format=npz", f"device={DEV}"], "cli"), "b")
     _cli_artifacts(np, out, stats, box_half, "b")
-    chunk = superglue_chunk(CLI_MAP["max_keypoints"], 16)
+    chunk = superglue_chunk(preset["max_keypoints"], 16)
     chunks = -(-stats["num_pairs"] // chunk)
     batches = -(-CLI_SG_FRAMES // 8)
-    log(f"[cli] (b) matcher=superglue, match_threshold {CLI_SG_THRESHOLD}, {CLI_SG_FRAMES} "
+    log(f"[cli] (b) matcher={preset['matcher']} at {preset['max_keypoints']} keypoints, "
+        f"match_threshold {CLI_SG_THRESHOLD}, {CLI_SG_FRAMES} "
         f"frames: {stats['num_pairs']} pairs in {chunks} chunks of {chunk}, "
         f"{stats['num_points3d']} points, mean reprojection error "
         f"{stats['mean_reproj_error_px']:.4f} px; stage_s {_cli_stage_line(stats)}; "
@@ -3223,9 +3273,9 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def _train(torch, args):
-    """train in the process: (summary, launches, peak GiB, seconds, the
-    clock of its micro-steps, the loss of each)."""
+def _train(torch, argv):
+    """train in the process (argv from `_preset_argv`): (summary, launches,
+    peak GiB, seconds, the clock of its micro-steps, the loss of each)."""
     from onepose_tpu_torch.train import loop
 
     clock, losses = _Clock(torch, DEV), []
@@ -3241,7 +3291,7 @@ def _train(torch, args):
             return run
         return make_timed
 
-    summary, counts, peak, sec = _command(torch, ["train", *args], DEV,
+    summary, counts, peak, sec = _command(torch, argv, DEV,
                                           wraps=((loop, "make_train_step", timed_steps),))
     return summary, counts, peak, sec, clock, losses
 
@@ -3258,9 +3308,9 @@ def _train_card_vs_cpu(torch, np, index: str):
     from onepose_tpu_torch.train import loop
     from onepose_tpu_torch.train import train_step as ts
 
-    n = TRAIN_SMALL
-    ds = GATsSPGDataset(index, num_leaf=TRAIN["num_leaf"], shape2d=TRAIN["shape2d"],
-                        shape3d=TRAIN["shape3d"], seed=0)
+    n, t = TRAIN_SMALL, _preset("train_gats_spg")
+    ds = GATsSPGDataset(index, num_leaf=t["num_leaf"], shape2d=t["shape2d"],
+                        shape3d=t["shape3d"], seed=0)
     it = batch_iterator(ds, n["batch"], seed=0)
     batches = [loop.adapt_batch(next(it)) for _ in range(n["steps"])]
     cfg = ts.TrainConfig(accumulate=n["accumulate"], steps_per_epoch=len(ds) // n["batch"])
@@ -3306,10 +3356,11 @@ def _train_card_vs_cpu(torch, np, index: str):
 
 
 def _train_step_breakdown(torch, index: str):
-    """One micro-step of the shipped matcher at TRAIN's width on one batch of
-    the map's dataset: synchronized host ms of its parts (forward and loss,
-    backward, optimizer; median of 5 steps), then torch.profiler over 3
-    steps: CUDA kernels, device ms, busy share and the top kernels."""
+    """One micro-step of the shipped matcher at configs/train_gats_spg.yaml's
+    width on one batch of the map's dataset: synchronized host ms of its
+    parts (forward and loss, backward, optimizer; median of 5 steps), then
+    torch.profiler over 3 steps: CUDA kernels, device ms, busy share and the
+    top kernels."""
     from onepose_tpu_torch.data.dataset import GATsSPGDataset, batch_iterator
     from onepose_tpu_torch.models.gats_spg import GATsSPG
     from onepose_tpu_torch.train import loop
@@ -3317,11 +3368,12 @@ def _train_step_breakdown(torch, index: str):
     from onepose_tpu_torch.utils.precision import fp32_matmuls
     from onepose_tpu_torch.utils.profiling import cuda_trace
 
-    ds = GATsSPGDataset(index, num_leaf=TRAIN["num_leaf"], shape2d=TRAIN["shape2d"],
-                        shape3d=TRAIN["shape3d"], seed=0)
-    b = loop.adapt_batch(next(batch_iterator(ds, TRAIN["batch_size"], seed=0)))
+    t = _preset("train_gats_spg")
+    ds = GATsSPGDataset(index, num_leaf=t["num_leaf"], shape2d=t["shape2d"],
+                        shape3d=t["shape3d"], seed=0)
+    b = loop.adapt_batch(next(batch_iterator(ds, t["batch_size"], seed=0)))
     batch = {k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
-    cfg = ts.TrainConfig(accumulate=TRAIN["accumulate"], steps_per_epoch=20)
+    cfg = ts.TrainConfig(accumulate=t["accumulate"], steps_per_epoch=20)
     state = ts.create_train_state(0, GATsSPG(gats_kernel=True, fused_match=False), cfg, DEV)
     step = ts.make_train_step(state.model, cfg)
     parts = {"forward and loss": [], "backward": [], "optimizer": []}
@@ -3351,7 +3403,7 @@ def _train_step_breakdown(torch, index: str):
     kernels, wall = trace.kernels, trace.wall_ms / calls
     busy = trace.kernel_ms / calls
     by_name = {k: ms / calls for k, (_, ms) in trace.by_name().items()}
-    log(f"[train] one micro-step at batch {TRAIN['batch_size']}, host ms (synchronized, median "
+    log(f"[train] one micro-step at batch {t['batch_size']}, host ms (synchronized, median "
         f"of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
         + f"; profiler over "
         f"{calls} micro-steps: {len(kernels) // calls} CUDA kernels, {busy:.2f} ms of device "
@@ -3361,10 +3413,10 @@ def _train_step_breakdown(torch, index: str):
 
 
 def phase_train(torch, rows):
-    """`python -m onepose_tpu_torch train` on the card: K2's gradient (a),
-    the command on phase cli's map at configs/train_gats_spg.yaml's width,
-    its resume and its hand-off to infer (b), the card against the CPU
-    (c)."""
+    """`python -m onepose_tpu_torch train --config
+    configs/train_gats_spg.yaml` on the card: K2's gradient (a), the
+    command on phase cli's map, its resume and its hand-off to infer (b),
+    the card against the CPU (c)."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -3377,19 +3429,19 @@ def phase_train(torch, rows):
     index = str(anno_dir / "anno_index.json")
     frames = len(json.loads(Path(index).read_text()))
     run = w["root"] / "train"
-    t = TRAIN
-    args = [f"anno_index={index}", f"run_dir={run}", f"batch_size={t['batch_size']}",
-            f"accumulate={t['accumulate']}", f"shape2d={t['shape2d']}",
-            f"shape3d={t['shape3d']}", f"num_leaf={t['num_leaf']}", f"device={DEV}"]
+    t = _preset("train_gats_spg")
     per_epoch = frames // t["batch_size"]
-    for epochs, label in ((t["epochs"], "b"), (t["epochs"] + 1, "b, resumed")):
-        summary, counts, peak, sec, clock, losses = _train(torch, [*args, f"max_epochs={epochs}"])
+    for epochs, label in ((TRAIN_EPOCHS, "b"), (TRAIN_EPOCHS + 1, "b, resumed")):
+        summary, counts, peak, sec, clock, losses = _train(torch, _preset_argv(
+            "train", "train_gats_spg", [f"anno_index={index}", f"run_dir={run}",
+                                        f"max_epochs={epochs}", f"device={DEV}"], "train"))
         micro = per_epoch * (1 if "resumed" in label else epochs)
         each = clock.each["step"]
         want = {k: 0 for k in counts}
         want["gats"] = 4 * micro
         log(f"[train] ({label}) {frames} annotated frames, batch {t['batch_size']}, accumulate "
-            f"{t['accumulate']}, {epochs} epochs: {micro} micro-steps in {sec:.2f} s, "
+            f"{t['accumulate']}, shape2d {t['shape2d']}, shape3d {t['shape3d']}, {t['num_leaf']} "
+            f"leaves, {epochs} epochs: {micro} micro-steps in {sec:.2f} s, "
             f"{clock.s['step'] / micro * 1e3:.1f} ms a micro-step (median "
             f"{statistics.median(each) * 1e3:.1f}, first {each[0] * 1e3:.1f}), peak device "
             f"memory {peak:.2f} GiB; launches {counts} (want K2 4 a micro-step: {want}); summary "
@@ -3400,7 +3452,7 @@ def phase_train(torch, rows):
             per_micro = counts["gats"] / micro
         if summary["epoch"] != epochs - 1 or not np.isfinite(summary["train_loss"]):
             fail(f"train ({label}) printed {summary}")
-    for e in range(t["epochs"] + 1):
+    for e in range(TRAIN_EPOCHS + 1):
         _train_checkpoint(np, run / "ckpt" / f"ckpt_{e}.msgpack", per_epoch * (e + 1),
                           t["accumulate"])
     records = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
@@ -3409,18 +3461,18 @@ def phase_train(torch, rows):
                            "ckpt/best.msgpack", "ckpt/best.json") if not (run / p).is_file()]
     tb = sorted(p.name for p in (run / "tb").glob("events.*")) if (run / "tb").is_dir() else []
     log(f"[train] artifacts: epochs recorded {epochs_run} (the resumed run added epoch "
-        f"{t['epochs']} only), missing {missing}; TensorBoard event files {len(tb)} "
+        f"{TRAIN_EPOCHS} only), missing {missing}; TensorBoard event files {len(tb)} "
         f"({'written' if tb else 'none: torch.utils.tensorboard cannot be imported here'})")
-    if missing or epochs_run != list(range(t["epochs"] + 1)):
+    if missing or epochs_run != list(range(TRAIN_EPOCHS + 1)):
         fail("train's artifacts are incomplete")
 
     _train_step_breakdown(torch, index)
 
     # The hand-off: infer loads the trained checkpoint and serves a batch.
     sub = _cli_subsequence(w["seq"], w["root"] / "train_sub", 8)
-    ckpt = run / "ckpt" / f"ckpt_{t['epochs']}.msgpack"
+    ckpt = run / "ckpt" / f"ckpt_{TRAIN_EPOCHS}.msgpack"
     metrics, counts, _, sec, _ = _infer(torch, [
-        f"data_dir={sub}", "matcher=gats", f"anno_dir={anno_dir}",
+        "infer", f"data_dir={sub}", "matcher=gats", f"anno_dir={anno_dir}",
         f"weights.superpoint={w['sp_ckpt']}", f"weights.matcher={ckpt}"], DEV, "trained")
     want = {**{k: 0 for k in counts}, "nms": 1, "gats": 4, "dual_softmax": 1}
     log(f"[train] infer matcher=gats with {ckpt.name} on 8 frames: {metrics}, {sec:.2f} s; "
@@ -3520,17 +3572,20 @@ class _Clock:
 
 
 def _detect(torch, np, db: Path, query: Path, device, kind, sg_ckpt, sp_ckpt):
-    """detect in the process: (summary, launches, peak GiB, seconds, the
-    boxes each frame was cropped to, the clock: DB extraction, detect_bbox
-    and crop)."""
+    """detect --config configs/detect.yaml in the process, with
+    detector_matcher=`kind` on top where the preset names another:
+    (summary, launches, peak GiB, seconds, the boxes each frame was cropped
+    to, the clock: DB extraction, detect_bbox and crop)."""
     from onepose_tpu_torch.cli import common
     from onepose_tpu_torch.detector import feature_detector as fd
 
     clock, crops = _Clock(torch, device), []
-    args = ["detect", f"db_dir={db}", f"query_dir={query}", f"weights.superpoint={sp_ckpt}",
-            f"weights.superglue={sg_ckpt}", f"detector_matcher={kind}", f"device={device}",
-            *(f"{k}={v}" for k, v in DETECT.items())]
-    summary, counts, peak, sec = _command(torch, args, device, wraps=(
+    other = [] if kind == _preset("detect")["detector_matcher"] else [
+        f"detector_matcher={kind}", f"weights.superglue={sg_ckpt}"]
+    argv = _preset_argv("detect", "detect", [
+        f"db_dir={db}", f"query_dir={query}", f"weights.superpoint={sp_ckpt}", *other,
+        f"device={device}"], "detect")
+    summary, counts, peak, sec = _command(torch, argv, device, wraps=(
         (common, "extract_sequence_features", clock.wrap("DB extraction")),
         (fd.FeatureObjectDetector, "detect_bbox", clock.wrap("detect_bbox")),
         (fd.FeatureObjectDetector, "crop", clock.wrap("crop", keep=crops))))
@@ -3550,7 +3605,7 @@ def _detect_outputs(np, query: Path, boxes, label):
     from onepose_tpu_torch.geometry.transforms import get_affine_transform
 
     K = read_full_intrinsics(str(query)).astype(np.float64)
-    size = DETECT["crop_size"]
+    size = _preset("detect")["crop_size"]
     worst_A, worst_box = 0.0, 0.0
     for f, box in enumerate(boxes):
         crop = cv2.imread(str(query / "color_det" / f"{f}.png"), cv2.IMREAD_GRAYSCALE)
@@ -3589,8 +3644,9 @@ def _detect_line(label, summary, counts, peak, sec, clock, frames):
 
 
 def phase_detect(torch, rows):
-    """`python -m onepose_tpu_torch detect` on the card: (a) nn, (b)
-    superglue, then the card against the CPU."""
+    """`python -m onepose_tpu_torch detect --config configs/detect.yaml` on
+    the card: (a) the preset (nn), (b) superglue, then the card against the
+    CPU."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -3598,9 +3654,12 @@ def phase_detect(torch, rows):
     root = w["root"]
     t0 = time.perf_counter()
     query = _query_scene(np, root / "query", DETECT_FRAMES)
+    preset = _preset("detect")
     log(f"[detect] query sequence: {DETECT_FRAMES} full frames of {DETECT_HW[1]}x{DETECT_HW[0]} "
         f"written as PNG in {time.perf_counter() - t0:.1f} s; DB: phase cli's "
-        f"{CLI_SCENE['frames']} frames of {CLI_SCENE['img']}^2, {DETECT['n_ref_views']} views")
+        f"{CLI_SCENE['frames']} frames of {CLI_SCENE['img']}^2; configs/detect.yaml: "
+        f"{preset['n_ref_views']} views, {preset['max_keypoints']} keypoints, "
+        f"{preset['crop_size']}^2 crops, detector_matcher {preset['detector_matcher']}")
     w["query"] = query
     db_batches = -(-CLI_SCENE["frames"] // 8)
     for label, kind, frames in (("a", "nn", DETECT_FRAMES), ("b", "superglue", DETECT_SG_FRAMES)):
@@ -3645,14 +3704,37 @@ def phase_detect(torch, rows):
 # --- phase infer: the `infer` command ----------------------------------------
 
 
-def _infer(torch, args, device, label):
-    """infer in the process: (metrics, launches, peak GiB, seconds, the
-    clock of its batches)."""
+def _infer(torch, argv, device, label, served=None, threshold=None):
+    """infer in the process (argv from `_preset_argv`, or a plain one): (metrics,
+    launches, peak GiB, seconds, the clock of its batches). `served`, a
+    list, gets (batch start, pose, pnp_ok, keypoints, kpt_mask, matches0)
+    of each batch as `infer._serve` returns them (numpy); `threshold` sets the
+    learned matcher's match_threshold in the pipeline the command builds."""
     from onepose_tpu_torch.cli import infer
 
+    def record(fn):
+        def inner(pipe, start, *a, **k):
+            out = fn(pipe, start, *a, **k)
+            served.append((start, *(out[x].cpu().numpy() for x in (
+                "pose", "pnp_ok", "keypoints", "kpt_mask", "matches0"))))
+            return out
+        return inner
+
+    def thresholded(fn):
+        def inner(*a, **k):
+            pipe = fn(*a, **k)
+            pipe.matcher.match_threshold = threshold
+            return pipe
+        return inner
+
     clock = _Clock(torch, device)
-    metrics, counts, peak, sec = _command(torch, ["infer", *args, f"device={device}"], device,
-                                          wraps=((infer, "_serve", clock.wrap("batch")),))
+    wraps = [(infer, "_serve", clock.wrap("batch"))]
+    if served is not None:
+        wraps.append((infer, "_serve", record))
+    if threshold is not None:
+        wraps.append((infer, "build_pipeline", thresholded))
+    metrics, counts, peak, sec = _command(torch, [*argv, f"device={device}"], device,
+                                          wraps=wraps)
     keys = {"cmd1", "cmd3", "cmd5", "mean_rot_deg", "mean_trans_cm", "num_frames"}
     if not keys <= set(metrics):
         fail(f"infer ({label}) printed {metrics}, not the metrics line")
@@ -3830,27 +3912,201 @@ def _infer_oracle(torch, np, root: Path):
         fail("the infer oracle missed cmd1 == 1.0, or the EPnP refit changed its recalls")
 
 
+def _roster_dirs(root: Path, entries) -> list:
+    """A roster under root: for each (name, sequence, map output), root/name/
+    seq_<name> and root/name/outputs, links to them (infer names a roster's
+    sequences by their directories and reads each map from the sequence's
+    ../outputs/anno). Returns the sequence paths."""
+    import os
+
+    seqs = []
+    for name, seq, out in entries:
+        (root / name).mkdir(parents=True)
+        os.symlink(seq, root / name / f"seq_{name}")
+        os.symlink(out, root / name / "outputs")
+        seqs.append(root / name / f"seq_{name}")
+    return seqs
+
+
+def _roster_infer(torch, seqs, device, label, w, mixed: bool, tag: str) -> tuple:
+    """configs/infer_gt_box.yaml on the roster `seqs` (batch_objects=true
+    when `mixed`), the learned matcher at MATCH_THRESHOLD: (metrics,
+    launches, seconds, ms a batch, the batches `_serve` returned)."""
+    served = []
+    argv = _preset_argv("infer", "infer_gt_box", [
+        f"data_dir={','.join(str(q) for q in seqs)}", f"weights.superpoint={w['sp_ckpt']}",
+        f"weights.matcher={w['gats_ckpt']}", *(["batch_objects=true"] if mixed else [])], tag)
+    metrics, counts, _, sec, clock = _infer(torch, argv, device, label, served=served,
+                                            threshold=MATCH_THRESHOLD)
+    return metrics, counts, sec, clock.s["batch"] / len(served) * 1e3, served
+
+
+def _roster_frames(served, frames: list, B: int, mixed: bool) -> dict:
+    """Per frame (sequence index, frame index) of a roster run: (pose,
+    pnp_ok, keypoints, kpt_mask, matches0), from the batches `_serve` returned in
+    order. With batch_objects a batch's start counts across the roster;
+    without, each sequence's batches start again at its frame 0."""
+    rows = [(si, f) for si, n in enumerate(frames) for f in range(n)]
+    out, si = {}, -1
+    for start, *values in served:
+        si += not mixed and start == 0
+        keys = (rows[start:start + B] if mixed
+                else [(si, f) for f in range(start, min(start + B, frames[si]))])
+        for j, key in enumerate(keys):
+            out[key] = tuple(v[j] for v in values)
+    return out
+
+
+def _same_matches(np, a: dict, b: dict, keys) -> int:
+    """Frames of `keys` whose matches0 are identical in a and b."""
+    return sum(bool(np.array_equal(a[k][4], b[k][4])) for k in keys)
+
+
+def _pose_agreement(np, a: dict, b: dict, keys) -> tuple:
+    """(pnp_ok identical on `keys`, frames solved in both, poses max abs diff
+    on those)."""
+    same_ok = all(bool(a[k][1]) == bool(b[k][1]) for k in keys)
+    solved = [k for k in keys if a[k][1] and b[k][1]]
+    worst = max((float(np.abs(a[k][0] - b[k][0]).max()) for k in solved), default=0.0)
+    return same_ok, len(solved), worst
+
+
+def _infer_roster(torch, np, w, B: int):
+    """infer's mixed-object roster (configs/infer_gt_box.yaml
+    batch_objects=true; `_eval_roster_batched`, `stack_annotations`, the
+    device-side gather of ObjectAnnotation) on phase cli's sequence and a
+    second object mapped here, against the per-sequence route: frame counts
+    and names equal; the first sequence's batches start at the same frame
+    indices in both routes (its frame count a multiple of the batch), so
+    they draw alike and its poses agree within INFER_POSE_ABS; the second's
+    draws differ, so cmd3 and cmd5 equal and cmd1 within one frame; K1 1,
+    K2 4, K3 1 a batch. Then ROSTER_SMALL frames a sequence, one batch
+    holding both objects: its first rows against the per-sequence route on
+    the card, and the whole batch on the card against the CPU."""
+    t0 = time.perf_counter()
+    root = w["root"] / "roster"
+    seq_b, _ = _cli_scene(np, root / "b_scene", dict(CLI_SCENE, frames=ROSTER_FRAMES),
+                          seed=ROSTER_SEED)
+    out_b = root / "b_map"
+    stats, _, _, sec = _cli_map(torch, _map_nn_argv(seq_b, out_b, w["sp_ckpt"], "infer"),
+                                "roster's second object")
+    frames = [CLI_SCENE["frames"], ROSTER_FRAMES]
+    if frames[0] % B:
+        fail(f"the roster's first sequence has {frames[0]} frames, not a multiple of {B}")
+    seqs = _roster_dirs(root / "full", [("a", w["seq"], w["map_a"]),
+                                        ("b", seq_b, out_b)])
+    log(f"[infer] roster: phase cli's {frames[0]} frames and a second object (seed "
+        f"{ROSTER_SEED}, {ROSTER_FRAMES} frames, rendered and mapped with matcher=nn in "
+        f"{time.perf_counter() - t0:.1f} s: {stats['num_points3d']} points)")
+    names = [q.name for q in seqs]
+    runs = {}
+    for mixed in (False, True):
+        label = "roster, batch_objects" if mixed else "roster, per sequence"
+        metrics, counts, sec, ms, served = _roster_infer(torch, seqs, DEV, label, w, mixed,
+                                                         "infer")
+        nb = sum(-(-n // B) for n in frames) if not mixed else -(-sum(frames) // B)
+        want = {**{k: 0 for k in counts}, "nms": nb, "gats": 4 * nb, "dual_softmax": nb}
+        per_seq = {k: v["num_frames"] for k, v in metrics["per_seq"].items()}
+        log(f"[infer] ({label}) match_threshold {MATCH_THRESHOLD}: {sum(frames)} frames in "
+            f"{nb} batches of {B}, {ms:.1f} ms a batch through the pipeline, {sec:.2f} s in "
+            f"all; frames by sequence {per_seq}; metrics "
+            f"{ {k: v for k, v in metrics.items() if k != 'per_seq'} }, per sequence "
+            f"{metrics['per_seq']}; launches {counts} (want per batch K1 1, K2 4, K3 1: {want})")
+        if counts != want or len(served) != nb:
+            fail(f"infer ({label}) launched {counts} in {len(served)} batches, want {want}")
+        if per_seq != dict(zip(names, frames)) or metrics["num_frames"] != sum(frames):
+            fail(f"infer ({label}) counted {per_seq}, want {dict(zip(names, frames))}")
+        runs[mixed] = (metrics, _roster_frames(served, frames, B, mixed))
+    first = [(0, f) for f in range(frames[0])]
+    same_ok, solved, worst = _pose_agreement(np, runs[True][1], runs[False][1], first)
+    every = sorted(runs[False][1])
+    same_m = _same_matches(np, runs[True][1], runs[False][1], every)
+    m_b = [runs[x][0]["per_seq"][names[1]] for x in (True, False)]
+    cmd_ok = (m_b[0]["cmd3"] == m_b[1]["cmd3"] and m_b[0]["cmd5"] == m_b[1]["cmd5"]
+              and abs(m_b[0]["cmd1"] - m_b[1]["cmd1"]) <= 1 / frames[1] + 1e-9)
+    log(f"[infer] roster against the per-sequence route: matches0 identical in {same_m} of "
+        f"{len(every)} frames (each frame matched against its own object's map, draws aside); "
+        f"{names[0]}'s {frames[0]} frames pnp_ok identical {same_ok} ({solved} solved in both), "
+        f"poses max abs diff {worst:.3e} (<= {INFER_POSE_ABS}); {names[1]} (other draws): cmd1 / "
+        f"cmd3 / cmd5 "
+        f"{[m_b[0][k] for k in ('cmd1', 'cmd3', 'cmd5')]} against "
+        f"{[m_b[1][k] for k in ('cmd1', 'cmd3', 'cmd5')]} (cmd3 and cmd5 equal, cmd1 within "
+        f"one frame: {cmd_ok})")
+    if not (same_m == len(every) and same_ok and solved and worst <= INFER_POSE_ABS and cmd_ok):
+        fail("infer's batch_objects roster disagrees with the per-sequence route")
+
+    # ROSTER_SMALL frames a sequence: one batch that mixes the two objects.
+    small = [ROSTER_SMALL, ROSTER_SMALL]
+    got = {}
+    for i, (dev, mixed) in enumerate(((DEV, False), (DEV, True), ("cpu", True))):
+        parts = [_cli_subsequence(q, root / f"small_{i}_{n}", ROSTER_SMALL)
+                 for n, q in zip("ab", (w["seq"], seq_b))]
+        qs = _roster_dirs(root / f"small_{i}", [("a", parts[0], w["map_a"]),
+                                                ("b", parts[1], out_b)])
+        label = f"small roster on {dev}{', batch_objects' if mixed else ''}"
+        metrics, counts, sec, ms, served = _roster_infer(torch, qs, dev, label, w, mixed,
+                                                         "infer")
+        got[dev, mixed] = _roster_frames(served, small, B, mixed)
+        log(f"[infer] ({label}) {sum(small)} frames in {len(served)} batch(es): {sec:.2f} s, "
+            f"launches {counts}")
+        if dev != "cpu":
+            nb = len(served)
+            want = {**{k: 0 for k in counts}, "nms": nb, "gats": 4 * nb, "dual_softmax": nb}
+            if counts != want or nb != (1 if mixed else 2):
+                fail(f"infer ({label}) launched {counts} in {nb} batches, want {want}")
+    first = [(0, f) for f in range(ROSTER_SMALL)]
+    every = sorted(got[DEV, False])
+    same_m = _same_matches(np, got[DEV, True], got[DEV, False], every)
+    same_ok, solved, worst = _pose_agreement(np, got[DEV, True], got[DEV, False], first)
+    log(f"[infer] small roster, the mixed batch against the per-sequence route on the card: "
+        f"matches0 identical in {same_m} of {len(every)} frames (both objects); {names[0]}'s rows "
+        f"(the same draws) pnp_ok identical {same_ok} ({solved} solved), poses max abs diff "
+        f"{worst:.3e} (<= {INFER_POSE_ABS})")
+    if not (same_m == len(every) and same_ok and solved and worst <= INFER_POSE_ABS):
+        fail("the mixed batch disagrees with the per-sequence route")
+    every = sorted(got[DEV, True])
+    overlap = _keypoint_overlap(
+        {"keypoints": np.stack([got[DEV, True][k][2] for k in every]),
+         "kpt_mask": np.stack([got[DEV, True][k][3] for k in every])},
+        {"keypoints": np.stack([got["cpu", True][k][2] for k in every]),
+         "kpt_mask": np.stack([got["cpu", True][k][3] for k in every])})
+    same_ok, solved, worst = _pose_agreement(np, got[DEV, True], got["cpu", True], every)
+    log(f"[infer] small roster, batch_objects, card against CPU: keypoint overlap "
+        f"{overlap:.4f} (>= {CLI_KPT_OVERLAP}), pnp_ok identical {same_ok} ({solved} of "
+        f"{len(every)} solved), poses max abs diff {worst:.3e} (<= {INFER_POSE_ABS})")
+    if not (overlap >= CLI_KPT_OVERLAP and same_ok and solved and worst <= INFER_POSE_ABS):
+        fail("infer's batch_objects roster on the card disagrees with the CPU")
+    log(f"[infer] the roster took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_infer(torch):
-    """`python -m onepose_tpu_torch infer` on the card: (a) gats on phase
-    cli's frames and on phase detect's crops, (b) nn; the card against the
-    CPU; (c) the planted oracle, with the EPnP refit off and on."""
+    """`python -m onepose_tpu_torch infer` on the card: (a)
+    configs/infer_gt_box.yaml on phase cli's frames and
+    configs/infer_detect_box.yaml on phase detect's crops, (b) nn; the
+    roster of two objects with batch_objects=true against the per-sequence
+    route; the card against the CPU; (c) the planted oracle, with the EPnP
+    refit off and on."""
     import numpy as np
 
     t_phase = time.perf_counter()
     w = _world(np)
     anno_dir = _world_map(torch, np) / "anno"
-    F, B = CLI_SCENE["frames"], 8
-    batches = -(-F // B)
+    F = CLI_SCENE["frames"]
+    B = _preset("infer_gt_box")["batch"]
     base = [f"anno_dir={anno_dir}", f"weights.superpoint={w['sp_ckpt']}",
             f"weights.matcher={w['gats_ckpt']}"]
-    runs = [("a", "gats", f"data_dir={w['seq']}", F)]
+    runs = [("a", _preset_argv("infer", "infer_gt_box", [f"data_dir={w['seq']}", *base],
+                               "infer"), F)]
     if "query" in w and (w["query"] / "color_det").is_dir():
-        runs.append(("a, detect's crops", "gats", f"data_dir={w['query']}", DETECT_FRAMES))
-    runs.append(("b", "nn", f"data_dir={w['seq']}", F))
-    for label, matcher, data, frames in runs:
-        extra = ["det_type=feature_matching"] if "crops" in label else []
-        metrics, counts, peak, sec, clock = _infer(torch, [data, f"matcher={matcher}", *base,
-                                                           *extra], DEV, label)
+        runs.append(("a, detect's crops", _preset_argv(
+            "infer", "infer_detect_box", [f"data_dir={w['query']}", *base], "infer"),
+            DETECT_FRAMES))
+    runs.append(("b", _preset_argv("infer", "infer_gt_box",
+                                   [f"data_dir={w['seq']}", *base, "matcher=nn"], "infer"), F))
+    for label, argv, frames in runs:
+        metrics, counts, peak, sec, clock = _infer(torch, argv, DEV, label)
+        preset = Path(argv[2]).stem
+        matcher = "nn" if "matcher=nn" in argv else "gats"
         nb = -(-frames // B)
         per = clock.s["batch"] / nb
         each = clock.each["batch"]
@@ -3858,8 +4114,9 @@ def phase_infer(torch):
         want["nms"] = nb
         if matcher == "gats":
             want.update(gats=4 * nb, dual_softmax=nb)
-        side = DETECT["crop_size"] if "crops" in label else CLI_SCENE["img"]
-        log(f"[infer] ({label}) matcher={matcher}, {frames} frames of {side}^2 in "
+        side = _preset("detect")["crop_size"] if "crops" in label else CLI_SCENE["img"]
+        log(f"[infer] ({label}) configs/{preset}.yaml, matcher={matcher}, {frames} frames of "
+            f"{side}^2 in "
             f"{nb} batches of {B}: {metrics}; {sec:.2f} s in all, {per * 1e3:.1f} ms a batch "
             f"through the pipeline (median {statistics.median(each) * 1e3:.1f}, first "
             f"{each[0] * 1e3:.1f}; {frames / clock.s['batch']:.1f} frames/s; "
@@ -3868,6 +4125,7 @@ def phase_infer(torch):
             f"{', K2 4, K3 1' if matcher == 'gats' else ''}, no other: {want})")
         if counts != want or metrics["num_frames"] != frames:
             fail(f"infer ({label}) launched {counts}, want {want}")
+    _infer_roster(torch, np, w, B)
     _infer_card_vs_cpu(torch, np, w, anno_dir)
     _infer_oracle(torch, np, w["root"])
     log(f"[infer] phase infer took {time.perf_counter() - t_phase:.1f} s; random weights: the "
@@ -4184,8 +4442,9 @@ class _LaunchLog:
 
 
 def _demo(torch, np, seq: Path, anno: Path, out: Path, device, extra=()):
-    """demo in the process: (summary, launches, peak GiB, seconds, the
-    per-frame route, the launch log)."""
+    """demo --config configs/demo.yaml in the process, `extra` on top:
+    (summary, launches, peak GiB, seconds, the per-frame route, the launch
+    log)."""
     from onepose_tpu_torch.cli import demo
     from onepose_tpu_torch.detector import feature_detector as fd
     from onepose_tpu_torch.runtime.pipeline import PosePipeline
@@ -4201,11 +4460,12 @@ def _demo(torch, np, seq: Path, anno: Path, out: Path, device, extra=()):
             return inner
         return outer
 
-    size = DEMO["crop_size"]
-    args = ["demo", f"data_dir={seq}", f"anno_dir={anno}", f"out_dir={out}",
-            f"weights.superpoint={w['sp_ckpt']}", f"weights.matcher={w['gats_ckpt']}",
-            f"device={device}", *(f"{k}={v}" for k, v in DEMO.items()), *extra]
-    summary, counts, peak, sec = _command(torch, args, device, wraps=(
+    size = _preset("demo")["crop_size"]
+    argv = _preset_argv("demo", "demo", [
+        f"data_dir={seq}", f"anno_dir={anno}", f"out_dir={out}",
+        f"weights.superpoint={w['sp_ckpt']}", f"weights.matcher={w['gats_ckpt']}",
+        f"device={device}", *extra], "demo")
+    summary, counts, peak, sec = _command(torch, argv, device, wraps=(
         (fd.FeatureObjectDetector, "detect_bbox", tagged("D")),
         (fd.FeatureObjectDetector, "previous_pose_detect", tagged("B")),
         (PosePipeline, "__call__", log_.wrap(lambda a: "matcher")),
@@ -4216,9 +4476,10 @@ def _demo(torch, np, seq: Path, anno: Path, out: Path, device, extra=()):
 
 
 def phase_demo(torch, rows):
-    """`python -m onepose_tpu_torch demo` on the card: (a) without tracking,
-    (b) with tracking (keyframe every 5 frames), then the route of the first
-    frames on the card against the CPU."""
+    """`python -m onepose_tpu_torch demo --config configs/demo.yaml` on the
+    card: (a) the preset (no tracking), (b) with tracking (keyframe every 5
+    frames), then the route of the first frames on the card against the
+    CPU."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -4395,7 +4656,8 @@ def _cli_a15(torch, np, w):
                               ("converted", converted["superpoint"], converted["gats_spg"])):
         vis = root / f"vis_{len(runs)}"
         metrics, counts, _, sec, _ = _infer(torch, [
-            f"data_dir={sub}", f"anno_dir={anno}", "matcher=gats", f"weights.superpoint={sp_w}",
+            "infer", f"data_dir={sub}", f"anno_dir={anno}", "matcher=gats",
+            f"weights.superpoint={sp_w}",
             f"weights.matcher={gm_w}", f"dump_vis3d={vis}"], DEV, label)
         runs.append((metrics, {p.parent.name: json.loads(p.read_text())
                                for p in vis.glob("*/camera.json")}))
@@ -4941,27 +5203,37 @@ def phase_multi(torch, rows, cards: int = 0):
         f"{time.perf_counter() - t2:.1f} s")
 
 
-# Phase bench: each entry point as `python <args>` from the repository's
-# root, with the seconds it may take; "{capture}" stands for the A20
-# capture's object directory.
-BENCH_TRAIN_STEPS = 20
+# Phase bench: each entry point `python -m <module> <argv>` as its
+# main(argv) in this process, its stdout captured, at PyTorch's TF32
+# defaults (a process takes about 11 s to reach the card on an H100 host:
+# sp_layers ran 15.4 s for about 3 s of work in its own process, and ten
+# such processes were a third of the phase), with the module constants in
+# `depth` set for the run: a depth cut to fewer timed calls (bench.py's
+# windows of 20 calls, not 50; the others' rows of 10 or 20).
+# demo_pipeline, which starts a process a command, runs in its own process
+# from the repository's root, within DEMO_PIPELINE_TIMEOUT s; "{capture}"
+# stands for the A20 capture's object directory.
+BENCH_TRAIN_STEPS = 8
+PAIR_N = 32  # bench_pair_batching's pairs (its default 64)
 BENCH_RUNS = (
-    ("bench", ["-m", "onepose_tpu_torch.bench"], 180),
-    ("roofline", ["-m", "onepose_tpu_torch.scripts.roofline_audit", "--sweep"], 240),
-    ("train_step", ["-m", "onepose_tpu_torch.scripts.bench_train_step", "8",
-                    str(BENCH_TRAIN_STEPS)], 180),
-    ("profile_pnp", ["-m", "onepose_tpu_torch.scripts.profile_pnp"], 180),
-    ("pair_batching", ["-m", "onepose_tpu_torch.scripts.bench_pair_batching"], 240),
-    ("matcher_parts", ["-m", "onepose_tpu_torch.scripts.bench_matcher_parts"], 180),
-    ("mixed_attention", ["-m", "onepose_tpu_torch.scripts.bench_mixed_attention"], 180),
-    ("sp_layers", ["-m", "onepose_tpu_torch.scripts.profile_sp_layers"], 180),
-    ("superpoint_parts", ["-m", "onepose_tpu_torch.scripts.profile_superpoint_parts"], 180),
-    ("demo_pipeline", ["-m", "onepose_tpu_torch.scripts.demo_pipeline", "{capture}",
-                       "--with-tracking"], 420),
+    ("bench", "onepose_tpu_torch.bench", [], {"ITERS": 20}),
+    ("roofline", "onepose_tpu_torch.scripts.roofline_audit", ["--sweep"], {}),
+    ("train_step", "onepose_tpu_torch.scripts.bench_train_step", ["8", str(BENCH_TRAIN_STEPS)],
+     {}),
+    ("profile_pnp", "onepose_tpu_torch.scripts.profile_pnp", [], {}),
+    ("pair_batching", "onepose_tpu_torch.scripts.bench_pair_batching", ["1024", str(PAIR_N)],
+     {}),
+    ("matcher_parts", "onepose_tpu_torch.scripts.bench_matcher_parts", [], {"ITERS": 10}),
+    ("mixed_attention", "onepose_tpu_torch.scripts.bench_mixed_attention", [], {"ITERS": 10}),
+    ("sp_layers", "onepose_tpu_torch.scripts.profile_sp_layers", [], {"ITERS": 20}),
+    ("superpoint_parts", "onepose_tpu_torch.scripts.profile_superpoint_parts", [],
+     {"ITERS": 10}),
+    ("demo_pipeline", "onepose_tpu_torch.scripts.demo_pipeline",
+     ["{capture}", "--with-tracking"], None),
 )
+DEMO_PIPELINE_TIMEOUT = 420
 PNP_ROWS = ["pnp_fixed", "pnp_varying", "sample", "sample+p3p", "subset_score_sort",
             "full_score", "gn_refine"]
-PAIR_N = 64  # bench_pair_batching's pairs
 SP_PARTS = {"encoder only (bf16, K5)": {"vgg_stage": 4}, "encoder only (bf16, plain convs)": {},
             "full dense fwd (bf16, K5 + K1)": {"nms": 1, "vgg_stage": 4},
             "full dense fwd (bf16, plain)": {}, "simple_nms r=4 (fp32, K1)": {"nms": 1},
@@ -4972,13 +5244,49 @@ MIXED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "dual_softmax": 1}
 # rendered as phase detect renders its queries (full DETECT_HW frames,
 # CLI_SCENE's focal length, the two rings) and written as ARKit files:
 # `annotate` frames to map, `test` frames (a quarter step round) to demo,
-# with tracking (depth cuts from a scan's hundreds of frames); map at
-# configs/map.yaml's width with phase cli's weights, demo as phase demo (b).
-A20 = dict(annotate=24, test=6)
+# with tracking (depth cuts from a scan's hundreds of frames, to keep the
+# whole run inside its time limit); map at configs/map.yaml's width with phase
+# cli's weights, demo as phase demo (b).
+A20 = dict(annotate=16, test=4)
 BENCH_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1}
 ROOFLINE_STAGES = ("superpoint_dense", "extract_keypoints", "gats_spg_matcher", "ransac_pnp",
                    "fused_pipeline")
 ROOFLINE_SWEEP = [8, 16, 32, 64]
+
+
+def _entry_point_here(torch, module: str, argv: list, depth: dict) -> tuple:
+    """`python -m module argv` as `module.main(argv)` in this process, its
+    stdout captured, at PyTorch's TF32 defaults (cudnn on, matmul off) and
+    with `depth`'s module constants set for the run (all restored after):
+    (stdout lines, the last line as JSON, seconds); fails on a non-zero
+    return or exit."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(module)
+    saved = {k: getattr(mod, k) for k in depth}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        for k, v in depth.items():
+            setattr(mod, k, v)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        with contextlib.redirect_stdout(buf):
+            try:
+                rc = mod.main(argv)
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    sec = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    if rc or not lines:
+        fail(f"python -m {module} {' '.join(argv)} ended with {rc}:\n{buf.getvalue()[-3000:]}")
+    return lines, json.loads(lines[-1]), sec
 
 
 def _entry_point(args, timeout: int, env=None) -> tuple:
@@ -5047,12 +5355,13 @@ def _a20_world(np, torch) -> tuple:
     log(f"[bench] A20 capture: {A20['annotate']} + {A20['test']} frames of {DETECT_HW[1]}x"
         f"{DETECT_HW[0]} as ARKit files in {time.perf_counter() - t0:.1f} s")
     env = dict(os.environ,
-               MAP_ARGS=" ".join([f"weights.superpoint={w['sp_ckpt']}", "matcher=nn",
-                                  _cache_arg(), "anno_format=npz", *_cli_args()]),
-               DEMO_ARGS=" ".join([f"weights.superpoint={w['sp_ckpt']}",
-                                   f"weights.matcher={w['gats_ckpt']}",
-                                   *(f"{k}={v}" for k, v in DEMO.items()),
-                                   *DEMO_RUNS[1][1]]))
+               MAP_ARGS=" ".join([*_preset_kv("map", skip=("matcher",)), "matcher=nn",
+                                  f"weights.superpoint={w['sp_ckpt']}", _cache_arg(),
+                                  "anno_format=npz"]),
+               DEMO_ARGS=" ".join([*_preset_kv("demo", skip=("use_tracking", "make_video",
+                                                             "out_dir")),
+                                   f"weights.superpoint={w['sp_ckpt']}",
+                                   f"weights.matcher={w['gats_ckpt']}", *DEMO_RUNS[1][1]]))
     return obj, env
 
 
@@ -5145,19 +5454,23 @@ def _bench_checks(label: str, last: dict, smi: str) -> None:
 
 
 def phase_bench(smi: str):
-    """The measurement entry points on the card, each in its own process."""
+    """The measurement entry points on the card, in this process but
+    demo_pipeline."""
     import numpy as np
     import torch
 
     from onepose_tpu_torch.ops.kernels import launch_counts
 
     out = {}
-    for label, args, timeout in BENCH_RUNS:
-        env = None
-        if "{capture}" in args:
+    for label, module, argv, depth in BENCH_RUNS:
+        if depth is not None:
+            lines, last, sec = _entry_point_here(torch, module, argv, depth)
+        else:
             obj, env = _a20_world(np, torch)
-            args = [str(obj) if a == "{capture}" else a for a in args]
-        lines, last, sec = _entry_point(args, timeout, env)
+            argv = [str(obj) if a == "{capture}" else a for a in argv]
+            lines, last, sec = _entry_point(["-m", module, *argv], DEMO_PIPELINE_TIMEOUT, env)
+        log(f"[bench] {label}: {' '.join(['python -m', module, *argv])}"
+            + (f" in this process, depth {depth}" if depth is not None else ""))
         for line in lines[:-1]:
             log(f"[bench] {label}: {line}")
         log(f"[bench] {label}: {sec:.1f} s; last line {json.dumps(last)[:2000]}")
@@ -5201,13 +5514,13 @@ def phase_bench(smi: str):
 
 
 # Phase sp_variants: the three front-end benchmarks at the scripts' shapes,
-# each with the kernels its forms must launch and its calls a window (the
-# modules' own ITERS, but bench_sp_variants' 20 cut to 8 to keep the whole
+# each with the kernels its forms must launch and its calls a window (a
+# depth cut from the modules' own ITERS, 50, 50 and 20, to keep the whole
 # run well inside its time limit); should it near the limit again, cut
 # these counts first.
 SP_VARIANT_SHAPE = dict(b=8, img=512)
-SP_VARIANTS = {"bench_sp_front": ({"nms", "vgg_stage"}, 50), "bench_sp_score": ({"nms"}, 50),
-               "bench_sp_variants": ({"nms", "vgg_stage"}, 8)}
+SP_VARIANTS = {"bench_sp_front": ({"nms", "vgg_stage"}, 20), "bench_sp_score": ({"nms"}, 20),
+               "bench_sp_variants": ({"nms", "vgg_stage"}, 3)}
 SP_VARIANT_WINDOWS = 5
 
 
