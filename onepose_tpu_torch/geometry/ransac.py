@@ -16,6 +16,11 @@ inject JAX's), or draws them from a `torch.Generator`.
 Ties: hypotheses are ranked by integer inlier counts, where ties are the
 norm, so every top-k is a stable descending sort (lowest index first, as
 jax.lax.top_k) and argmax takes the first maximum, as jnp.argmax does.
+
+Spans (`utils.profiling.span`), in order: `pnp.sample` (the inputs in
+fp32, the minimal samples), `pnp.p3p`, `pnp.preempt`, `pnp.score`,
+`pnp.refine` (the EPnP re-solve and Gauss-Newton), `pnp.final` (the
+final inliers and the pose).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from onepose_tpu_torch.geometry.epnp import epnp_solve
 from onepose_tpu_torch.geometry.p3p import p3p_solve
 from onepose_tpu_torch.geometry.rotations import angle_axis_to_rotmat, rotmat_to_angle_axis
 from onepose_tpu_torch.utils.precision import fp32_matmuls
+from onepose_tpu_torch.utils.profiling import span
 
 
 def _sample_minimal_sets(
@@ -208,51 +214,59 @@ def ransac_pnp(
     dtype = torch.float32
     dev = pts2d.device
     B = pts2d.shape[0]
-    pts2d = pts2d.to(dtype)
-    pts3d_s = pts3d.to(dtype) * scale
-    K = K.to(dtype)
-    if draws is None:
-        draws = torch.rand((B, n_hyp, 3), generator=generator, dtype=dtype,
-                           device=generator.device if generator is not None else dev)
-    draws = draws.to(device=dev, dtype=dtype)
-    if draws.shape != (B, n_hyp, 3):
-        raise ValueError(f"draws must be [{B}, {n_hyp}, 3], got {tuple(draws.shape)}")
+    with span("pnp.sample"):
+        pts2d = pts2d.to(dtype)
+        pts3d_s = pts3d.to(dtype) * scale
+        K = K.to(dtype)
+        if draws is None:
+            draws = torch.rand((B, n_hyp, 3), generator=generator, dtype=dtype,
+                               device=generator.device if generator is not None else dev)
+        draws = draws.to(device=dev, dtype=dtype)
+        if draws.shape != (B, n_hyp, 3):
+            raise ValueError(f"draws must be [{B}, {n_hyp}, 3], got {tuple(draws.shape)}")
 
-    order, n_valid = _valid_first(mask)
-    idx = _sample_minimal_sets(draws, order, n_valid)  # [B, H, 3]
-    Rs, ts, oks = _p3p_hypotheses(pts2d, pts3d_s, K, idx)
-    keep = _preemptive_keep(Rs, ts, oks, pts2d, pts3d_s, K, order, n_valid, reproj_threshold)
-    R_best, t_best, inliers, n_in = _score_kept(Rs, ts, oks, keep, pts2d, pts3d_s, K, mask,
-                                                reproj_threshold)
+        order, n_valid = _valid_first(mask)
+        idx = _sample_minimal_sets(draws, order, n_valid)  # [B, H, 3]
+    with span("pnp.p3p"):
+        Rs, ts, oks = _p3p_hypotheses(pts2d, pts3d_s, K, idx)
+    with span("pnp.preempt"):
+        keep = _preemptive_keep(Rs, ts, oks, pts2d, pts3d_s, K, order, n_valid,
+                                reproj_threshold)
+    with span("pnp.score"):
+        R_best, t_best, inliers, n_in = _score_kept(Rs, ts, oks, keep, pts2d, pts3d_s, K, mask,
+                                                    reproj_threshold)
 
     # Refine on the inliers, from the best P3P pose or, with epnp_refit,
     # from the EPnP re-solve where its inlier error is no larger (a point
     # behind either camera makes both sums NaN or inf, as in JAX).
-    R1, t1 = R_best, t_best
-    if epnp_refit:
-        R_ref, t_ref, ok_ref = epnp_solve(pts3d_s, pts2d, K, inliers)
-        inl = inliers.to(dtype)
-        use_ref = ok_ref & ((_reproj_err(R_ref, t_ref, K, pts3d_s, pts2d) * inl).sum(-1)
-                            <= (_reproj_err(R_best, t_best, K, pts3d_s, pts2d) * inl).sum(-1))
-        R1 = torch.where(use_ref[:, None, None], R_ref, R_best)
-        t1 = torch.where(use_ref[:, None], t_ref, t_best)
-    R2, t2 = _gn_refine(R1, t1, K, pts3d_s, pts2d, inliers.to(dtype), iters=refine_iters)
+    with span("pnp.refine"):
+        R1, t1 = R_best, t_best
+        if epnp_refit:
+            R_ref, t_ref, ok_ref = epnp_solve(pts3d_s, pts2d, K, inliers)
+            inl = inliers.to(dtype)
+            use_ref = ok_ref & ((_reproj_err(R_ref, t_ref, K, pts3d_s, pts2d) * inl).sum(-1)
+                                <= (_reproj_err(R_best, t_best, K, pts3d_s, pts2d) * inl).sum(-1))
+            R1 = torch.where(use_ref[:, None, None], R_ref, R_best)
+            t1 = torch.where(use_ref[:, None], t_ref, t_best)
+        R2, t2 = _gn_refine(R1, t1, K, pts3d_s, pts2d, inliers.to(dtype), iters=refine_iters)
 
-    err_final = _reproj_err(R2, t2, K, pts3d_s, pts2d)
-    inliers_final = (err_final < reproj_threshold) & mask
-    ok = n_in >= 4
-    eye3 = torch.eye(3, dtype=dtype, device=dev).expand(B, 3, 3)
-    R_out = torch.where(ok[:, None, None], R2, eye3)
-    t_out = torch.where(ok[:, None], t2 / scale, 0.0)
-    pose = torch.eye(4, dtype=dtype, device=dev).repeat(B, 1, 1)
-    pose[:, :3, :3] = R_out
-    pose[:, :3, 3] = t_out
-    inliers_out = inliers_final & ok[:, None]
+    with span("pnp.final"):
+        err_final = _reproj_err(R2, t2, K, pts3d_s, pts2d)
+        inliers_final = (err_final < reproj_threshold) & mask
+        ok = n_in >= 4
+        eye3 = torch.eye(3, dtype=dtype, device=dev).expand(B, 3, 3)
+        R_out = torch.where(ok[:, None, None], R2, eye3)
+        t_out = torch.where(ok[:, None], t2 / scale, 0.0)
+        pose = torch.eye(4, dtype=dtype, device=dev).repeat(B, 1, 1)
+        pose[:, :3, :3] = R_out
+        pose[:, :3, 3] = t_out
+        inliers_out = inliers_final & ok[:, None]
+        num_inliers = torch.where(ok, (inliers_final & mask).sum(-1), 0)
     return {
         "pose": pose,
         "R": R_out,
         "t": t_out,
         "inliers": inliers_out,
-        "num_inliers": torch.where(ok, (inliers_final & mask).sum(-1), 0),
+        "num_inliers": num_inliers,
         "ok": ok,
     }

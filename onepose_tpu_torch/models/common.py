@@ -38,6 +38,7 @@ from torch import nn
 from onepose_tpu_torch._device import check_compute_dtype
 from onepose_tpu_torch.ops.kernels.flash_attention import flash_attention
 from onepose_tpu_torch.utils.precision import mixed_einsum
+from onepose_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 
@@ -200,21 +201,25 @@ def masked_softmax_attention(
     and both contractions sum in fp32 (JAX on an accelerator; JAX on the CPU
     keeps the probabilities fp32). None or fp32: all fp32.
 
-    use_flash: the opt-in fused route (`_flash_softmax_attention`)."""
-    d = q.shape[-1]
-    if use_flash:
-        return _flash_softmax_attention(q, k, v, kv_mask, sm_scale=1.0 / float(d) ** 0.5)
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        cd = compute_dtype
-        logits = mixed_einsum("bnhd,bmhd->bhnm", q, k, dtype=cd) / float(d) ** 0.5
+    use_flash: the opt-in fused route (`_flash_softmax_attention`).
+
+    Each call, by either route, is an `attention.softmax` span
+    (`utils.profiling.span`)."""
+    with span("attention.softmax"):
+        d = q.shape[-1]
+        if use_flash:
+            return _flash_softmax_attention(q, k, v, kv_mask, sm_scale=1.0 / float(d) ** 0.5)
+        if compute_dtype is not None and compute_dtype != torch.float32:
+            cd = compute_dtype
+            logits = mixed_einsum("bnhd,bmhd->bhnm", q, k, dtype=cd) / float(d) ** 0.5
+            if kv_mask is not None:
+                logits = logits.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
+            probs = torch.softmax(logits, dim=-1)
+            return mixed_einsum("bhnm,bmhd->bnhd", probs, v, dtype=cd)
+        logits = torch.einsum("bnhd,bmhd->bhnm", q, k) / float(d) ** 0.5
         if kv_mask is not None:
             logits = logits.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        return mixed_einsum("bhnm,bmhd->bnhd", probs, v, dtype=cd)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) / float(d) ** 0.5
-    if kv_mask is not None:
-        logits = logits.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
-    return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v)
+        return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v)
 
 
 class MultiHeadAttention(nn.Module):

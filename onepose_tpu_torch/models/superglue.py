@@ -29,6 +29,11 @@ package takes its scan above its guard only in its default mode; asked
 for, they go to K7's wide entries (its cluster entry up to 8 x 14848
 columns, its two-sweep entry above), as the JAX package runs its streamed
 kernel there. Each wrapper runs its plain version for CPU tensors.
+
+`SuperGlue.forward`'s spans (`utils.profiling.span`): `superglue.gnn`
+(`similarity`, holding its `attention.softmax` spans, 4 a layer),
+`superglue.sinkhorn` (`log_sinkhorn`), `superglue.extract`
+(`extract_matches`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from torch import nn
 from onepose_tpu_torch._device import check_compute_dtype
 from onepose_tpu_torch.models.common import NEG_INF, AttentionalPropagation, Dense, PointMLP
 from onepose_tpu_torch.ops.kernels import _build, sinkhorn, sinkhorn_stream
+from onepose_tpu_torch.utils.profiling import span
 
 
 def normalize_keypoints(kpts: torch.Tensor, image_hw) -> torch.Tensor:
@@ -224,9 +230,12 @@ class SuperGlue(nn.Module):
         image_hw* (h, w) or [B, 2]; mask* [B, N] validity. Returns
         matches0 / matches1 (-1 unmatched), matching_scores0 / 1, valid0 / 1
         and the log_assignment [B, N0+1, N1+1]."""
-        sim = self.similarity(kpts0, kpts1, desc0, desc1, scores0, scores1, image_hw0, image_hw1,
-                              mask0, mask1)
-        z = log_sinkhorn(sim, self.bin_score.to(self.dtype), mask0, mask1,
-                         self.sinkhorn_iterations, kernel=self.sinkhorn_kernel,
-                         stream_bf16=self.sinkhorn_stream_bf16)
-        return extract_matches(z, self.match_threshold, mask0=mask0, mask1=mask1)
+        with span("superglue.gnn"):
+            sim = self.similarity(kpts0, kpts1, desc0, desc1, scores0, scores1, image_hw0,
+                                  image_hw1, mask0, mask1)
+        with span("superglue.sinkhorn"):
+            z = log_sinkhorn(sim, self.bin_score.to(self.dtype), mask0, mask1,
+                             self.sinkhorn_iterations, kernel=self.sinkhorn_kernel,
+                             stream_bf16=self.sinkhorn_stream_bf16)
+        with span("superglue.extract"):
+            return extract_matches(z, self.match_threshold, mask0=mask0, mask1=mask1)

@@ -19,6 +19,11 @@ default modules launch the hand-written kernels of their dtype's path:
 `sharded(mesh)` serves the frame batch over the ranks of a mesh's data
 axis (`parallel.mesh`): each rank runs the whole per-frame program on its
 frames, with its kernels, and every rank returns the whole batch.
+
+Each call is a `pose.call` span holding its stages' spans,
+`pose.superpoint`, `pose.extract`, `pose.matcher` and `pose.pnp`
+(`utils.profiling.span`: ranges in a torch.profiler trace, nothing
+otherwise).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from onepose_tpu_torch._device import check_compute_dtype, resolve_device
 from onepose_tpu_torch.geometry.ransac import ransac_pnp
 from onepose_tpu_torch.models.gats_spg import GATsSPG
 from onepose_tpu_torch.models.superpoint import SuperPoint, extract_keypoints
+from onepose_tpu_torch.utils.profiling import span
 
 _ANNO_FIELDS = ("points3d", "desc3d", "leaf_desc", "mask3d", "leaf_mask")
 
@@ -116,14 +122,16 @@ class PosePipeline:
         return torch.as_tensor(x, device=self.device)
 
     def _forward(self, images, K, anno, draws, generator) -> dict:
-        dense = self.superpoint(images)
-        feats = extract_keypoints(
-            dense["score_map"],
-            dense["descriptor_map"],
-            max_keypoints=self.max_keypoints,
-            keypoint_threshold=self.keypoint_threshold,
-            border=self.border,
-        )
+        with span("pose.superpoint"):
+            dense = self.superpoint(images)
+        with span("pose.extract"):
+            feats = extract_keypoints(
+                dense["score_map"],
+                dense["descriptor_map"],
+                max_keypoints=self.max_keypoints,
+                keypoint_threshold=self.keypoint_threshold,
+                border=self.border,
+            )
         return self._match_solve(feats, K, anno, draws, generator)
 
     def _match_solve(self, feats, K, anno, draws, generator) -> dict:
@@ -134,24 +142,26 @@ class PosePipeline:
         def per_frame(x):
             return x if anno.batched else x[None].expand((b,) + x.shape).contiguous()
 
-        match = self.matcher(
-            feats["descriptors"],
-            per_frame(anno.desc3d),
-            per_frame(anno.leaf_desc),
-            feats["mask"],
-            per_frame(anno.mask3d),
-            per_frame(anno.leaf_mask),
-        )
+        with span("pose.matcher"):
+            match = self.matcher(
+                feats["descriptors"],
+                per_frame(anno.desc3d),
+                per_frame(anno.leaf_desc),
+                feats["mask"],
+                per_frame(anno.mask3d),
+                per_frame(anno.leaf_mask),
+            )
         idx = match["matches0"].clamp(min=0).long()  # [B, N2]
         points3d = anno.points3d if anno.batched else anno.points3d[None].expand(b, -1, -1)
         pts3d = torch.gather(points3d, 1, idx[..., None].expand(-1, -1, 3))
         corr_mask = match["matches0"] >= 0
 
-        pnp = ransac_pnp(
-            feats["keypoints"], pts3d, K, corr_mask,
-            draws=draws, generator=generator,
-            n_hyp=self.ransac_hypotheses, reproj_threshold=self.reproj_threshold,
-        )
+        with span("pose.pnp"):
+            pnp = ransac_pnp(
+                feats["keypoints"], pts3d, K, corr_mask,
+                draws=draws, generator=generator,
+                n_hyp=self.ransac_hypotheses, reproj_threshold=self.reproj_threshold,
+            )
         return {
             "pose": pnp["pose"],
             "num_inliers": pnp["num_inliers"],
@@ -180,9 +190,10 @@ class PosePipeline:
         draws [B, n_hyp, 3] uniform RANSAC draws, or None to draw them from
         `generator` (a default generator when None). Returns pose [B, 4, 4]
         (world->camera), inlier statistics, keypoints and matches."""
-        return self._forward(
-            self._tensor(images), self._tensor(K), anno.to(self.device), draws, generator
-        )
+        with span("pose.call"):
+            return self._forward(
+                self._tensor(images), self._tensor(K), anno.to(self.device), draws, generator
+            )
 
     @torch.inference_mode()
     def from_features(
@@ -196,8 +207,10 @@ class PosePipeline:
         """Match -> RANSAC-PnP from precomputed features: feats =
         dict(keypoints [B, N, 2], descriptors [B, N, C], scores [B, N],
         mask [B, N])."""
-        feats = {k: self._tensor(v) for k, v in feats.items()}
-        return self._match_solve(feats, self._tensor(K), anno.to(self.device), draws, generator)
+        with span("pose.call"):
+            feats = {k: self._tensor(v) for k, v in feats.items()}
+            return self._match_solve(feats, self._tensor(K), anno.to(self.device), draws,
+                                     generator)
 
     def sharded(self, mesh=None):
         """Data-parallel serving: the frame batch split over the mesh's data
@@ -238,7 +251,9 @@ class PosePipeline:
             anno = anno.to(self.device)
             if anno.batched:
                 anno = ObjectAnnotation(**{k: local(getattr(anno, k)) for k in _ANNO_FIELDS})
-            out = self._forward(local(images), local(K), anno, local(self._tensor(draws)), None)
+            with span("pose.call"):
+                out = self._forward(local(images), local(K), anno, local(self._tensor(draws)),
+                                    None)
             return {k: gather(mesh, v, batch_sharding(mesh, v.dim())) for k, v in out.items()}
 
         return run

@@ -1,23 +1,25 @@
-"""Per-stage timing and device trace capture.
+"""Per-stage timing, the program's profiler spans, and device trace capture.
 
-Port of onepose_tpu/utils/profiling.py. `StageTimer` is the same tick /
-tock accumulator with the same `report()` keys; with `sync=True` each
-stage boundary waits for the card (`torch.cuda.synchronize()`, where the
-JAX package drains its effects). `device_trace` records a `torch.profiler`
-trace of CPU and CUDA activity and exports it to `log_dir` (Chrome trace
-format, viewable in TensorBoard or Perfetto). `cuda_trace` runs a block
-under torch.profiler and returns its CUDA kernels (by name, device ms, the
-span they cover) and its host ms, taking an empty trace again and raising
-if every try came back empty; `device_busy` sums the CUDA kernel time of a
-block over the span the kernels cover (through `cuda_trace`);
-`host_syncs` lists where a block made the host wait for the card;
-`card_line` is the card's name and power limit as nvidia-smi prints
-them, which every measurement of the card is printed beside;
-`time_windows` times a call by CUDA events in windows of calls and
-reports the median window and the spread; `FlushTimer` times single calls,
-each after an L2 flush, and reports the median.
+Port of onepose_tpu/utils/profiling.py. `span(name)` marks a stage of the
+program for `torch.profiler`: while a profiler records it is a
+`record_function` range, on the host and on the card, on the same clock
+as the kernels and the CUDA runtime calls it encloses; otherwise it is a
+shared null context and costs a flag check. `StageTimer` is the same
+tick / tock accumulator with the same `report()` keys, and each of its
+stages is a span too; with `sync=True` each stage boundary waits for the
+card (`torch.cuda.synchronize()`, where the JAX package drains its
+effects). `cuda_trace` runs a block under torch.profiler and returns its
+CUDA kernels (by name, device ms, the span they cover) and its host ms,
+taking an empty trace again and raising if every try came back empty;
+`device_busy` sums the CUDA kernel time of a block over the span the
+kernels cover (through `cuda_trace`); `host_syncs` lists where a block
+made the host wait for the card; `card_line` is the card's name and
+power limit as nvidia-smi prints them, which every measurement of the
+card is printed beside; `time_windows` times a call by CUDA events in
+windows of calls and reports the median window and the spread;
+`FlushTimer` times single calls, each after an L2 flush, and reports the
+median.
 """
-
 from __future__ import annotations
 
 import contextlib
@@ -31,6 +33,19 @@ from collections import defaultdict
 from typing import NamedTuple
 
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks a stage of the program as `name` in a
+    torch.profiler trace: `record_function(name)` while a profiler records
+    on this thread, else a shared null context. A span's parent is the
+    span that encloses it on the thread."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class StageTimer:
@@ -55,9 +70,11 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        """Times the block as stage `name`, and marks it as `span(name)`."""
         self.tick(name)
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.tock(name)
 
@@ -82,21 +99,6 @@ class StageTimer:
             f"{k}: {v['mean_ms']:.2f}ms x{v['count']}"
             for k, v in self.report().items()
         )
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Record a torch.profiler trace (CPU, and CUDA where present) of the
-    block and write it to <log_dir>/trace.json."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def card_line() -> str:
