@@ -58,9 +58,13 @@ Phases, each printing its lines before the last:
      full width, random weights from a seed): 24 frames x 1024 keypoints in
      chunks of 16 (the resident Sinkhorn kernel) and 12 frames x 4096
      keypoints in chunks of 7 (the streamed one, also with its coupling
-     stored in bf16); launches per chunk, kernels on against off, stage
-     times, device time and Sinkhorn's share, ms per chunk, pairs/s and
-     peak memory, kernels on and off; then SuperGlue's log_sinkhorn at
+     stored in bf16), the attention on K8 (36 launches a chunk); launches
+     per chunk, kernels on against K8 alone off and against both off
+     (matches agreement, the largest log-assignment gap on valid slots,
+     within SINKHORN_ABS), stage times, device time and Sinkhorn's share,
+     ms per chunk, pairs/s and peak memory, each setting; a pair whose
+     first image has no valid keypoint, K8 against the plain attention
+     (ROADMAP C's check); then SuperGlue's log_sinkhorn at
      16384 keypoints asked for a kernel (K7's wide entry, once in fp32
      and once with bf16 storage) against the plain scan;
   6. map's SfM core (sfm.mapping.run_mapping) at the full width of
@@ -253,14 +257,18 @@ WIDE_COMPARED = 2  # the first WIDE_SHAPES, timed against the two-sweep entry in
 # (forward only: the plain version's backward would hold several 4.3 GB
 # score tensors); the one-warpgroup kernels' heads, 384 channels and 98 (D
 # % 4 != 0), with an empty example, and 512 and 1024 channels (ROADMAP
-# C22: their backward summed the slices' partial scores in one chain). The
-# tolerances are the kernel module's CARD_FWD_ABS and CARD_BWD_REL.
+# C22: their backward summed the slices' partial scores in one chain);
+# then, forward only, SuperGlue's heads at map's default of 1024 keypoints
+# in chunks of 16 pairs and at detect's 15 reference views of 1000
+# keypoints (a view may hold none). The tolerances are the kernel module's
+# CARD_FWD_ABS and CARD_BWD_REL.
 FLASH_SHAPES = ((7, 4096, 4096, 4, 64, "masked", True), (3, 300, 260, 4, 64, "one_empty", True),
                 (2, 1024, 1000, 2, 256, "one_empty", True), (7, 4096, 4096, 2, 128, "masked", True),
                 (7, 4096, 4096, 1, 256, "masked", True), (2, 1000, 4096, 4, 32, "none", False),
                 (1, 16384, 16384, 4, 64, "masked", False),
                 (2, 1024, 1000, 2, 384, "one_empty", True), (3, 300, 260, 2, 98, "one_empty", True),
-                (2, 1024, 1000, 1, 512, "one_empty", True), (2, 1024, 1000, 1, 1024, "one_empty", True))
+                (2, 1024, 1000, 1, 512, "one_empty", True), (2, 1024, 1000, 1, 1024, "one_empty", True),
+                (16, 1024, 1024, 4, 64, "masked", False), (15, 1000, 1000, 4, 64, "one_empty", False))
 # The shapes timed, by their label in the result row, and whether the plain
 # version is timed beside the kernels and SDPA (not at the production work
 # of the wide heads: it is no yardstick, and its time is the phase's).
@@ -275,10 +283,16 @@ EXP_PER_S = 16 * 132 * 1.98e9
 # 9 layers, 100 Sinkhorn iterations) with random weights: (a) map's default
 # of 1024 keypoints in chunks of 16 (K6), (b) the SfM budget of 4096
 # keypoints, where the HBM guard caps the chunk at 7 (K7).
+# Kernels on: K8 runs SuperGlue's attention (each of a forward's
+# SG_ATTENTION_CALLS) and K6 or K7 its Sinkhorn; attention off: K8 alone
+# off (plain attention, K6 or K7 on); off: both plain. Each shape also runs
+# a pair whose first image has no valid keypoint.
 PAIRS = (dict(label="a", frames=24, keypoints=1024, pairs=32, pair_chunk=16, chunk=16,
               kernel="sinkhorn"),
          dict(label="b", frames=12, keypoints=4096, pairs=14, pair_chunk=16, chunk=7,
               kernel="sinkhorn_stream"))
+# K8 launches a SuperGlue forward: 9 layers x (self, cross) x 2 images.
+SG_ATTENTION_CALLS = 9 * 2 * 2
 PAIR_HW = (480, 640)
 # Phase map: run_mapping at the full width of configs/map.yaml (4096
 # keypoint slots, 256-d descriptors, num_covis 10, max_points3d 2500,
@@ -2264,13 +2278,13 @@ def _pairs_bf16_storage(torch, sd, feats, pairs, cfg, chunk, n_chunks, res_off, 
     sec = time.perf_counter() - t0
     counts = launch_counts()
     want = dict.fromkeys(counts, 0)
-    want["sinkhorn_stream"] = n_chunks
+    want.update(sinkhorn_stream=n_chunks, flash_attention=SG_ATTENTION_CALLS * n_chunks)
     agree = float((res == res_off).mean())
     log(f"[pairs] {tag}, kernels on, K7 bf16 storage: launches {counts} (want {want}); matches "
         f"agreeing with kernels off {agree:.6f}, {int((res >= 0).sum())} matches; "
         f"{sec * 1e3 / n_chunks:.2f} ms per chunk of {chunk} (one call)")
     if counts != want or int((res >= 0).sum()) == 0:
-        fail(f"{tag}: the bf16-storage pair matcher did not launch K7 as expected")
+        fail(f"{tag}: the bf16-storage pair matcher did not launch K7 and K8 as expected")
     if "sinkhorn_stream_bf16" in rows:
         rows["sinkhorn_stream_bf16"]["launches"] = counts["sinkhorn_stream"]
 
@@ -2336,10 +2350,71 @@ def _pairs_wide_request(torch, rows):
             fail(f"log_sinkhorn {label} above K7's widest row disagrees with the scan")
 
 
+def _valid_slots(torch, m0, m1):
+    """[P, M+1, N+1] bool: the log-assignment's slots that carry mass (both
+    keypoints valid, or a dustbin) for keypoint masks m0 [P, M], m1 [P, N]."""
+    ones = torch.ones((m0.shape[0], 1), dtype=torch.bool, device=m0.device)
+    return torch.cat([m0, ones], 1)[:, :, None] & torch.cat([m1, ones], 1)[:, None, :]
+
+
+def _pairs_empty_image(torch, models, feats, pairs, kernel, tag):
+    """Two pairs through SuperGlue, the first's first image without a valid
+    keypoint, with K8 (kernels on) and with the plain attention (the
+    Sinkhorn kernel `kernel` on both): K8 zeroes the messages of every
+    attention over that image where the plain route averages v, yet
+    matches, scores and the log-assignment of the empty pair must not
+    depend on the route (ROADMAP C's check), and the other pair's matches
+    agree."""
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    idx = torch.as_tensor(pairs[:2], device=DEV)
+    ii, jj = idx[:, 0], idx[:, 1]
+    k, d, s, m = (torch.from_numpy(feats[x]).to(DEV) for x in
+                  ("keypoints", "descriptors", "scores", "mask"))
+    m0, m1 = m[ii].clone(), m[jj]
+    m0[0] = False
+    out = {}
+    for label in ("on", "attention off"):
+        torch.cuda.synchronize()
+        reset_launches()  # this path's counts: 0 just before it, read just after
+        with torch.inference_mode():
+            out[label] = models[label](k[ii], k[jj], d[ii], d[jj], s[ii], s[jj], PAIR_HW,
+                                       PAIR_HW, m0, m1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = 1
+        if label == "on":
+            want["flash_attention"] = SG_ATTENTION_CALLS
+        if counts != want:
+            fail(f"{tag}, empty image, {label}: launched {counts}, want {want}")
+    on, off = out["on"], out["attention off"]
+    valid = _valid_slots(torch, m0, m1)
+    zgap = [float((on["log_assignment"][p] - off["log_assignment"][p]).abs()[valid[p]].max())
+            for p in range(2)]
+    sgap = max(float((on[x][0] - off[x][0]).abs().max())
+               for x in ("matching_scores0", "matching_scores1"))
+    same = [bool(torch.equal(on[x][0], off[x][0])) for x in ("matches0", "matches1")]
+    empty = all(int((on[x][0] >= 0).sum()) == 0 for x in ("matches0", "matches1"))
+    agree = float((on["matches0"][1] == off["matches0"][1]).float().mean())
+    finite = all(bool(torch.isfinite(o["log_assignment"][valid]).all()) for o in out.values())
+    log(f"[pairs] {tag}, a pair whose first image has no valid keypoint, K8 against the plain "
+        f"attention: launches as wanted; the empty pair's matches0 / matches1 equal {same}, "
+        f"none matched {empty}, scores' largest gap {sgap:.3e}, log-assignment's largest gap "
+        f"on valid slots {zgap[0]:.3e}; the other pair's matches agreeing {agree:.6f}, "
+        f"log-assignment gap {zgap[1]:.3e}")
+    if not (all(same) and empty and finite and sgap <= SINKHORN_ABS and zgap[0] <= SINKHORN_ABS
+            and agree >= 0.99 and zgap[1] <= SINKHORN_ABS):
+        fail(f"{tag}: the empty-image pair depends on the attention route")
+
+
 def phase_pairs(torch, rows):
     """make_superglue_pair_matcher at full width on shapes (a) and (b):
-    launch counts per chunk, kernels on against off, stage times, device
-    time and Sinkhorn's share of it, ms per chunk, pairs/s, peak memory."""
+    launch counts per chunk, kernels on (K8 and K6 / K7) against K8 alone
+    off and against both off (matches agreeing, the log-assignment's gap
+    on valid slots within SINKHORN_ABS), the empty-image pair, stage
+    times, device time and Sinkhorn's share, ms per chunk, pairs/s, peak
+    memory."""
     import numpy as np
 
     from onepose_tpu_torch.models.superglue import SuperGlue
@@ -2358,8 +2433,9 @@ def phase_pairs(torch, rows):
                           (np.arange(cfg["pairs"]) + 1 + rng.integers(0, 2, cfg["pairs"]))
                           % cfg["frames"]], 1)
         models, matchers = {}, {}
-        for label, kern in (("on", None), ("off", False)):
-            models[label] = SuperGlue(match_threshold=MATCH_THRESHOLD, sinkhorn_kernel=kern)
+        for label, kw in (("on", {}), ("attention off", dict(attention_kernel=False)),
+                          ("off", dict(sinkhorn_kernel=False, attention_kernel=False))):
+            models[label] = SuperGlue(match_threshold=MATCH_THRESHOLD, **kw)
             models[label].load_state_dict(sd)
             matchers[label] = make_superglue_pair_matcher(models[label], feats,
                                                           pair_chunk=cfg["pair_chunk"], device=DEV)
@@ -2376,25 +2452,33 @@ def phase_pairs(torch, rows):
             torch.cuda.synchronize()
             counts = launch_counts()
             want = dict.fromkeys(counts, 0)
-            if label == "on":
+            if label != "off":
                 want[cfg["kernel"]] = n_chunks
+            if label == "on":
+                want["flash_attention"] = SG_ATTENTION_CALLS * n_chunks
             log(f"[pairs] {tag}, kernels {label}: launches in one match_pairs call of "
-                f"{len(pairs)} pairs ({n_chunks} chunks of {chunk}): {counts} (want {want})")
+                f"{len(pairs)} pairs ({n_chunks} chunks of {chunk}): {counts} (want {want}); "
+                f"K8 {counts['flash_attention'] / n_chunks:g} a chunk")
             if counts != want:
                 fail(f"{tag}: the kernels-{label} pair matcher did not launch as expected")
             if label == "on" and cfg["kernel"] in rows:
                 rows[cfg["kernel"]]["launches"] = counts[cfg["kernel"]]
+            if label == "on" and "flash_attention" in rows:
+                rows["flash_attention"].setdefault("extra", {})[
+                    f"pairs_{cfg['label']}_launches_per_chunk"] = (
+                        counts["flash_attention"] // n_chunks)
         if cfg["kernel"] == "sinkhorn_stream":
             _pairs_bf16_storage(torch, sd, feats, pairs, cfg, chunk, n_chunks, res["off"], rows,
                                 tag)
-        agree = float((res["on"] == res["off"]).mean())
         hits = int((res["on"] >= 0).sum())
-        log(f"[pairs] {tag}: kernels on vs off, matches agreeing {agree:.6f} (>= 0.99), "
-            f"{hits} matches in {len(pairs)} pairs")
-        if agree < 0.99 or hits == 0:
-            fail(f"{tag}: the kernels-on pair matcher disagrees with the kernels-off one")
+        for other in list(models)[1:]:
+            agree = float((res["on"] == res[other]).mean())
+            log(f"[pairs] {tag}: kernels on vs {other}, matches agreeing {agree:.6f} (>= 0.99), "
+                f"{hits} matches in {len(pairs)} pairs")
+            if agree < 0.99 or hits == 0:
+                fail(f"{tag}: the kernels-on pair matcher disagrees with the {other} one")
 
-        device_ms = {}
+        device_ms, zs = {}, {}
         with torch.inference_mode():
             for label, model in models.items():
                 stages, st = _pair_stages(torch, model, feats, pairs[:chunk])
@@ -2410,6 +2494,7 @@ def phase_pairs(torch, rows):
                 if not (bool(torch.isfinite(z).all()) and bool(torch.isfinite(
                         out["matching_scores0"]).all())):
                     fail(f"{tag}: the log-assignment is not finite (kernels {label})")
+                zs[label] = z
                 prof = _profile_stages(torch, stages)
                 total = sum(ms for _, ms in prof.values())
                 device_ms[label] = total
@@ -2419,8 +2504,18 @@ def phase_pairs(torch, rows):
                     + "; launches and device ms " + ", ".join(
                         f"{k} {n} {ms:.2f}" for k, (n, ms) in prof.items())
                     + f"; device {total:.2f} ms, Sinkhorn {100 * prof['sinkhorn'][1] / total:.1f}%")
-        runs = {"on": [], "off": []}
-        for label in ("on", "off", "off", "on") * PAIR_RUNS:
+            m = torch.from_numpy(feats["mask"]).to(DEV)
+            valid = _valid_slots(torch, m[pairs[:chunk, 0]], m[pairs[:chunk, 1]])
+            for other in list(models)[1:]:
+                gap = float((zs["on"] - zs[other]).abs()[valid].max())
+                log(f"[pairs] {tag}, one chunk: log-assignment's largest gap on valid slots, "
+                    f"kernels on vs {other}: {gap:.3e} (<= {SINKHORN_ABS})")
+                if not gap <= SINKHORN_ABS:
+                    fail(f"{tag}: the kernels-on log-assignment departs from the {other} one")
+            del zs, valid
+        _pairs_empty_image(torch, models, feats, pairs, cfg["kernel"], tag)
+        runs, peaks = {label: [] for label in models}, {label: [] for label in models}
+        for label in (list(models) + list(models)[::-1]) * PAIR_RUNS:
             _reset_peak(torch, "pairs", f"{tag}, kernels {label}")
             t0 = time.perf_counter()
             matchers[label](pairs)
@@ -2428,13 +2523,14 @@ def phase_pairs(torch, rows):
             sec = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() / 2**30
             runs[label].append(sec * 1e3 / n_chunks)
+            peaks[label].append(peak)
             log(f"[pairs] {tag}, kernels {label}: {sec * 1e3 / n_chunks:.2f} ms per chunk of "
                 f"{chunk}, {len(pairs) / sec:.1f} pairs/s, peak memory {peak:.2f} GiB")
         for label, v in runs.items():
             ms = statistics.median(v)
             log(f"[pairs] {tag}, kernels {label} (median of {len(v)} calls): {ms:.2f} ms per "
-                f"chunk, {len(pairs) / (ms * n_chunks) * 1e3:.1f} pairs/s; device "
-                f"{device_ms[label]:.2f} ms per chunk")
+                f"chunk, {len(pairs) / (ms * n_chunks) * 1e3:.1f} pairs/s, peak memory "
+                f"{max(peaks[label]):.2f} GiB; device {device_ms[label]:.2f} ms per chunk")
     _pairs_wide_request(torch, rows)
 
 
@@ -3150,8 +3246,10 @@ def phase_cli(torch):
         f"{stats['num_points3d']} points, mean reprojection error "
         f"{stats['mean_reproj_error_px']:.4f} px; stage_s {_cli_stage_line(stats)}; "
         f"{sec:.2f} s in all, peak device memory {peak:.2f} GiB; launches {counts} (want K7 "
-        f"once per chunk: {chunks}, K1 once per batch: {batches})")
+        f"once per chunk: {chunks}, K8 {SG_ATTENTION_CALLS} a chunk: "
+        f"{SG_ATTENTION_CALLS * chunks}, K1 once per batch: {batches})")
     if not (counts["sinkhorn_stream"] == chunks and counts["nms"] == batches
+            and counts["flash_attention"] == SG_ATTENTION_CALLS * chunks
             and counts["sinkhorn"] == 0 and counts["vgg_stage"] == 0):
         fail(f"map (b) launched {counts}")
 
@@ -3672,10 +3770,13 @@ def phase_detect(torch, rows):
         want = {k: 0 for k in counts}
         want["nms"] = db_batches + frames
         if kind == "superglue":
-            want["sinkhorn"] = frames
+            want.update(sinkhorn=frames, flash_attention=SG_ATTENTION_CALLS * frames)
         log(f"[detect] ({label}) want K1 once per DB batch of 8 ({db_batches}) and once per "
-            f"frame ({frames}){', K6 once per frame' if kind == 'superglue' else ''}, no other "
-            f"kernel: {want}; {frames / (sec - clock.s.get('DB extraction', 0.0)):.2f} frames/s "
+            f"frame ({frames})"
+            + (f", K6 once and K8 {SG_ATTENTION_CALLS} times per frame" if kind == "superglue"
+               else "")
+            + f", no other kernel: {want}; "
+            f"{frames / (sec - clock.s.get('DB extraction', 0.0)):.2f} frames/s "
             f"after the DB ({1 / per:.2f})")
         if counts != want or summary["num_frames"] != frames:
             fail(f"detect ({label}) launched {counts}, want {want}")
@@ -4905,7 +5006,9 @@ class _MultiWork:
             want.update(gats=nb)
         elif path.startswith("pairs_"):
             cfg = next(c for c in MULTI_PAIRS if path == f"pairs_{c['label']}")
-            want[cfg["kernel"]] = -(-cfg["pairs"] // self.chunks[cfg["label"]])  # one a chunk
+            chunks = -(-cfg["pairs"] // self.chunks[cfg["label"]])
+            want.update({cfg["kernel"]: chunks,  # one a chunk
+                         "flash_attention": SG_ATTENTION_CALLS * chunks})
         return want
 
 
@@ -5388,8 +5491,9 @@ def _bench_checks(label: str, last: dict, smi: str) -> None:
         for r in last["pair_batching"]["rows"]:
             serial = "serial" in r["label"]
             chunk = None if serial else int(r["label"].rsplit("=", 1)[1])
+            calls = PAIR_N if serial else -(-PAIR_N // chunk)  # SuperGlue forwards
             want = ({} if r["label"].startswith("NN") else
-                    {"sinkhorn": PAIR_N if serial else -(-PAIR_N // chunk)})
+                    {"sinkhorn": calls, "flash_attention": SG_ATTENTION_CALLS * calls})
             if r["launches"] != want or (not serial and r["equal_to_serial"] is not True):
                 fail(f"pair_batching {r['label']}: launches {r['launches']} (want {want}), "
                      f"equal to serial {r['equal_to_serial']}")

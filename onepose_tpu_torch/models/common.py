@@ -16,8 +16,10 @@ the JAX package does on an accelerator.
 package leaves it to XLA. Its opt-in `use_flash=True` route goes where the
 JAX package calls its library TPU flash kernel: to K8,
 `ops.kernels.flash_attention` (hand-written forward, dK / dV and dQ
-kernels on the card, their plain version on the CPU). No path of the port
-takes that route by default.
+kernels on the card, their plain version on the CPU). A softmax
+`MultiHeadAttention` takes that route by its `attention_kernel` flag
+(`softmax_attention_kernel`): by default on CUDA tensors, so SuperGlue's
+attention runs K8 on the card and the plain route on the CPU.
 
 With a `mesh` (`parallel.mesh`), the attention of a sharded point set
 runs the collectives of `parallel.sharded_attention` (`spmd="kv"`: keys
@@ -183,6 +185,15 @@ def _flash_softmax_attention(q, k, v, kv_mask, sm_scale):
     return flash_attention(q, k, v, mask, sm_scale)
 
 
+def softmax_attention_kernel(kernel: Optional[bool], device: torch.device) -> bool:
+    """Whether softmax attention takes K8 (`use_flash`). kernel True or
+    False decides (True on a CPU tensor runs K8's plain version); None
+    takes K8 on a CUDA device, else the plain route. The two routes differ
+    only on an example whose keys are all masked: K8 zeroes its rows, the
+    plain route averages v."""
+    return kernel if kernel is not None else device.type == "cuda"
+
+
 def masked_softmax_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -233,7 +244,12 @@ class MultiHeadAttention(nn.Module):
     rank's block of a point set sharded over the points axis (and, for
     "qkv", x too): the attention then runs `parallel.sharded_attention`'s
     collectives, in fp32 (`mixed` has no effect there, as in the JAX
-    package)."""
+    package).
+
+    attention_kernel (kind 'softmax' only, without a mesh): None (the
+    default) runs K8 on CUDA and the plain route otherwise, True asks for
+    K8, False forces the plain route (`softmax_attention_kernel`). K8 runs
+    in fp32, so `mixed` has no effect on its route."""
 
     def __init__(
         self,
@@ -243,11 +259,13 @@ class MultiHeadAttention(nn.Module):
         dtype: torch.dtype = torch.float32,
         mixed: bool = False,
         mesh=None,
+        attention_kernel: Optional[bool] = None,
     ):
         super().__init__()
         self.dtype = check_compute_dtype(dtype)
         self.mixed = mixed
         self.mesh = mesh
+        self.attention_kernel = attention_kernel
         if kind not in ("linear", "softmax"):
             raise ValueError(f"unknown attention kind {kind!r}")
         self.kind = kind
@@ -288,9 +306,12 @@ class MultiHeadAttention(nn.Module):
                                                v_length=m * self.mesh.axis_size(POINTS_AXIS))
         else:
             cd = self.dtype if self.mixed and self.dtype != torch.float32 else None
-            attend = (masked_softmax_attention if self.kind == "softmax"
-                      else masked_linear_attention)
-            out = attend(q, k, v, source_mask, compute_dtype=cd)
+            if self.kind == "softmax":
+                flash = softmax_attention_kernel(self.attention_kernel, q.device)
+                out = masked_softmax_attention(q, k, v, source_mask, compute_dtype=cd,
+                                               use_flash=flash)
+            else:
+                out = masked_linear_attention(q, k, v, source_mask, compute_dtype=cd)
         return self.merge(out.to(self.dtype).reshape(b, n, self.d_model))
 
 
@@ -300,7 +321,8 @@ class AttentionalPropagation(nn.Module):
 
     With `mesh`: spmd as in MultiHeadAttention; x_sharded says x is this
     rank's block of the sharded point set (implied by spmd="qkv"), so the
-    MLP's instance norm reduces its statistics over the points group."""
+    MLP's instance norm reduces its statistics over the points group.
+    attention_kernel: MultiHeadAttention's."""
 
     def __init__(
         self,
@@ -311,11 +333,13 @@ class AttentionalPropagation(nn.Module):
         dtype: torch.dtype = torch.float32,
         mixed_attention: bool = False,
         mesh=None,
+        attention_kernel: Optional[bool] = None,
     ):
         super().__init__()
         self.mesh = mesh
         self.attn = MultiHeadAttention(num_heads, d_model, kind=kind, dtype=dtype,
-                                       mixed=mixed_attention, mesh=mesh)
+                                       mixed=mixed_attention, mesh=mesh,
+                                       attention_kernel=attention_kernel)
         self.mlp = PointMLP(2 * d_model, [2 * d_model, d_model], norm=norm, dtype=dtype)
 
     def forward(

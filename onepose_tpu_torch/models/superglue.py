@@ -30,6 +30,16 @@ for, they go to K7's wide entries (its cluster entry up to 8 x 14848
 columns, its two-sweep entry above), as the JAX package runs its streamed
 kernel there. Each wrapper runs its plain version for CPU tensors.
 
+Attention routing (`attention_kernel`, each softmax `MultiHeadAttention`'s
+flag, `models.common.softmax_attention_kernel`): None (the default) runs
+the 36 attention calls of a 9-layer forward on K8
+(`ops.kernels.flash_attention`) when the tensors are on CUDA, and the
+plain route on the CPU; True asks for K8 (its plain version on the CPU),
+False forces the plain route. The routes differ only where an image has
+no valid keypoint (K8 zeroes the messages, the plain route averages v),
+and every coupling of such a pair is NEG_INF or a dustbin, so the outputs
+do not see the messages there.
+
 `SuperGlue.forward`'s spans (`utils.profiling.span`): `superglue.gnn`
 (`similarity`, holding its `attention.softmax` spans, 4 a layer),
 `superglue.sinkhorn` (`log_sinkhorn`), `superglue.extract`
@@ -175,6 +185,7 @@ class SuperGlue(nn.Module):
         sinkhorn_stream_bf16: bool = False,
         match_threshold: float = 0.2,
         dtype: torch.dtype = torch.float32,
+        attention_kernel: Optional[bool] = None,
     ):
         super().__init__()
         self.dtype = check_compute_dtype(dtype)
@@ -188,7 +199,8 @@ class SuperGlue(nn.Module):
         for i in range(num_layers):
             for kind in ("self", "cross"):
                 self.add_module(f"{kind}_{i}", AttentionalPropagation(
-                    d_model, num_heads, kind="softmax", norm="batch", dtype=dtype))
+                    d_model, num_heads, kind="softmax", norm="batch", dtype=dtype,
+                    attention_kernel=attention_kernel))
         self.final_proj = Dense(d_model, d_model, dtype)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
 

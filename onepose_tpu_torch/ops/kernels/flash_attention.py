@@ -7,15 +7,18 @@ onepose_tpu/models/common.py::_flash_softmax_attention (:119, the
 jax.experimental.pallas.ops.tpu.flash_attention: the forward
 `_flash_attention_impl` (flash_attention.py:589) and the backward pair
 `_flash_attention_bwd_dkv` (:941) and `_flash_attention_bwd_dq` (:1287),
-which a custom VJP joins there and `FlashAttention` here. Heads: JAX's
-route takes D <= 128 or D a multiple of 128 (flash_attention.py:455-463),
-and so does this one (`check_inputs`; D = 160 raises). Every product of
-the kernels runs on the tensor cores in 3xTF32 (wgmma .tf32; an fp32 x
-is tf32(x) + tf32(x - tf32(x)), three tf32 products for each fp32 one),
-so the bound on the H100 is 3 x the operations at 495 TFLOP/s: 4 B H N M
-D flops forward (0.585 ms at [7, 4096, 4096, 4, 64] with 80% valid keys,
-SuperGlue's heads at 4096 keypoints in K7's chunks of 7 pairs), 10 B H N
-M D backward (1.462 ms).
+which a custom VJP joins there and `FlashAttention` here. In the port,
+every softmax `MultiHeadAttention` on CUDA (SuperGlue's 36 calls a
+forward) takes this route by default
+(`models.common.softmax_attention_kernel`), where JAX's `map` runs the
+plain one. Heads: JAX's route takes D <= 128 or D a multiple of 128
+(flash_attention.py:455-463), and so does this one (`check_inputs`; D =
+160 raises). Every product of the kernels runs on the tensor cores in
+3xTF32 (wgmma .tf32; an fp32 x is tf32(x) + tf32(x - tf32(x)), three
+tf32 products for each fp32 one), so the bound on the H100 is 3 x the
+operations at 495 TFLOP/s: 4 B H N M D flops forward (0.585 ms at [7,
+4096, 4096, 4, 64] with 80% valid keys, SuperGlue's heads at 4096
+keypoints in K7's chunks of 7 pairs), 10 B H N M D backward (1.462 ms).
 
 The function, in JAX's [B, N, H, D] layout, fp32: scores (q . k) *
 sm_scale, masked keys plus MASK_VALUE (-0.7 * FLT_MAX, the library's

@@ -1,5 +1,6 @@
 """Parity of the port's SuperGlue matcher, softmax attention and NN matcher
-with the JAX package on the CPU.
+with the JAX package on the CPU, and SuperGlue's attention route (K8's
+against the plain one, `softmax_attention_kernel`).
 
 Shapes: 2-3 (self, cross) layers, 48 and 64 keypoints with padded masks,
 d_model 256, 4 heads, 100 Sinkhorn iterations. Parameters come from flax
@@ -24,8 +25,12 @@ from onepose_tpu.models.nn_matcher import mutual_nn_match as jax_mutual_nn_match
 from onepose_tpu.models.superglue import SuperGlue as JaxSuperGlue
 from onepose_tpu.models.superglue import extract_matches as jax_extract_matches
 from onepose_tpu.models.superglue import normalize_keypoints as jax_normalize_keypoints
-from onepose_tpu_torch.models import bridge
-from onepose_tpu_torch.models.common import AttentionalPropagation, masked_softmax_attention
+from onepose_tpu_torch.models import bridge, common
+from onepose_tpu_torch.models.common import (
+    AttentionalPropagation,
+    masked_softmax_attention,
+    softmax_attention_kernel,
+)
 from onepose_tpu_torch.models.nn_matcher import NNMatcher2D3D, mutual_nn_match
 from onepose_tpu_torch.models.superglue import SuperGlue, extract_matches, normalize_keypoints
 
@@ -175,6 +180,108 @@ def test_superglue_matches_jax(num_layers, sinkhorn_kernel):
     for k in ("matches0", "matches1"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     assert int((got["matches0"] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kernel,device,want", [
+    (None, "cpu", False),  # the CPU: the plain route, so JAX parity stands
+    (None, "cuda", True),  # CUDA: K8
+    (True, "cpu", True),  # asked for: K8's plain version on the CPU
+    (True, "cuda", True),
+    (False, "cpu", False),  # forced plain
+    (False, "cuda", False),
+])
+def test_softmax_attention_kernel_route(kernel, device, want):
+    assert softmax_attention_kernel(kernel, torch.device(device)) is want
+
+
+def _port_superglue(params, num_layers, attention_kernel, inputs, similarity=False):
+    """The port's outputs on numpy inputs, or with similarity its GNN's
+    scores [B, N0, N1]."""
+    model = SuperGlue(num_layers=num_layers, match_threshold=0.0,
+                      attention_kernel=attention_kernel)
+    model.load_state_dict(bridge.superglue_state_dict(params))
+    k0, k1, d0, d1, s0, s1, m0, m1 = inputs
+    call = model.similarity if similarity else model
+    with torch.no_grad():
+        return call(*_t(k0, k1, d0, d1, s0, s1), HW, HW, *_t(m0, m1))
+
+
+@pytest.mark.parametrize("attention_kernel,want_calls", [(None, 0), (False, 0), (True, 8)])
+def test_superglue_attention_kernel_reaches_k8(monkeypatch, attention_kernel, want_calls):
+    """SuperGlue's flag reaches each softmax attention call (4 a layer):
+    True takes K8's route (its plain version on the CPU), None takes the
+    plain route on CPU tensors, False always."""
+    calls = []
+    flash = common._flash_softmax_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return flash(*args, **kw)
+
+    monkeypatch.setattr(common, "_flash_softmax_attention", counted)
+    out = _port_superglue(_sg_params(2), 2, attention_kernel, _sg_inputs())
+    assert len(calls) == want_calls
+    assert int((out["matches0"] >= 0).sum()) > 0
+
+
+def _assert_routes_agree(kern, plain, valid):
+    for k in ("matches0", "matches1"):
+        np.testing.assert_array_equal(kern[k].numpy(), plain[k].numpy(), err_msg=k)
+    for k in ("matching_scores0", "matching_scores1"):
+        np.testing.assert_allclose(kern[k].numpy(), plain[k].numpy(), atol=1e-5, rtol=0,
+                                   err_msg=k)
+    z, zp = kern["log_assignment"].numpy(), plain["log_assignment"].numpy()
+    np.testing.assert_allclose(np.where(valid, z, 0.0), np.where(valid, zp, 0.0), atol=1e-4,
+                               rtol=0)
+
+
+def test_superglue_attention_kernel_matches_plain():
+    """K8's route (attention_kernel True) against the plain route (False)
+    with padded keypoint slots on both sides: matches equal, scores and the
+    log-assignment on the slots that carry mass within fp32 tolerance."""
+    inputs, params = _sg_inputs(), _sg_params(2)
+    kern = _port_superglue(params, 2, True, inputs)
+    plain = _port_superglue(params, 2, False, inputs)
+    m0, m1 = inputs[-2:]
+    valid = np.concatenate([m0, np.ones((B, 1), bool)], 1)[:, :, None] & np.concatenate(
+        [m1, np.ones((B, 1), bool)], 1)[:, None, :]
+    _assert_routes_agree(kern, plain, valid)
+    assert int((kern["matches0"] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("empty", ["image0", "image1"])
+def test_superglue_image_without_keypoints_routes_agree(empty):
+    """An example whose image has no valid keypoint: K8 zeroes the
+    messages of every attention over it where the plain route averages v,
+    yet SuperGlue's outputs do not depend on the route (every coupling of
+    that pair is NEG_INF or a dustbin), and agree with JAX's plain route.
+    The empty pair's outputs are bit-equal across routes; the other pair
+    within fp32 tolerance."""
+    inputs = list(_sg_inputs())
+    side = 6 if empty == "image0" else 7
+    inputs[side] = inputs[side].copy()
+    inputs[side][0] = False  # example 0: that image holds no keypoint
+    params = _sg_params(2)
+    sims = [_port_superglue(params, 2, kern, inputs, similarity=True) for kern in (True, False)]
+    assert (sims[0][0] - sims[1][0]).abs().max() > 1e-2  # the messages did differ
+    kern = _port_superglue(params, 2, True, inputs)
+    plain = _port_superglue(params, 2, False, inputs)
+    k0, k1, d0, d1, s0, s1, m0, m1 = inputs
+    jax_out = JaxSuperGlue(num_layers=2, match_threshold=0.0).apply(
+        params, *_j(k0, k1, d0, d1, s0, s1), HW, HW, *_j(m0, m1))
+    valid = np.concatenate([m0, np.ones((B, 1), bool)], 1)[:, :, None] & np.concatenate(
+        [m1, np.ones((B, 1), bool)], 1)[:, None, :]
+    _assert_routes_agree(kern, plain, valid)
+    for k in ("matches0", "matches1", "matching_scores0", "matching_scores1",
+              "log_assignment"):
+        np.testing.assert_array_equal(kern[k][0].numpy(), plain[k][0].numpy(), err_msg=k)
+    assert not (kern["matches0"][0] >= 0).any() and not (kern["matches1"][0] >= 0).any()
+    assert int((kern["matches0"][1] >= 0).sum()) > 0
+    for k in ("matches0", "matches1"):
+        np.testing.assert_array_equal(kern[k].numpy(), np.asarray(jax_out[k]), err_msg=k)
+    jz = np.asarray(jax_out["log_assignment"])
+    np.testing.assert_allclose(np.where(valid, kern["log_assignment"].numpy(), 0.0),
+                               np.where(valid, jz, 0.0), atol=1e-4, rtol=0)
 
 
 def test_superglue_bf16_matches_jax():
