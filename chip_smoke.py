@@ -161,7 +161,20 @@ Phases, each printing its lines before the last:
      the tolerance that models/superpoint_variants.py states, its
      kernels launched, and a line of times a form (the median of
      SP_VARIANT_WINDOWS windows of each module's calls, and the spread);
- 15. one JSON line {"kernels": [...]}, then the last line
+ 15. LightGlue on the card (phase lightglue): the CPU tests' chunk of 3
+     pairs at their small size (tests/test_torch_lightglue.py: 64
+     channels, 2 heads of 32, 9 layers, the floor at 30), each pair held
+     against tests/lightglue_reference.py (stop layer, every layer's kept
+     set and matches0 equal, the log assignment within LIGHTGLUE_ABS),
+     and each step's CUDA graph (a layer and its pruning) against the
+     same step run eagerly (x within LIGHTGLUE_GRAPH_REL of its largest
+     entry, the decisions and the compaction equal); then
+     make_lightglue_pair_matcher at the published widths (4096 slots,
+     256-d, 4 heads of 64, a chunk of 7): K8's calls counted from zero
+     (2 a layer a group eagerly; each step's twice while captured; none
+     replayed), pruning at layer 0, a pair leaving after layer 0 while its
+     group goes on, each pair against the reference on the card;
+ 16. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no result line. It
@@ -184,7 +197,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "ransac", "main", "pairs", "map", "cli", "train", "detect",
-          "infer", "tracker", "demo", "multi", "bench", "sp_variants")
+          "infer", "tracker", "demo", "multi", "bench", "sp_variants", "lightglue")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
@@ -2406,6 +2419,234 @@ def _pairs_empty_image(torch, models, feats, pairs, kernel, tag):
     if not (all(same) and empty and finite and sgap <= SINKHORN_ABS and zgap[0] <= SINKHORN_ABS
             and agree >= 0.99 and zgap[1] <= SINKHORN_ABS):
         fail(f"{tag}: the empty-image pair depends on the attention route")
+
+
+# LightGlue on the card against the reference: K8's 3xTF32 and cuBLAS's
+# fp32 sums in another order, over 9 layers (the CPU tests' 1e-4 is the
+# CPU's own order).
+LIGHTGLUE_ABS = 1e-3
+# A layer's CUDA graph against the same layer launched eagerly: the same
+# kernels, but cuBLAS may pick another algorithm when captured.
+LIGHTGLUE_GRAPH_REL = 1e-5
+# The full-width case (`_lightglue_full_width`): pairs a chunk, and the
+# margin in logit or log-assignment units inside which the reference takes
+# the program's decision (K8's 3xTF32 moves a logit by about 1e-5).
+LG_FULL_PAIRS = 7
+LG_FULL_EPS = 1e-3
+
+
+def phase_lightglue(torch):
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_lightglue as t
+
+    w, x = t.upstream_weights(), t.chunk()  # the reference runs on the CPU
+    lg = t.port_model(w, t.ADAPTIVE).to(DEV)
+    xd = {k: v.to(DEV) for k, v in x.items()}
+    with torch.inference_mode():
+        out = lg(xd["kp0"], xd["kp1"], xd["d0"], xd["d1"], xd["m0"], xd["m1"], t.SIZE, t.SIZE)
+    worst = 0.0
+    for p in range(3):
+        r = t.run_reference(w, t.ADAPTIVE, x, p)
+        if out["layers"][p] != r["layers"] or out["stopped_at"][p] != r["stopped_at"]:
+            fail(f"[lightglue] pair {p}: layers {out['layers'][p]} against {r['layers']}")
+        for a in (0, 1):
+            if not torch.equal(out[f"pruned_at{a}"][p].cpu(), r[f"slot_pruned{a}"]):
+                fail(f"[lightglue] pair {p}: image {a}'s kept sets differ")
+        if not torch.equal(out["matches0"][p].cpu(), r["slot_matches0"]):
+            fail(f"[lightglue] pair {p}: matches0 differ")
+        worst = max(worst, float((t.port_scores(out, p)[0].cpu() - r["scores"]).abs().max()))
+    if worst > LIGHTGLUE_ABS:
+        fail(f"[lightglue] log assignment {worst:.3e} from the reference (> {LIGHTGLUE_ABS})")
+    graphs = len(lg.graphs)
+    if graphs < 3:
+        fail(f"[lightglue] {graphs} graphs captured; the chunk's layers run eagerly")
+    # Each captured step (a layer and its pruning) replayed on fresh
+    # inputs against the same step run eagerly.
+    g = torch.Generator(device=DEV).manual_seed(3)
+    for key, (static, _, _) in list(lg.graphs.entries.items()):
+        if key[0] != "step":
+            continue
+        _, group, i, b, width, _, _ = key
+        fresh = [torch.randn(v.shape, generator=g, device=DEV) if k < 3 else v.clone()
+                 for k, v in enumerate(static)]
+        st = type("S", (), {})()
+        st.x, st.cos, st.sin, st.ind, st.mask = fresh[:5]
+        with torch.inference_mode():
+            replayed = [v.clone() for v in lg.step(i, st, fresh[5], b, True, group)]
+            eager = lg._step(i, *fresh, b, True)
+        gap = float((replayed[0] - eager[0]).abs().max())
+        if gap > LIGHTGLUE_GRAPH_REL * float(eager[0].abs().max()) or not all(
+                torch.equal(r, e) for r, e in zip(replayed[1:], eager[1:])):
+            fail(f"[lightglue] layer {i} at width {width}: the graph differs from the eager run "
+                 f"(x by {gap:.3e})")
+        log(f"[lightglue] group {group}, layer {i}, {b} pairs, width {width}: graph against "
+            f"eager {gap:.3e}")
+    log(f"[lightglue] 3 pairs: layers {out['layers']}, kept sets and matches0 equal to the "
+        f"reference, log assignment within {worst:.3e}; {graphs} graphs (steps, assignments, "
+        "the prologue)")
+    _lightglue_full_width(torch)
+
+
+def _lightglue_full_width(torch):
+    """make_lightglue_pair_matcher at the published widths: 4096 keypoint
+    slots, 256-d, 4 heads of 64, 9 layers, the floor at 1536, a chunk of
+    LG_FULL_PAIRS pairs in two groups. Pair p is frame 2p against frame 2p
+    + 1, the same points in another slot order with a tenth dropped; frame
+    2p holds 4096 - 300p valid points; pair 3's second frame holds none,
+    so that it leaves after layer 0 and its group goes on with 3 pairs.
+    Upstream-layout weights drawn from a seed, the FFNs' outputs at 1/20
+    and the final projection at 16x (so that matches carry through the
+    layers); layer 0's token-confidence and matchability biases set from
+    the reference's logits on pair 0 (half of the points confident, 40%
+    unmatchable: some 20% pruned), layers 1 to 4 confident on no point,
+    layer 5 on every point (every pair stops after 6 layers). K8's calls
+    counted from zero: eagerly (the graphs off), 2 a layer a group; the
+    first graphed call, 4 (each step run once, then captured); the second,
+    none (replays). Each pair held against tests/lightglue_reference.py on
+    the card: its layers, its kept sets (decisions within LG_FULL_EPS of
+    the reference's threshold taught from the program), matches0 on rows
+    whose decision lies outside LG_FULL_EPS, and the log assignment over
+    the kept points within LIGHTGLUE_ABS."""
+    import numpy as np
+
+    import lightglue_reference as ref
+    import test_torch_lightglue as t
+
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.models import lightglue as mod
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from onepose_tpu_torch.parallel.sfm_parallel import make_lightglue_pair_matcher
+
+    c, heads, layers, n, size = 256, 4, 9, 4096, (512, 512)
+    g = torch.Generator().manual_seed(11)
+    w = {name: (torch.ones(shape) if bound is None
+                else (torch.rand(shape, generator=g) * 2 - 1) * bound)
+         for name, shape, bound in ref.specs(c, heads, layers)}
+    for name in w:
+        if name.endswith(("ffn.3.weight", "ffn.3.bias")):
+            w[name] = w[name] * 0.05
+        elif name.endswith("final_proj.weight"):
+            w[name] = w[name] * 16
+    frames = 2 * LG_FULL_PAIRS
+    kp = torch.rand(frames, n, 2, generator=g) * 512
+    desc = torch.nn.functional.normalize(torch.randn(frames, n, c, generator=g), dim=-1)
+    mask = torch.zeros(frames, n, dtype=torch.bool)
+    for p in range(LG_FULL_PAIRS):
+        a, b = 2 * p, 2 * p + 1
+        mask[a, torch.randperm(n, generator=g)[:n - 300 * p]] = True
+        perm = torch.randperm(n, generator=g)
+        kp[b], desc[b] = kp[a][perm], desc[a][perm]
+        mask[b] = mask[a][perm] & (torch.rand(n, generator=g) > 0.1)
+    mask[7] = False
+    pairs = np.array([[2 * p, 2 * p + 1] for p in range(LG_FULL_PAIRS)])
+    wd = {k: v.to(DEV) for k, v in w.items()}
+    kpd, dd, md = kp.to(DEV), desc.to(DEV), mask.to(DEV)
+
+    def valid(f):
+        v = md[f].nonzero()[:, 0]
+        return v, kpd[f][v], dd[f][v]
+
+    # Layer 0's biases from the reference's logits on pair 0.
+    (_, k0, d0), (_, k1, d1) = valid(0), valid(1)
+    x = [d0, d1]
+    enc = [ref.posenc(wd, ref.normalize_keypoints(k, size)) for k in (k0, k1)]
+    x = [ref.self_block(wd, "transformers.0.self_attn", x[a], enc[a], heads) for a in (0, 1)]
+    x = torch.cat(ref.cross_block(wd, "transformers.0.cross_attn", x[0], x[1], heads))
+    tl = x @ wd["token_confidence.0.token.0.weight"][0]
+    zl = x @ wd["log_assignment.0.matchability.weight"][0]
+    biases = {"token_confidence.0.token.0.bias":
+              ref.logit(ref.confidence_threshold(0, layers)) - float(tl.median()),
+              "log_assignment.0.matchability.bias":
+              ref.logit(0.01) - float(torch.quantile(zl, 0.4))}
+    for layer in range(1, layers - 1):
+        biases[f"token_confidence.{layer}.token.0.bias"] = 30.0 if layer == 5 else -30.0
+    for name, value in biases.items():
+        w[name] = torch.full_like(w[name], value)
+        wd[name] = w[name].to(DEV)
+    sd = {k: torch.from_numpy(v) for k, v in convert.lightglue_from_torch(w, heads).items()}
+    feats = {"keypoints": kp.numpy(), "descriptors": desc.numpy(), "mask": mask.numpy(),
+             "scores": np.ones((frames, n), np.float32), "image_hw": size[::-1]}
+
+    def matcher():
+        lg = mod.LightGlue(c, heads, layers, 0.95, 0.99, 0.1, 1536)
+        lg.load_state_dict(sd)
+        return lg, make_lightglue_pair_matcher(lg, feats, pair_chunk=8, device=DEV)
+
+    runs, counts = {}, {}
+    for label in ("eager", "captured", "replayed"):
+        if label != "replayed":
+            lg, match = matcher()
+        graphs_on = mod._graphs_on
+        if label == "eager":
+            mod._graphs_on = lambda t: False
+        try:
+            torch.cuda.synchronize()
+            reset_launches()  # this call's counts: 0 just before it, read just after
+            with torch.inference_mode():
+                runs[label] = (match(pairs), dict(lg.stats))
+            torch.cuda.synchronize()
+            counts[label] = launch_counts()["flash_attention"]
+        finally:
+            mod._graphs_on = graphs_on
+    if match.chunk != LG_FULL_PAIRS:
+        fail(f"[lightglue] full width: chunk {match.chunk}, want {LG_FULL_PAIRS}")
+    st = runs["eager"][1]
+    steps = 2 * max(st["layers"])  # both groups run as deep as their deepest pair
+    want = {"eager": 2 * steps, "captured": 4 * steps, "replayed": 0}
+    if counts != want:
+        fail(f"[lightglue] full width: K8 calls {counts}, want {want} (2 a layer a group)")
+    for label in ("captured", "replayed"):
+        if not np.array_equal(runs[label][0], runs["eager"][0]) or runs[label][1]["layers"] != (
+                st["layers"]):
+            fail(f"[lightglue] full width: the {label} graphs' matches differ from the eager run")
+    lg.eval()
+    with torch.inference_mode():  # the decisions and log assignments, for the reference
+        out = lg(kpd[0::2], kpd[1::2], dd[0::2], dd[1::2], md[0::2], md[1::2], size, size)
+    if not np.array_equal(out["matches0"].cpu().numpy(), runs["eager"][0]):
+        fail("[lightglue] full width: forward and the pair matcher differ")
+    conf = dict(ref.CONF, pruning_min_keypoints=1536)
+    worst, taught, differ, matched = 0.0, 0, 0, 0
+    for p in range(LG_FULL_PAIRS):
+        (v0, k0, d0), (v1, k1, d1) = valid(2 * p), valid(2 * p + 1)
+        program = {"stopped_at": out["stopped_at"][p], "pruned_at0": out["pruned_at0"][p][v0],
+                   "pruned_at1": out["pruned_at1"][p][v1]}
+        r = ref.match_pair(wd, k0, k1, d0, d1, size, size, conf, program=program,
+                           eps=LG_FULL_EPS)
+        want_layers = 0 if p == 3 else 6
+        if (out["layers"][p], r["layers"]) != (want_layers, want_layers) or r["stop_faults"] or (
+                r["kept_faults"]):
+            fail(f"[lightglue] full width, pair {p}: layers {out['layers'][p]} / {r['layers']} "
+                 f"(want {want_layers}), decisions outside {LG_FULL_EPS} differing: stop "
+                 f"{r['stop_faults']}, kept {r['kept_faults']}")
+        taught += r["taught"]
+        if p == 3:
+            if bool((out["matches0"][p] >= 0).any()):
+                fail("[lightglue] full width: the empty pair matched")
+            continue
+        if p == 0 and int((out["pruned_at0"][p] == 0).sum()) < 0.1 * len(v0):
+            fail("[lightglue] full width: layer 0 pruned under a tenth of pair 0's points")
+        scores, s0, s1 = t.port_scores(out, p)
+        if not (torch.equal(s0, v0[r["ind0"]]) and torch.equal(s1, v1[r["ind1"]])):
+            fail(f"[lightglue] full width, pair {p}: the kept points differ from the reference's")
+        worst = max(worst, float((scores - r["scores"]).abs().max()))
+        pm = out["matches0"][p][v0]
+        rm = torch.where(r["matches0"] >= 0, v1[r["matches0"].clamp(min=0)], -1)
+        inner = r["scores"][:-1, :-1]
+        top = inner.topk(2, dim=1).values
+        near = torch.zeros(len(v0), dtype=torch.bool, device=DEV)
+        near[r["ind0"]] = ((top[:, 0] - top[:, 1] < LG_FULL_EPS)
+                           | ((top[:, 0] - math.log(0.1)).abs() < LG_FULL_EPS))
+        differ += int(((pm != rm) & ~near).sum())
+        matched += int((rm >= 0).sum())
+    if worst > LIGHTGLUE_ABS or differ > LG_FULL_PAIRS or matched < 100 * (LG_FULL_PAIRS - 1):
+        fail(f"[lightglue] full width: log assignment within {worst:.3e} (<= {LIGHTGLUE_ABS}), "
+             f"{differ} sure matches differing, {matched} reference matches")
+    log(f"[lightglue] full width ({LG_FULL_PAIRS} pairs, 4096 slots, 256-d, 4 heads of 64): "
+        f"layers {out['layers']}, pair 0 pruned {int((out['pruned_at0'][0] == 0).sum())} of "
+        f"{int(md[0].sum())} after layer 0; K8 calls {counts} (2 a layer a group: "
+        f"{steps} group-layers); {len(lg.graphs)} graphs; against the reference: kept sets equal "
+        f"({taught} decisions within {LG_FULL_EPS} taught), log assignment within {worst:.3e}, "
+        f"{matched} matches, {differ} sure ones differing")
 
 
 def phase_pairs(torch, rows):
@@ -5725,6 +5966,8 @@ def main(argv=None) -> int:
             timed("bench", phase_bench, smi)
         if "sp_variants" in phases:
             timed("sp_variants", phase_sp_variants, smi)
+        if "lightglue" in phases:
+            timed("lightglue", phase_lightglue, torch)
     finally:
         if "root" in _WORLD:
             import shutil

@@ -3,7 +3,8 @@ sequences and the feature detector.
 
 Port of onepose_tpu/cli/common.py: `load_superpoint_params`,
 `load_superglue_params`, `load_matcher_params`, `build_matcher`,
-`extract_sequence_features` and `build_feature_detector`. The JAX
+`extract_sequence_features` and `build_feature_detector`; and, with no
+JAX counterpart, `load_lightglue_params` for `map`'s LightGlue. The JAX
 package's persistent compilation cache has no counterpart (nothing is
 compiled per call here). The port's "params" are a module's state_dict:
 - `weights=None` gives a deterministic random init: the module's Linear
@@ -90,6 +91,22 @@ def load_superglue_params(model, weights: Optional[str], seed: int = 0) -> dict:
     """SuperGlue state_dict from a msgpack checkpoint or a PyTorch weight
     file, or the seeded random init when weights is None."""
     return _load(model, weights, seed, bridge.superglue_state_dict, "superglue")
+
+
+def load_lightglue_params(model, weights: Optional[str], seed: int = 0) -> dict:
+    """LightGlue state_dict from upstream's PyTorch weight file
+    (`superpoint_lightglue.pth`, through `models.convert.
+    lightglue_from_torch`), or the seeded random init when weights is None.
+    The JAX package has no LightGlue, so there is no msgpack form."""
+    if weights is None:
+        return _random_init(model, seed)
+    if not weights.endswith(TORCH_WEIGHTS):
+        raise ValueError(f"LightGlue weights must be a PyTorch weight file {TORCH_WEIGHTS}, "
+                         f"got {weights!r}")
+    from onepose_tpu_torch.models import convert
+
+    sd = convert.lightglue_from_torch(convert.load_torch_state_dict(weights))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def load_matcher_params(model, weights: Optional[str], seed: int = 0) -> dict:

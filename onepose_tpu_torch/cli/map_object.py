@@ -10,7 +10,13 @@ Port of onepose_tpu/cli/map_object.py, whole: the same config keys, the
 same artifacts and cache fingerprints (so either package resumes from the
 other's caches and reads the other's maps), one more key, `device`
 ("cuda" unless the caller names "cpu"; the fingerprints leave it out, so a
-cache resumes across devices). On the card SuperPoint runs the NMS kernel
+cache resumes across devices), and one more matcher, `matcher: lightglue`
+(no JAX counterpart; `parallel.sfm_parallel.make_lightglue_pair_matcher`,
+its attention on K8 on the card): its weights from `weights.lightglue`
+(upstream's `superpoint_lightglue.pth`, or the seeded random init) and its
+conf from the optional `lightglue` keys (`LIGHTGLUE_CONF`: upstream's
+`default_conf`, 1536 keypoints as the pruning floor); neither key is in
+DEFAULTS, so the shipped presets resolve as in JAX. On the card SuperPoint runs the NMS kernel
 (bit-exact with the plain NMS) and no VGG-stage kernel (it rounds taps to
 bf16 even in fp32, where the JAX `map` runs plain convolutions); SuperGlue
 routes its Sinkhorn as the port does by default (4096 keypoints: the
@@ -46,7 +52,7 @@ DEFAULTS = {
     "data_dir": None,  # sequence root (color/, poses_ba/, intrin_ba/)
     "out_dir": None,  # defaults to <data_dir>/../outputs
     "weights": {"superpoint": None, "superglue": None},
-    "matcher": "nn",  # 'nn' | 'superglue'
+    "matcher": "nn",  # 'nn' | 'superglue' | 'lightglue'
     "max_keypoints": 1024,
     "keypoint_threshold": 0.005,
     # SuperGlue match threshold for SfM pair matching — the reference's
@@ -90,6 +96,17 @@ DEFAULTS = {
 }
 
 
+# LightGlue's conf for `matcher: lightglue` (upstream's default_conf with
+# the SuperPoint features); cfg["lightglue"] overrides any of it.
+LIGHTGLUE_CONF = {"n_layers": 9, "num_heads": 4, "depth_confidence": 0.95,
+                  "width_confidence": 0.99, "filter_threshold": 0.1,
+                  "pruning_min_keypoints": 1536}
+
+
+def lightglue_conf(cfg: dict) -> dict:
+    return {**LIGHTGLUE_CONF, **(cfg.get("lightglue") or {})}
+
+
 def _file_hash(path: str) -> str:
     import hashlib
 
@@ -114,6 +131,17 @@ def _extraction_fingerprint(cfg: dict) -> str:
 
 
 def _matcher_fingerprint(cfg: dict, feature_fingerprint: str) -> str:
+    if cfg["matcher"] == "lightglue":
+        w = cfg["weights"].get("lightglue")
+        return json.dumps(
+            {
+                "matcher": "lightglue",
+                "conf": lightglue_conf(cfg),
+                "weights": _file_hash(w) if w and osp.exists(w) else "random-init",
+                "features": feature_fingerprint,
+            },
+            sort_keys=True,
+        )
     w = cfg["weights"]["superglue"]
     return json.dumps(
         {
@@ -334,7 +362,20 @@ def _run_object(cfg: dict, data_dir: str, out_dir, mesh) -> dict:
                 fingerprint=feat_fp,
             )
 
-    if cfg["matcher"] == "nn":
+    if cfg["matcher"] == "lightglue":
+        from onepose_tpu_torch.cli.common import load_lightglue_params
+        from onepose_tpu_torch.models.lightglue import LightGlue
+        from onepose_tpu_torch.parallel.sfm_parallel import make_lightglue_pair_matcher
+
+        lg = LightGlue(descriptor_dim=feats["descriptors"].shape[-1], **lightglue_conf(cfg))
+        lg.load_state_dict(load_lightglue_params(lg, cfg["weights"].get("lightglue")))
+        match_pairs = make_lightglue_pair_matcher(
+            lg, feats,
+            mesh=mesh,
+            pair_chunk=cfg["pair_chunk"],
+            device=dev,
+        )
+    elif cfg["matcher"] == "nn":
         match_pairs = make_nn_pair_matcher(
             feats["descriptors"],
             feats["mask"],

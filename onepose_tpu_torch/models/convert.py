@@ -148,6 +148,37 @@ def gats_spg_from_torch(state_dict: dict, num_blocks: int = 4) -> dict:
     return {"params": params}
 
 
+def lightglue_qkv_perm(d_model: int, num_heads: int) -> np.ndarray:
+    """Row permutation of a LightGlue self block's `Wqkv` from upstream's
+    interleaved order (output channel 3 * (D * h + j) + s: head h, channel
+    j of q, k or v for s = 0, 1, 2) to the port's [q | k | v], each
+    head-major (s * d_model + D * h + j). perm[port row] = upstream row."""
+    D = d_model // num_heads
+    return np.array([3 * (D * h + j) + s for s in range(3) for h in range(num_heads)
+                     for j in range(D)])
+
+
+def lightglue_from_torch(state_dict: dict, num_heads: int = 4) -> dict:
+    """LightGlue state dict (cvg/LightGlue `lightglue/lightglue.py`, the
+    released `superpoint_lightglue.pth`: `posenc.Wr`,
+    `transformers.{l}.self_attn.{Wqkv, out_proj, ffn.0, ffn.1, ffn.3}`,
+    `transformers.{l}.cross_attn.{to_qk, to_v, to_out, ffn.*}`,
+    `log_assignment.{l}.{matchability, final_proj}`,
+    `token_confidence.{l}.token.0`) -> {name: array} of the port's
+    `models.lightglue.LightGlue`: the same names, `Wqkv`'s rows reordered
+    (`lightglue_qkv_perm`); the thresholds buffer (`confidence_thresholds`,
+    recomputed by the port) is dropped."""
+    out = {}
+    for name, value in state_dict.items():
+        if name == "confidence_thresholds":
+            continue
+        arr = _to_np(value)
+        if ".self_attn.Wqkv." in name:
+            arr = arr[lightglue_qkv_perm(arr.shape[0] // 3, num_heads)]
+        out[name] = arr
+    return out
+
+
 CONVERTERS = {
     "superpoint": superpoint_from_torch,
     "superglue": superglue_from_torch,

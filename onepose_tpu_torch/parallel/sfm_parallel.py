@@ -7,7 +7,7 @@ bucket of 32), each chunk of pairs is gathered on the device, and only the
 pair indices go up and the [chunk, N] match rows come down. The last chunk
 is padded by repeating its first pair, and its extra rows are dropped.
 
-Both `make_*` functions return `match_pairs(pairs) -> np.ndarray [P, N]
+Each `make_*` function returns `match_pairs(pairs) -> np.ndarray [P, N]
 int64` (-1 unmatched), the callable that the SfM mapping consumes. With a
 `mesh` (`parallel.mesh`; `resolve_sfm_mesh` turns the `data_parallel`
 config value into one over the ranks), every rank holds the features and
@@ -33,6 +33,9 @@ F_BUCKET = 32  # frame-axis padding quantum
 # holds about 3 [N+1, N+1] fp32 couplings (4096 keypoints: 201 MB a pair,
 # so chunks of 7).
 HBM_GUARD_BYTES = 1.5e9
+# LightGlue's assignment holds three [N+1, N+1] fp32 buffers a pair at once
+# (the scores and the two log-softmaxes that sum into them).
+LIGHTGLUE_ASSIGN_BUFFERS = 3
 
 
 def resolve_sfm_mesh(data_parallel, device: str | torch.device = "cuda"):
@@ -71,6 +74,13 @@ def _put(arrays: dict, device: torch.device) -> dict:
 def superglue_chunk(n_keypoints: int, pair_chunk: int) -> int:
     """`pair_chunk` capped by HBM_GUARD_BYTES of couplings in flight."""
     per_pair = 3 * 4 * (n_keypoints + 1) ** 2
+    return min(pair_chunk, max(1, int(HBM_GUARD_BYTES // per_pair)))
+
+
+def lightglue_chunk(n_keypoints: int, pair_chunk: int) -> int:
+    """`pair_chunk` capped by HBM_GUARD_BYTES of LightGlue's assignment
+    buffers in flight (4096 keypoints: 201 MB a pair, so chunks of 7)."""
+    per_pair = LIGHTGLUE_ASSIGN_BUFFERS * 4 * (n_keypoints + 1) ** 2
     return min(pair_chunk, max(1, int(HBM_GUARD_BYTES // per_pair)))
 
 
@@ -161,6 +171,44 @@ def make_superglue_pair_matcher(
         k, d, s, m = (arrays[x] for x in ("kpts", "desc", "scores", "mask"))
         return superglue(k[ii], k[jj], d[ii], d[jj], s[ii], s[jj], hw, hw, m[ii],
                          m[jj])["matches0"]
+
+    def match_pairs(pairs) -> np.ndarray:
+        pairs = np.asarray(pairs)
+        if len(pairs) == 0:
+            return np.zeros((0, n_kpts), np.int64)
+        return _run_chunked(match, pairs, chunk, dev, mesh)
+
+    match_pairs.chunk = chunk
+    return match_pairs
+
+
+def make_lightglue_pair_matcher(
+    lightglue,
+    feats: dict,
+    mesh=None,
+    pair_chunk: int = 8,
+    device: str | torch.device = "cuda",
+):
+    """Batched LightGlue pair matcher over extracted sequence features.
+
+    lightglue: a `models.lightglue.LightGlue` holding its parameters
+    (`cli.common.load_lightglue_params`); it is moved to the device.
+    feats as `make_superglue_pair_matcher`'s (scores unused). A chunk's
+    pairs run together, each stopping and pruning on its own
+    (`LightGlue.forward`), `pair_chunk` capped by `lightglue_chunk` (per
+    rank over a mesh)."""
+    dev = resolve_device(device)
+    lightglue.to(dev)
+    arrays = _put({"kpts": feats["keypoints"], "desc": feats["descriptors"],
+                   "mask": feats["mask"]}, dev)
+    h, w = (int(x) for x in feats["image_hw"])
+    n_kpts = np.asarray(feats["keypoints"]).shape[1]
+    n_data = 1 if mesh is None else mesh.axis_size(DATA_AXIS)
+    chunk = _chunk_size(min(pair_chunk, lightglue_chunk(n_kpts, pair_chunk) * n_data), mesh)
+
+    def match(ii, jj):
+        k, d, m = (arrays[x] for x in ("kpts", "desc", "mask"))
+        return lightglue(k[ii], k[jj], d[ii], d[jj], m[ii], m[jj], (w, h), (w, h))["matches0"]
 
     def match_pairs(pairs) -> np.ndarray:
         pairs = np.asarray(pairs)
