@@ -41,10 +41,16 @@ Phases, each printing its lines before the last:
      against the plain version, the forward's, the backward's and both's
      times beside the plain version's and scaled_dot_product_attention's
      (the yardstick, timed only here) and beside 3xTF32 bounds;
-  3. the RANSAC-PnP oracle: synthetic matches with a known pose, 0.5 px
-     noise and 30% outliers, recovered within 1 cm and 1 degree; and a
-     batch whose Gauss-Newton system is singular for some frame (ROADMAP
-     C20): no raise, ok and inliers equal to the CPU's;
+  3. RANSAC-PnP, K9 on the card: the oracle (synthetic matches with a
+     known pose, 0.5 px noise and 30% outliers, recovered within 1 cm and
+     1 degree); K9 against the plain version on the card at the serving
+     shape [64, 1000, 512] (about 210 valid matches a frame), the
+     tracker's [1, 1000, 128], the C20 batch and with epnp_refit (ok
+     identical, num_inliers within 1% or 1, pose gap under the serving
+     judge's 0.0035, non-finite where the plain version is), both timed
+     beside the bound; and a batch whose Gauss-Newton system is singular
+     for some frame (ROADMAP C20): no raise, ok and inliers equal to the
+     CPU's;
   4. the serving paths: PosePipeline at batch 8, 512 x 512, 1000 keypoints,
      2000 x 8 points, 512 hypotheses, 4 blocks, d_model 256, 4 heads,
      random weights from a seed, in bf16 (the serving default: NMS, VGG
@@ -144,9 +150,9 @@ Phases, each printing its lines before the last:
      rows, each measured at or above its bound; batches 8 to 64),
      `onepose_tpu_torch.scripts.bench_train_step` (finite losses), and the
      ports of the last measurement scripts, each with its launches:
-     `profile_pnp` (RANSAC-PnP's sub-stages: ms, CUDA kernels, host syncs;
-     none in the refine), `bench_pair_batching` (batched matches equal to
-     serial), `bench_matcher_parts`, `bench_mixed_attention`,
+     `profile_pnp` (RANSAC-PnP whole and K9's two launches alone: ms, CUDA
+     kernels, K9 launches, no host sync), `bench_pair_batching` (batched
+     matches equal to serial), `bench_matcher_parts`, `bench_mixed_attention`,
      `profile_sp_layers`, `profile_superpoint_parts` and `demo_pipeline`
      (parse-scan, map and demo with tracking on a rendered ARKit capture);
  14. SuperPoint's front end in its semantics-preserving forms (phase
@@ -237,6 +243,9 @@ BLOCK_BF16_REL = 2e-2  # K4 in bf16: max |kernel - plain| / max |plain|
 # score by a few 1e-4 relative and a unit descriptor's entries by about 1e-3.
 BF16_SCORE_REL, BF16_DESC_ABS = 2e-3, 5e-3
 RANSAC = dict(batch=8, matches=1000, hypotheses=512)
+PNP_LAUNCHES = 2  # K9 a ransac_pnp call on the card: launch A, then B (A, B1, B2 with epnp_refit)
+K9_SERVE = (64, 1000, 512)  # frames, matches, hypotheses of a serving call
+K9_POSE_GAP = 0.0035  # serve_b64's pose_gap limit (portbench/limits/serve_b64.json)
 MAIN = dict(batch=8, size=512, keypoints=1000, points=2000, leaves=8, hypotheses=512, blocks=4)
 TIMED_CALLS = 10
 # With random weights no pair clears the shipped threshold of 0.2 (conf
@@ -1795,36 +1804,137 @@ def _synthetic_matches(torch, g, b, n, outlier_frac=0.3, noise=0.5):
     return pts2d, pts3d, K, pose
 
 
-def phase_ransac(torch):
+def phase_ransac(torch, rows):
     from onepose_tpu_torch.geometry import aggregate_metrics, query_pose_error, ransac_pnp
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
 
     g = torch.Generator(device=DEV).manual_seed(1)
     b, n = RANSAC["batch"], RANSAC["matches"]
     pts2d, pts3d, K, pose_gt = _synthetic_matches(torch, g, b, n)
     mask = torch.ones((b, n), dtype=torch.bool, device=DEV)
     mask[:, n - 100:] = False  # padded slots
+    reset_launches()
     out = ransac_pnp(pts2d, pts3d, K, mask, n_hyp=RANSAC["hypotheses"], generator=g)
+    torch.cuda.synchronize()
+    n_launch = launch_counts()["ransac_pnp"]
     rot, trans = query_pose_error(out["pose"], pose_gt)
     log(f"[ransac] {b} frames x {n} matches, 30% outliers, 0.5 px noise: rot err max "
         f"{float(rot.max()):.4f} deg, trans err max {float(trans.max()):.4f} cm, inliers "
-        f"{out['num_inliers'].tolist()}, recall {aggregate_metrics(rot, trans)}")
+        f"{out['num_inliers'].tolist()}, recall {aggregate_metrics(rot, trans)}; K9 launches "
+        f"{n_launch} (want {PNP_LAUNCHES})")
     if not (bool(out["ok"].all()) and float(rot.max()) < 1.0 and float(trans.max()) < 1.0):
         fail("RANSAC-PnP oracle outside 1 cm / 1 degree")
+    if n_launch != PNP_LAUNCHES:
+        fail(f"RANSAC-PnP on the card launched K9 {n_launch} times, want {PNP_LAUNCHES}")
+    _ransac_k9(torch, rows)
     _ransac_singular(torch)
 
 
-def _ransac_singular(torch):
-    """ROADMAP C20 on the card: 8 frames of 16 matches with 3D points on a
-    0.1 grid, integer pixels and 1 to 3 valid matches a frame (as
-    tests/test_torch_geometry.py::_gridded_batch makes them, seed 17) and
-    draws from default_rng(1017): a batch whose refine has an exactly
-    singular normal matrix in fp32, on which torch.linalg.solve raised on
-    the CPU. The batch must not raise, and ok, num_inliers and inliers must
-    equal the CPU's for the same draws."""
+def _k9_inputs(torch, g, b, n, h, valid):
+    """[b, n] synthetic matches (30% outliers, 0.5 px noise) of which about
+    `valid` a frame are valid (85% to 115% of it, in random slots), and
+    draws [b, h, 3]."""
+    pts2d, pts3d, K, _ = _synthetic_matches(torch, g, b, n)
+    k = (valid * (0.85 + 0.3 * torch.rand((b, 1), generator=g, device=DEV))).long()
+    rank = torch.rand((b, n), generator=g, device=DEV).argsort(dim=1).argsort(dim=1)
+    return pts2d, pts3d, K, rank < k, torch.rand((b, h, 3), generator=g, device=DEV)
+
+
+def _k9_against_plain(torch, label, args, kw) -> tuple:
+    """K9 (`ransac_pnp` on the card) against the plain version on the same
+    tensors and draws: ok identical, num_inliers within 1% or 1 inlier,
+    pose gap (Frobenius norm of the 4 x 4 difference) under K9_POSE_GAP on
+    every ok frame, non-finite poses where the plain version's are. Returns
+    (K9's launches, worst pose gap, worst inlier difference)."""
+    from onepose_tpu_torch.geometry.ransac import ransac_pnp, ransac_pnp_plain
+    from onepose_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    got = ransac_pnp(*args, **kw)
+    torch.cuda.synchronize()
+    n_launch = launch_counts()["ransac_pnp"]
+    want = ransac_pnp_plain(*args, **kw)
+    got, want = ({k: v.cpu() for k, v in o.items()} for o in (got, want))
+    same_ok = torch.equal(got["ok"], want["ok"])
+    n_w = want["num_inliers"].double()
+    d_in = (got["num_inliers"].double() - n_w).abs()
+    inl_fine = bool((d_in <= torch.clamp(0.01 * n_w, min=1.0)).all())
+    fin_g, fin_w = (torch.isfinite(o["pose"]).flatten(1).all(-1) for o in (got, want))
+    gap = (got["pose"] - want["pose"]).flatten(1).norm(dim=-1)
+    judged = want["ok"] & fin_w
+    worst = float(gap[judged].max()) if bool(judged.any()) else 0.0
+    log(f"[ransac] K9 {label} {list(args[0].shape[:2]) + [kw['n_hyp']]}"
+        f"{' epnp_refit' if kw.get('epnp_refit') else ''}: ok identical {same_ok} "
+        f"({int(want['ok'].sum())} of {len(want['ok'])} ok); num_inliers largest difference "
+        f"{float(d_in.max()):g} (mean plain {float(n_w.mean()):.1f}); pose gap max {worst:.3e} "
+        f"on {int(judged.sum())} ok frames (< {K9_POSE_GAP}); non-finite poses where the plain "
+        f"version's are: {torch.equal(fin_g, fin_w)}; launches {n_launch}")
+    if not (same_ok and inl_fine and worst < K9_POSE_GAP and torch.equal(fin_g, fin_w)):
+        fail(f"K9 differs from the plain RANSAC-PnP at {label}")
+    return n_launch, worst, float(d_in.max())
+
+
+def _ransac_k9(torch, rows):
+    """K9 against the plain version at the serving shape (about 210 valid
+    matches a frame, 30% outliers), the tracker's, the C20 batch and with
+    epnp_refit; times at the serving shape beside the plain version's and
+    the bound (operations over the valid matches, `utils.costs.ransac_pnp`).
+    The row's launches are the main path's (phase main)."""
     import numpy as np
 
-    from onepose_tpu_torch.geometry import ransac_pnp
+    from onepose_tpu_torch.geometry.ransac import ransac_pnp, ransac_pnp_plain
+    from onepose_tpu_torch.tracker.ba_tracker import TrackerConfig
+    from onepose_tpu_torch.utils import costs
+    from onepose_tpu_torch.utils.profiling import FlushTimer
 
+    g = torch.Generator(device=DEV).manual_seed(28)
+    b, n, h = K9_SERVE
+    serve = _k9_inputs(torch, g, b, n, h, 210)
+    hyp = TrackerConfig().ransac_hyp
+    track = _k9_inputs(torch, g, 1, TRACKER["points"], hyp, 300)
+    pts2d, pts3d, K, mask, draws = (torch.from_numpy(x).to(DEV) for x in _gridded_c20(np))
+    cases = [("serving", serve, {}), ("tracker", track, {}),
+             ("C20 batch", (pts2d, pts3d, K, mask, draws), {}),
+             ("serving", tuple(x[:16] for x in serve), {"epnp_refit": True})]
+    worst_gap, worst_in, n_serve = 0.0, 0.0, None
+    for label, args, kw in cases:
+        kw = dict(kw, n_hyp=args[4].shape[1], draws=args[4])
+        n_launch, gap, d_in = _k9_against_plain(torch, label, args[:4], kw)
+        want = PNP_LAUNCHES + (1 if kw.get("epnp_refit") else 0)
+        if n_launch != want:
+            fail(f"K9 at {label} launched {n_launch} times, want {want}")
+        worst_gap, worst_in = max(worst_gap, gap), max(worst_in, d_in)
+        n_serve = n_launch if n_serve is None else n_serve
+    timer = FlushTimer(DEV)
+    with torch.inference_mode():
+        ms = timer(lambda: ransac_pnp(*serve[:4], draws=serve[4], n_hyp=h))
+        plain = timer(lambda: ransac_pnp_plain(*serve[:4], draws=serve[4], n_hyp=h), reps=5)
+    # The row's bound counts the valid matches alone, the work K9 does; the
+    # loose count over every match is logged beside it.
+    n_valid = float(serve[3].sum(-1).double().mean())
+    n_ops, n_bytes = costs.ransac_pnp(b, n, h, n_valid=n_valid)
+    bound_ms, by = bound(n_bytes, n_ops)
+    all_ops = costs.ransac_pnp(b, n, h)[0]
+    log(f"[ransac] K9 {list(K9_SERVE)}: {ms:.4f} ms a call (CUDA events, L2 flushed, median), "
+        f"the plain version {plain:.4f} ms, bound {bound_ms:.4f} ms ({by}: {n_ops / 1e9:.3f} "
+        f"GFLOP fp32 over {n_valid:.1f} valid matches a frame, {n_bytes / 1e6:.2f} MB; over "
+        f"every match {all_ops / 1e9:.3f} GFLOP, {bound(n_bytes, all_ops)[0]:.4f} ms); "
+        f"{n_serve} launches a call at the serving shape")
+    rows["ransac_pnp"] = dict(
+        name="ransac_pnp", route="cuda", source="onepose_tpu_torch/csrc/ransac_pnp.cu",
+        replaces="none (geometry/ransac.py::ransac_pnp, one XLA program in JAX)",
+        launches=None, max_abs_err=worst_gap, ms=ms, plain_ms=plain,
+        bound_ms=bound_ms, bound_by=by, library_ms=None,
+        extra={"max_num_inliers_diff": worst_in})
+
+
+def _gridded_c20(np):
+    """ROADMAP C20's batch: 8 frames of 16 matches with 3D points on a 0.1
+    grid, integer pixels and 1 to 3 valid matches a frame (as
+    tests/test_torch_geometry.py::_gridded_batch makes them, seed 17), and
+    draws [8, 64, 3] from default_rng(1017): (pts2d, pts3d, K, mask,
+    draws) as numpy arrays."""
     rng = np.random.default_rng(17)
     b, n = 8, 16
     pts3d = (rng.integers(-3, 4, size=(b, n, 3)) * 0.1).astype(np.float32)
@@ -1835,8 +1945,22 @@ def _ransac_singular(torch):
     K = np.broadcast_to(np.array([[600.0, 0, 256], [0, 600.0, 256], [0, 0, 1]], np.float32),
                         (b, 3, 3)).copy()
     draws = np.random.default_rng(1017).random((b, 64, 3)).astype(np.float32)
-    outs = [ransac_pnp(*(torch.from_numpy(x).to(dev) for x in (pts2d, pts3d, K, mask, draws)),
-                       n_hyp=64) for dev in (DEV, "cpu")]
+    return pts2d, pts3d, K, mask, draws
+
+
+def _ransac_singular(torch):
+    """ROADMAP C20 on the card: `_gridded_c20`'s batch, whose refine has an
+    exactly singular normal matrix in fp32, on which torch.linalg.solve
+    raised on the CPU. The batch must not raise, and ok, num_inliers and
+    inliers must equal the CPU's for the same draws."""
+    import numpy as np
+
+    from onepose_tpu_torch.geometry import ransac_pnp
+
+    arrays = _gridded_c20(np)
+    outs = [ransac_pnp(*(torch.from_numpy(x).to(dev) for x in arrays[:4]),
+                       draws=torch.from_numpy(arrays[4]).to(dev), n_hyp=64)
+            for dev in (DEV, "cpu")]
     card, cpu = ({k: v.cpu() for k, v in o.items()} for o in outs)
     same = all(torch.equal(card[k], cpu[k]) for k in ("ok", "num_inliers", "inliers"))
     log(f"[ransac] C20 (a singular refine in the batch): no raise; ok {card['ok'].tolist()}, "
@@ -2014,7 +2138,7 @@ def phase_main(torch, rows):
     draws = torch.rand((B, HYP, 3), generator=g, device=DEV)
 
     nb = MAIN["blocks"]
-    none = dict.fromkeys(launch_counts(), 0)
+    none = {**dict.fromkeys(launch_counts(), 0), "ransac_pnp": PNP_LAUNCHES}  # K9 on every path
     want = {"bf16 on": {**none, "nms": 1, "vgg_stage": 4, "gats_block": nb, "dual_softmax": 1},
             "fp32 on": {**none, "nms": 1, "gats": nb, "dual_softmax": 1}}
     res = {}
@@ -2025,11 +2149,12 @@ def phase_main(torch, rows):
         res[label] = pipe(imgs, K, anno, draws=draws)
         torch.cuda.synchronize()
         counts = launch_counts()
-        expect = want.get(label, dict.fromkeys(counts, 0))
+        expect = want.get(label, none)
         log(f"[main] launches in one {label} PosePipeline call: {counts} (want {expect})")
         if counts != expect:
             fail(f"the {label} path did not launch each kernel as expected")
-        keys = {"bf16 on": ("vgg_stage", "gats_block"), "fp32 on": ("nms", "gats", "dual_softmax")}
+        keys = {"bf16 on": ("vgg_stage", "gats_block", "ransac_pnp"),
+                "fp32 on": ("nms", "gats", "dual_softmax")}
         for key in keys.get(label, ()):
             if key in rows:
                 rows[key]["launches"] = counts[key]
@@ -3813,7 +3938,8 @@ def phase_train(torch, rows):
     metrics, counts, _, sec, _ = _infer(torch, [
         "infer", f"data_dir={sub}", "matcher=gats", f"anno_dir={anno_dir}",
         f"weights.superpoint={w['sp_ckpt']}", f"weights.matcher={ckpt}"], DEV, "trained")
-    want = {**{k: 0 for k in counts}, "nms": 1, "gats": 4, "dual_softmax": 1}
+    want = {**{k: 0 for k in counts}, "nms": 1, "gats": 4, "dual_softmax": 1,
+            "ransac_pnp": PNP_LAUNCHES}
     log(f"[train] infer matcher=gats with {ckpt.name} on 8 frames: {metrics}, {sec:.2f} s; "
         f"launches {counts} (want {want})")
     if counts != want or metrics["num_frames"] != 8:
@@ -4347,13 +4473,15 @@ def _infer_roster(torch, np, w, B: int):
         metrics, counts, sec, ms, served = _roster_infer(torch, seqs, DEV, label, w, mixed,
                                                          "infer")
         nb = sum(-(-n // B) for n in frames) if not mixed else -(-sum(frames) // B)
-        want = {**{k: 0 for k in counts}, "nms": nb, "gats": 4 * nb, "dual_softmax": nb}
+        want = {**{k: 0 for k in counts}, "nms": nb, "gats": 4 * nb, "dual_softmax": nb,
+                "ransac_pnp": PNP_LAUNCHES * nb}
         per_seq = {k: v["num_frames"] for k, v in metrics["per_seq"].items()}
         log(f"[infer] ({label}) match_threshold {MATCH_THRESHOLD}: {sum(frames)} frames in "
             f"{nb} batches of {B}, {ms:.1f} ms a batch through the pipeline, {sec:.2f} s in "
             f"all; frames by sequence {per_seq}; metrics "
             f"{ {k: v for k, v in metrics.items() if k != 'per_seq'} }, per sequence "
-            f"{metrics['per_seq']}; launches {counts} (want per batch K1 1, K2 4, K3 1: {want})")
+            f"{metrics['per_seq']}; launches {counts} (want per batch K1 1, K2 4, K3 1, K9 "
+            f"{PNP_LAUNCHES}: {want})")
         if counts != want or len(served) != nb:
             fail(f"infer ({label}) launched {counts} in {len(served)} batches, want {want}")
         if per_seq != dict(zip(names, frames)) or metrics["num_frames"] != sum(frames):
@@ -4393,7 +4521,8 @@ def _infer_roster(torch, np, w, B: int):
             f"launches {counts}")
         if dev != "cpu":
             nb = len(served)
-            want = {**{k: 0 for k in counts}, "nms": nb, "gats": 4 * nb, "dual_softmax": nb}
+            want = {**{k: 0 for k in counts}, "nms": nb, "gats": 4 * nb, "dual_softmax": nb,
+                    "ransac_pnp": PNP_LAUNCHES * nb}
             if counts != want or nb != (1 if mixed else 2):
                 fail(f"infer ({label}) launched {counts} in {nb} batches, want {want}")
     first = [(0, f) for f in range(ROSTER_SMALL)]
@@ -4453,7 +4582,7 @@ def phase_infer(torch):
         per = clock.s["batch"] / nb
         each = clock.each["batch"]
         want = {k: 0 for k in counts}
-        want["nms"] = nb
+        want.update(nms=nb, ransac_pnp=PNP_LAUNCHES * nb)
         if matcher == "gats":
             want.update(gats=4 * nb, dual_softmax=nb)
         side = _preset("detect")["crop_size"] if "crops" in label else CLI_SCENE["img"]
@@ -4464,7 +4593,7 @@ def phase_infer(torch):
             f"{each[0] * 1e3:.1f}; {frames / clock.s['batch']:.1f} frames/s; "
             f"{frames / sec:.1f} with decode, annotation and evaluation), peak device memory "
             f"{peak:.2f} GiB; launches {counts} (want per batch K1 1"
-            f"{', K2 4, K3 1' if matcher == 'gats' else ''}, no other: {want})")
+            f"{', K2 4, K3 1' if matcher == 'gats' else ''}, K9 {PNP_LAUNCHES}, no other: {want})")
         if counts != want or metrics["num_frames"] != frames:
             fail(f"infer ({label}) launched {counts}, want {want}")
     _infer_roster(torch, np, w, B)
@@ -4678,9 +4807,9 @@ def phase_tracker(torch):
         f"{every[0]:.1f}, median of the rest {np.median(every[1:]):.1f} (keyframe-cadence "
         f"frames: median {np.median(kfm):.1f} over {len(kfm)}; others {np.median(other[1:]):.1f}"
         f" over {len(other) - 1}); peak device memory {peak:.3f} GiB ({resident:.3f} GiB "
-        f"resident at the reset); kernel launches {counts} (want none: the tracker runs no "
-        f"hand-written kernel)")
-    if any(counts.values()):
+        f"resident at the reset); kernel launches {counts} (want K9 only, {PNP_LAUNCHES} a "
+        f"tracked frame: the flow PnP; no other hand-written kernel)")
+    if counts != {**dict.fromkeys(counts, 0), "ransac_pnp": PNP_LAUNCHES * len(outs)}:
         fail(f"the tracker launched {counts}")
     pose, image, kp, ds, m, ids = frames[-1]
     p3d = np.full(TRACKER["points"], -1, np.int32)
@@ -4853,11 +4982,13 @@ def phase_demo(torch, rows):
         if not (s["num_frames"] == F and s["n_matcher"] + s["n_flow_track"] == F and video
                 and s["n_detect"] + s["n_box_track"] == F):
             fail(f"demo ({label}) did not serve every frame")
+        # K9: each matcher frame's pose and each tracked frame's flow PnP.
         want = {k: 0 for k in counts}
         want.update(nms=db_batches + s["n_detect"] + s["n_matcher"] + s["n_flow_track"],
-                    gats=4 * s["n_matcher"], dual_softmax=s["n_matcher"])
+                    gats=4 * s["n_matcher"], dual_softmax=s["n_matcher"],
+                    ransac_pnp=PNP_LAUNCHES * (s["n_matcher"] + s["n_flow_track"]))
         if counts != want or (s["n_flow_track"] and per_t != {"nms": 1.0}) or per_m != {
-                "nms": 1.0, "gats": 4.0, "dual_softmax": 1.0}:
+                "nms": 1.0, "gats": 4.0, "dual_softmax": 1.0, "ransac_pnp": PNP_LAUNCHES}:
             fail(f"demo ({label}) launched {counts}, want {want}")
         if label == "b" and s["n_flow_track"] == 0:
             fail("demo (b) tracked no frame")
@@ -5240,9 +5371,10 @@ class _MultiWork:
         n_calls = 2 if path.startswith("stage_") else 1
         if path.endswith("bf16"):
             want.update(nms=n_calls, vgg_stage=4 * n_calls, gats_block=nb * n_calls,
-                        dual_softmax=n_calls)
+                        dual_softmax=n_calls, ransac_pnp=PNP_LAUNCHES * n_calls)
         elif path.endswith("fp32"):
-            want.update(nms=n_calls, gats=nb * n_calls, dual_softmax=n_calls)
+            want.update(nms=n_calls, gats=nb * n_calls, dual_softmax=n_calls,
+                        ransac_pnp=PNP_LAUNCHES * n_calls)
         elif path.endswith("_matcher"):
             want.update(gats=nb)
         elif path.startswith("pairs_"):
@@ -5576,14 +5708,14 @@ BENCH_RUNS = (
      ["{capture}", "--with-tracking"], None),
 )
 DEMO_PIPELINE_TIMEOUT = 420
-PNP_ROWS = ["pnp_fixed", "pnp_varying", "sample", "sample+p3p", "subset_score_sort",
-            "full_score", "gn_refine"]
+PNP_ROWS = {"pnp_fixed": PNP_LAUNCHES, "pnp_varying": PNP_LAUNCHES, "hypotheses": 1,
+            "refine": 1}  # profile_pnp's rows and K9's launches in one call of each
 SP_PARTS = {"encoder only (bf16, K5)": {"vgg_stage": 4}, "encoder only (bf16, plain convs)": {},
             "full dense fwd (bf16, K5 + K1)": {"nms": 1, "vgg_stage": 4},
             "full dense fwd (bf16, plain)": {}, "simple_nms r=4 (fp32, K1)": {"nms": 1},
             "simple_nms r=4 (fp32, plain)": {}, "full dense fwd (fp32, K1)": {"nms": 1},
             "full dense fwd (fp32, plain)": {}}
-MIXED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "dual_softmax": 1}
+MIXED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "dual_softmax": 1, "ransac_pnp": PNP_LAUNCHES}
 # A20: scripts/demo_pipeline.sh's layout, a capture of phase cli's object
 # rendered as phase detect renders its queries (full DETECT_HW frames,
 # CLI_SCENE's focal length, the two rings) and written as ARKit files:
@@ -5592,7 +5724,8 @@ MIXED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "dual_softmax": 1}
 # whole run inside its time limit); map at configs/map.yaml's width with phase
 # cli's weights, demo as phase demo (b).
 A20 = dict(annotate=16, test=4)
-BENCH_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1}
+BENCH_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1,
+                  "ransac_pnp": PNP_LAUNCHES}
 ROOFLINE_STAGES = ("superpoint_dense", "extract_keypoints", "gats_spg_matcher", "ransac_pnp",
                    "fused_pipeline")
 ROOFLINE_SWEEP = [8, 16, 32, 64]
@@ -5716,16 +5849,16 @@ def _bench_checks(label: str, last: dict, smi: str) -> None:
     if label == "profile_pnp":
         out = last["profile_pnp"]
         by = {r["stage"]: r for r in out["rows"]}
-        if list(by) != PNP_ROWS or out["launches"] != {}:
-            fail(f"profile_pnp's rows {list(by)}, launches {out['launches']}")
+        if list(by) != list(PNP_ROWS):
+            fail(f"profile_pnp's rows {list(by)}, want {list(PNP_ROWS)}")
         for r in out["rows"]:
             log(f"[bench] {smi}: profile_pnp {r['stage']}: {r['ms']:.3f} ms, {r['kernels']} CUDA "
-                f"kernels ({r['device_ms']} device ms), {r['syncs']} host syncs "
-                f"{r['sync_lines']}")
-            if not (r["ms"] > 0 and r["kernels"]):
+                f"kernels ({r['device_ms']} device ms), K9 launches {r['launches']} (want "
+                f"{PNP_ROWS[r['stage']]}), {r['syncs']} host syncs {r['sync_lines']}")
+            if not (r["ms"] > 0 and r["kernels"]) or r["launches"] != PNP_ROWS[r["stage"]]:
                 fail(f"profile_pnp's {r['stage']} row: {r}")
-        if by["gn_refine"]["syncs"]:
-            fail(f"the Gauss-Newton refine syncs the host: {by['gn_refine']['sync_lines']}")
+            if r["syncs"]:
+                fail(f"RANSAC-PnP's {r['stage']} syncs the host: {r['sync_lines']}")
         log(f"[bench] {smi}: profile_pnp stage sum {out['stage_sum_ms']:.3f} ms against the "
             f"whole call {out['whole_ms']:.3f} ms")
     elif label == "pair_batching":
@@ -5786,7 +5919,8 @@ def _bench_checks(label: str, last: dict, smi: str) -> None:
         s = cmds[3]["summary"]
         want = {k: 0 for k in cmds[3]["launches"]}
         want.update(nms=-(-parsed // 8) + s["n_detect"] + s["n_matcher"] + s["n_flow_track"],
-                    gats=4 * s["n_matcher"], dual_softmax=s["n_matcher"])
+                    gats=4 * s["n_matcher"], dual_softmax=s["n_matcher"],
+                    ransac_pnp=PNP_LAUNCHES * (s["n_matcher"] + s["n_flow_track"]))
         map_want = {**dict.fromkeys(want, 0), "nms": -(-cmds[0]["summary"]["num_frames"] // 8)}
         if any(any(c["launches"].values()) for c in cmds[:2]) or \
                 cmds[2]["launches"] != map_want or cmds[3]["launches"] != want or \
@@ -5941,7 +6075,7 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             rows = timed("kernels", phase_kernels, torch, FlushTimer(DEV))
         if "ransac" in phases:
-            timed("ransac", phase_ransac, torch)
+            timed("ransac", phase_ransac, torch, rows)
         if "main" in phases:
             timed("main", phase_main, torch, rows)
         if "pairs" in phases:

@@ -68,7 +68,8 @@ DESC_DIM = 256
 
 # Kernel launches of one serving call (bf16, kernels on, 4 blocks); every
 # other kernel of `ops.kernels.launch_counts()` launches 0 times.
-EXPECTED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1}
+EXPECTED_LAUNCHES = {"nms": 1, "vgg_stage": 4, "gats_block": 4, "dual_softmax": 1,
+                     "ransac_pnp": 2}
 
 
 def log(msg: str) -> None:

@@ -17,10 +17,17 @@ Ties: hypotheses are ranked by integer inlier counts, where ties are the
 norm, so every top-k is a stable descending sort (lowest index first, as
 jax.lax.top_k) and argmax takes the first maximum, as jnp.argmax does.
 
-Spans (`utils.profiling.span`), in order: `pnp.sample` (the inputs in
-fp32, the minimal samples), `pnp.p3p`, `pnp.preempt`, `pnp.score`,
-`pnp.refine` (the EPnP re-solve and Gauss-Newton), `pnp.final` (the
-final inliers and the pose).
+Devices: `ransac_pnp` runs the plain version below (`ransac_pnp_plain`)
+on CPU tensors and K9, the CUDA kernel pair of `ops/kernels/ransac_pnp.py`,
+on CUDA tensors; on any other device it raises. It never falls back.
+
+Spans (`utils.profiling.span`) of the plain version, in order: `pnp.sample`
+(the inputs in fp32, the minimal samples), `pnp.p3p`, `pnp.preempt`,
+`pnp.score`, `pnp.refine` (the EPnP re-solve and Gauss-Newton), `pnp.final`
+(the final inliers and the pose). On the card: `pnp.hypotheses` (the inputs
+and launch A), `pnp.refine` (launch B); with epnp_refit `pnp.score` (launch
+B's second scoring) before `pnp.refine` (the EPnP choice, then the rest of
+launch B).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from onepose_tpu_torch.geometry.epnp import epnp_solve
 from onepose_tpu_torch.geometry.p3p import p3p_solve
 from onepose_tpu_torch.geometry.rotations import angle_axis_to_rotmat, rotmat_to_angle_axis
+from onepose_tpu_torch.ops.kernels import ransac_pnp as k9
 from onepose_tpu_torch.utils.precision import fp32_matmuls
 from onepose_tpu_torch.utils.profiling import span
 
@@ -188,6 +196,18 @@ def _score_kept(Rs, ts, oks, keep, pts2d, pts3d_s, K, mask, reproj_threshold: fl
             _take(counts, best)[:, 0])
 
 
+def _uniform_draws(draws, B: int, n_hyp: int, generator, dev) -> torch.Tensor:
+    """draws [B, n_hyp, 3] as fp32 on `dev`, drawn with `generator` when None."""
+    dtype = torch.float32
+    if draws is None:
+        draws = torch.rand((B, n_hyp, 3), generator=generator, dtype=dtype,
+                           device=generator.device if generator is not None else dev)
+    draws = draws.to(device=dev, dtype=dtype)
+    if draws.shape != (B, n_hyp, 3):
+        raise ValueError(f"draws must be [{B}, {n_hyp}, 3], got {tuple(draws.shape)}")
+    return draws
+
+
 @fp32_matmuls()
 def ransac_pnp(
     pts2d: torch.Tensor,
@@ -210,7 +230,60 @@ def ransac_pnp(
     scored. Returns dict(pose [B, 4, 4], R, t, inliers [B, N],
     num_inliers [B], ok [B]); t in the input's units. epnp_refit adds the
     EPnP re-solve on the inliers as an initialization candidate of the
-    Gauss-Newton refinement."""
+    Gauss-Newton refinement. `ransac_pnp_plain` on CPU tensors, K9 on CUDA
+    tensors; a raise on any other device."""
+    args = (pts2d, pts3d, K, mask, draws, reproj_threshold, n_hyp, refine_iters, scale,
+            epnp_refit, generator)
+    if pts2d.device.type == "cpu":
+        return ransac_pnp_plain(*args)
+    return _ransac_pnp_card(*args)
+
+
+def _ransac_pnp_card(pts2d, pts3d, K, mask, draws, reproj_threshold, n_hyp, refine_iters,
+                     scale, epnp_refit, generator) -> dict:
+    """`ransac_pnp` as K9: launch A, then launch B; with epnp_refit, launch
+    B's second scoring, the EPnP choice of `ransac_pnp_plain` on the card,
+    then the rest of launch B from the chosen pose."""
+    dtype = torch.float32
+    with span("pnp.hypotheses"):
+        pts2d, pts3d, K = (x.to(dtype).contiguous() for x in (pts2d, pts3d, K))
+        mask = mask.contiguous()
+        draws = _uniform_draws(draws, pts2d.shape[0], n_hyp, generator, pts2d.device)
+        hyp = k9.hypotheses(pts2d, pts3d, K, mask, draws.contiguous(), reproj_threshold, scale)
+    if not epnp_refit:
+        with span("pnp.refine"):
+            return k9.refine(hyp, pts2d, pts3d, K, mask, reproj_threshold, refine_iters, scale)
+    with span("pnp.score"):
+        best = k9.score(hyp, pts2d, pts3d, K, mask, reproj_threshold, scale)
+    with span("pnp.refine"):
+        pts3d_s = pts3d * scale
+        R_ref, t_ref, ok_ref = epnp_solve(pts3d_s, pts2d, K, best.inliers)
+        inl = best.inliers.to(dtype)
+        use_ref = ok_ref & ((_reproj_err(R_ref, t_ref, K, pts3d_s, pts2d) * inl).sum(-1)
+                            <= (_reproj_err(best.R, best.t, K, pts3d_s, pts2d) * inl).sum(-1))
+        R1 = torch.where(use_ref[:, None, None], R_ref, best.R)
+        t1 = torch.where(use_ref[:, None], t_ref, best.t)
+        return k9.refine(hyp, pts2d, pts3d, K, mask, reproj_threshold, refine_iters, scale,
+                         start=k9.start_from(R1, t1, best))
+
+
+@fp32_matmuls()
+def ransac_pnp_plain(
+    pts2d: torch.Tensor,
+    pts3d: torch.Tensor,
+    K: torch.Tensor,
+    mask: torch.Tensor,
+    draws: Optional[torch.Tensor] = None,
+    reproj_threshold: float = 5.0,
+    n_hyp: int = 512,
+    refine_iters: int = 5,
+    scale: float = 1000.0,
+    epnp_refit: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> dict:
+    """`ransac_pnp` in plain PyTorch, on any device: what `ransac_pnp` runs
+    on CPU tensors, and K9's yardstick on the card (where `ransac_pnp`
+    never takes it)."""
     dtype = torch.float32
     dev = pts2d.device
     B = pts2d.shape[0]
@@ -218,12 +291,7 @@ def ransac_pnp(
         pts2d = pts2d.to(dtype)
         pts3d_s = pts3d.to(dtype) * scale
         K = K.to(dtype)
-        if draws is None:
-            draws = torch.rand((B, n_hyp, 3), generator=generator, dtype=dtype,
-                               device=generator.device if generator is not None else dev)
-        draws = draws.to(device=dev, dtype=dtype)
-        if draws.shape != (B, n_hyp, 3):
-            raise ValueError(f"draws must be [{B}, {n_hyp}, 3], got {tuple(draws.shape)}")
+        draws = _uniform_draws(draws, B, n_hyp, generator, dev)
 
         order, n_valid = _valid_first(mask)
         idx = _sample_minimal_sets(draws, order, n_valid)  # [B, H, 3]

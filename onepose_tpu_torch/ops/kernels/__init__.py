@@ -14,6 +14,7 @@ Each module holds the wrapper that launches its CUDA kernel (sources in
 | sinkhorn      | sinkhorn.py::sinkhorn_potentials          | csrc/sinkhorn.cu   |
 | sinkhorn_stream | sinkhorn_stream.py::sinkhorn_potentials_streamed | csrc/sinkhorn_stream.cu |
 | flash_attention | JAX's library flash attention, reached by models/common.py::_flash_softmax_attention (not under ops/pallas/) | csrc/flash_attention.cu |
+| ransac_pnp    | none: geometry/ransac.py::ransac_pnp, which XLA compiles whole (K9) | csrc/ransac_pnp.cu |
 
 Three kernels carry a gradient, as the JAX package's custom VJPs do, each
 an autograd.Function whose forward is the kernel (one launch, counted) and
@@ -35,7 +36,8 @@ entry up to 118784, the two-sweep entry above) count their launches
 together, as `sinkhorn_stream_wide`. `dual_softmax`
 counts one per call: a cooperative launch after a memset of its scratch.
 `score_path` counts one per call: one CUDA kernel up to radius 9, five
-above.
+above. `ransac_pnp` counts each of its launches: two a call
+(`geometry.ransac.ransac_pnp` on CUDA tensors), three with epnp_refit.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from onepose_tpu_torch.ops.kernels import (
     flash_attention,
     gats,
     gats_block,
+    ransac_pnp,
     score_path,
     sinkhorn,
     sinkhorn_stream,
@@ -69,6 +72,7 @@ _COUNTERS = {
     "sinkhorn_stream_wide": (sinkhorn_stream, "wide_launches"),
     "flash_attention": (flash_attention, "launches"),
     "flash_attention_bwd": (flash_attention, "bwd_launches"),
+    "ransac_pnp": (ransac_pnp, "launches"),
 }
 
 

@@ -34,7 +34,11 @@ NVCC_FLAGS = (
     "--ptxas-options=-v",  # registers / shared memory / spills in the build log
 )
 KERNELS = ("score_path", "gats", "dual_softmax", "vgg_stage", "gats_block", "sinkhorn",
-           "sinkhorn_stream", "flash_attention")
+           "sinkhorn_stream", "flash_attention", "ransac_pnp")
+# Flags of one source only, after NVCC_FLAGS. RANSAC-PnP rounds every
+# product and sum on its own, as the plain version's tensor ops do: no FMA
+# contraction (see csrc/ransac_pnp.cu).
+EXTRA_FLAGS = {"ransac_pnp": ("-fmad=false",)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> (argtypes, restype).
@@ -75,6 +79,10 @@ SIGNATURES = {
         "flash_attention_bwd_dkv_launch": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
         "flash_attention_bwd_dq_launch": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
     },
+    "ransac_pnp": {
+        "ransac_pnp_hypotheses_launch": ([_P] * 5 + [_I] * 3 + [_F, _F] + [_P] * 3, _I),
+        "ransac_pnp_refine_launch": ([_P] * 6 + [_I] * 3 + [_F, _F, _I, _I] + [_P] * 10, _I),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -99,7 +107,7 @@ def library_path(name: str) -> Path:
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -132,7 +140,8 @@ def build(names=KERNELS) -> dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

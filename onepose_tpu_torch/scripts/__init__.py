@@ -2,8 +2,8 @@
 
 The counterparts of `scripts/`: `roofline_audit` (the serving pipeline's
 stages against the card's peaks), `bench_train_step` (the GATsSPG
-training step), `profile_pnp` (RANSAC-PnP's sub-stages: time, launches,
-host syncs), `audit_collectives` (the collective bytes of the
+training step), `profile_pnp` (RANSAC-PnP's two launches on the card:
+time, launches, host syncs), `audit_collectives` (the collective bytes of the
 points-sharded matcher and the train step, over ranks),
 `bench_pair_batching` (map's batched pair matchers against the serial
 loop), `bench_matcher_parts` (GATsSPG with 0, 2 and 4 blocks),

@@ -117,17 +117,22 @@ def gats_spg_matcher(batch: int, n2: int, n3: int, leaves: int, c: int = 256, he
     return flops, n_bytes
 
 
-def ransac_pnp(batch: int, n_kpts: int, n_hyp: int, refine_iters: int = 5) -> tuple[int, int]:
+def ransac_pnp(batch: int, n_kpts: int, n_hyp: int, refine_iters: int = 5,
+               n_valid: float | None = None) -> tuple[int, int]:
     """RANSAC-PnP as `geometry.ransac.ransac_pnp` runs it, counted loosely:
     P3P per hypothesis, the first scoring of its four poses on 128 points,
     the second of 64 survivors on every point, the Gauss-Newton refine and
-    the final error. It is a rounding error of the whole call. Bytes: the
-    keypoints, points, K, mask and draws in; pose, R, t, inliers, their
-    count and ok out."""
-    n_sub, n_keep = min(128, n_kpts), min(64, 4 * n_hyp)
+    the final error. It is a rounding error of the whole call. With
+    `n_valid` (valid matches a frame, a mean), the scorings, the refine and
+    the final error count the valid matches alone, the work K9 does; the
+    refine still counts every valid match where it works on the inliers, so
+    it is an upper count either way. Bytes: the keypoints, points, K, mask
+    and draws in; pose, R, t, inliers, their count and ok out."""
+    n_pts = n_kpts if n_valid is None else n_valid
+    n_sub, n_keep = min(128, n_pts), min(64, 4 * n_hyp)
     flops = batch * (n_hyp * P3P_OPS + 4 * n_hyp * n_sub * REPROJ_OPS
-                     + n_keep * n_kpts * REPROJ_OPS + refine_iters * n_kpts * GN_OPS
-                     + n_kpts * REPROJ_OPS)
+                     + n_keep * n_pts * REPROJ_OPS + refine_iters * n_pts * GN_OPS
+                     + n_pts * REPROJ_OPS)
     inputs = batch * (n_kpts * (5 * _F32 + 1) + 9 * _F32 + n_hyp * 3 * _F32)
     outputs = batch * ((16 + 9 + 3) * _F32 + n_kpts + 8 + 1)
     return flops, inputs + outputs

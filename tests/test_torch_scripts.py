@@ -8,9 +8,10 @@ tests/test_torch_sp_variants.py, and here only raise without CUDA.
 
 Each entry point runs on the card and raises here; these tests hold its
 building blocks, with an explicit CPU device:
-- A16: the sub-stages that the profile times compose to ransac_pnp's
-  pose and inliers for injected draws, and each row's function runs on
-  the stages' outputs;
+- A16: the plain version's sub-stages compose to ransac_pnp's pose and
+  inliers for injected draws, and each of the profile's rows runs (K9's
+  launches computed by the plain stages), the refine row giving the
+  whole call's pose;
 - A17: over 2 gloo ranks (tests/torch_rank_worker.py), the per-block
   collective volume is the same at two N3 and equals the closed form;
   the recorder counts nothing when off;
@@ -62,6 +63,7 @@ from onepose_tpu_torch.scripts import (
 from onepose_tpu_torch.utils import comm, costs
 from onepose_tpu_torch.utils.profiling import host_syncs
 from test_torch_geometry import _ransac_batch
+from test_torch_ransac_kernel import _PlainKernels
 from test_torch_scan import capture  # noqa: F401  (a fixture)
 from torch_ranks import spawn
 
@@ -73,10 +75,11 @@ AUDIT = dict(n3s=[48, 96], b=2, n2=16, leaves=2, c=64, blocks=2)
 
 # --- A16 ------------------------------------------------------------------
 
-def test_pnp_sub_stages_compose_to_ransac_pnp():
-    """ransac_pnp's sub-stages, called as the profile calls them, give its
-    refined pose (where a frame is ok) and its consensus, for injected
-    draws; each row of build_stages runs on the stages' outputs."""
+def test_pnp_sub_stages_compose_to_ransac_pnp(monkeypatch):
+    """ransac_pnp's sub-stages give its refined pose (where a frame is ok)
+    and its consensus, for injected draws; each row of build_stages runs
+    (K9's launches computed by the plain stages on the CPU), and launch B
+    on the fixed draws' launch A gives the whole call's pose."""
     pts2d, pts3d, K, mask, _ = (torch.from_numpy(x) for x in _ransac_batch(seed=5))
     n_hyp, thr = 32, 5.0
     draws = torch.from_numpy(np.random.default_rng(1).random((2, n_hyp, 3)).astype(np.float32))
@@ -91,17 +94,20 @@ def test_pnp_sub_stages_compose_to_ransac_pnp():
     assert torch.equal(want["pose"][:, :3, :3], R2)
     assert torch.equal(want["pose"][:, :3, 3], t2 / profile_pnp.SCALE)
 
+    fake = _PlainKernels()
+    monkeypatch.setattr(profile_pnp, "k9", fake)
     gen = torch.Generator().manual_seed(0)
     stages = profile_pnp.build_stages(pts2d, pts3d, K, mask, gen, n_hyp=n_hyp, threshold=thr)
-    assert list(stages) == ["pnp_fixed", "pnp_varying", "sample", "sample+p3p",
-                            "subset_score_sort", "full_score", "gn_refine"]
+    assert list(stages) == ["pnp_fixed", "pnp_varying", "hypotheses", "refine"]
     assert set(profile_pnp.STAGE_SUM) < set(stages)
-    for name, (fn, args) in stages.items():
-        out = fn(*args)
+    outs = {name: fn(*args) for name, (fn, args) in stages.items()}
+    for name, out in outs.items():
         assert torch.isfinite(out.float()).all(), name
-    assert stages["subset_score_sort"][0](*stages["subset_score_sort"][1]).shape == (2, 64)
+    assert outs["hypotheses"].shape == (2, 4 * n_hyp, 2)
+    assert torch.equal(outs["refine"], outs["pnp_fixed"])
+    assert fake.calls == ["A", "A", "B"]
     rows = [{"stage": s, "ms": 1.0} for s in stages]
-    out = profile_pnp.summary("card", rows, {})["profile_pnp"]
+    out = profile_pnp.summary("card", rows)["profile_pnp"]
     assert out["stage_sum_ms"] == len(profile_pnp.STAGE_SUM) and out["whole_ms"] == 1.0
 
 
